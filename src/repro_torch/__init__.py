@@ -1,0 +1,15 @@
+"""PyTorch port of the ``repro`` serving stack for NVIDIA Hopper (sm_90a).
+
+A package beside ``src/repro/`` (the JAX reference, which stays as it
+is): module names follow the JAX package so each file's counterpart is
+easy to find.  It imports ``torch`` and numpy only — never ``jax`` and
+nothing of ``repro``; what it needs from a ``repro`` module it keeps a
+copy of.
+
+Covered so far: the dense family (``granite-3-2b``, ``qwen3-1.7b``)
+served by ``serve.engine.ContinuousBatchingEngine``, with paged
+attention in a hand-written CUDA kernel
+(``kernels/paged_attention/csrc/paged_attention.cu``).  Entry points run
+on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU every
+kernel wrapper runs its plain PyTorch version.
+"""

@@ -1,0 +1,46 @@
+"""Model configuration schema (dense subset of ``repro.configs.base``).
+
+A copy of the fields the dense family reads, with the same names and
+defaults so a config reads the same in both packages.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+
+def pad_to_multiple(x: int, multiple: int) -> int:
+    return int(math.ceil(x / multiple) * multiple)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                   # only "dense" is served by this port so far
+    n_layers: int
+    d_model: int
+    n_heads: int                  # query heads
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    qk_norm: bool = False
+    rope_theta: float = 1e4
+    attn_logit_softcap: float = 0.0
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    vocab_pad_multiple: int = 256
+    notes: str = ""
+
+    @property
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def padded_vocab(self) -> int:
+        return pad_to_multiple(self.vocab_size, self.vocab_pad_multiple)
+

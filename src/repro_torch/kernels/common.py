@@ -1,0 +1,93 @@
+"""Device checks and the nvcc build helper shared by the kernel families.
+
+Kernels are CUDA C++ with a plain C interface, compiled by ``nvcc`` for
+``sm_90a`` into a shared library and loaded with ``ctypes``.  The build
+runs at first use, on the machine with the card, into ``build/kernels/``
+at the repository root (git-ignored); the library's file name carries a
+hash of its sources and flags, so an edited source rebuilds and an
+unchanged one is loaded as it is.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+from typing import Sequence, Tuple
+
+import torch
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parents[3]
+BUILD_DIR = REPO_ROOT / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+REQUIRED_CAPABILITY: Tuple[int, int] = (9, 0)
+
+
+def resolve_device(device=None) -> torch.device:
+    """An entry point's device: ``cuda`` unless the caller names one."""
+    return torch.device("cuda" if device is None else device)
+
+
+def require_hopper(device: torch.device) -> None:
+    """Raise unless ``device`` is a CUDA device of capability (9, 0)."""
+    if device.type != "cuda":
+        raise RuntimeError(
+            f"the CUDA kernel needs tensors on a CUDA device, got {device}")
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA tensor given but no CUDA device is present")
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    cap = _capability(index)
+    if cap != REQUIRED_CAPABILITY:
+        raise RuntimeError(
+            f"kernel built for sm_90a needs capability "
+            f"{REQUIRED_CAPABILITY}, {torch.cuda.get_device_name(index)} "
+            f"has {cap}")
+
+
+@functools.lru_cache(maxsize=None)
+def _capability(index: int) -> Tuple[int, int]:
+    return torch.cuda.get_device_capability(index)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path:
+        return path
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME)")
+
+
+def library_path(name: str, sources: Sequence[pathlib.Path]) -> pathlib.Path:
+    """Where ``build_library`` puts the library for these sources."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(pathlib.Path(src).read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
+    """Compile ``sources`` with nvcc (once per content hash) and load the
+    shared library.  Raises with nvcc's output if the build fails."""
+    out = library_path(name, sources)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            os.unlink(tmp)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) building {name}:\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)            # atomic: a reader never sees half
+    return ctypes.CDLL(str(out))
+

@@ -1,0 +1,147 @@
+"""The LM (dense family): parameters, decode-mode forward, slotted cache.
+
+Counterpart of ``repro.models.model.LM`` for the dense family.  The
+parameters are a dict with the JAX tree's keys — ``embed.table``,
+``final_norm.scale``, ``unembed.table`` when untied — except that the
+layer stack is a list of per-layer dicts (``stack[i]`` holds ``ln1``,
+``attn``, ``ln2``, ``mlp``) instead of leaves with a leading layer axis.
+Weights are random, drawn from an explicit ``torch.Generator``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.common import resolve_device
+from repro_torch.models import attention, blocks, decode_state, layers
+from repro_torch.models.layers import dtype_of
+
+Params = Dict[str, Any]
+
+
+class LM:
+    def __init__(self, cfg: ModelConfig, device=None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.param_dtype = dtype_of(cfg.param_dtype)
+        self.compute_dtype = dtype_of(cfg.compute_dtype)
+        # the family's DecodeState adapter (raises for families not ported)
+        self.decode_state = decode_state.get_adapter(cfg.family)
+
+    # ------------------------------------------------------------------
+    # params
+    # ------------------------------------------------------------------
+    def _normal(self, gen, shape, scale):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=self.device) * scale
+        return w.to(self.param_dtype)
+
+    def _ones(self, n):
+        return torch.ones((n,), dtype=self.param_dtype, device=self.device)
+
+    def _dense(self, gen, d_in, d_out, scale=None):
+        return {"w": self._normal(gen, (d_in, d_out),
+                                  d_in ** -0.5 if scale is None else scale)}
+
+    def init_params(self, generator: torch.Generator) -> Params:
+        """Random parameters with the reference's initializer scales,
+        drawn from ``generator`` (which must live on ``self.device``)."""
+        cfg = self.cfg
+        d, h = cfg.d_model, cfg.resolved_head_dim
+        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+        g = generator
+        p: Params = {
+            "embed": {"table": self._normal(g, (cfg.padded_vocab, d), 0.02)},
+            "final_norm": {"scale": self._ones(d)},
+        }
+        if not cfg.tie_embeddings:
+            p["unembed"] = {"table": self._normal(g, (cfg.padded_vocab, d),
+                                                  0.02)}
+        stack = []
+        for _ in range(cfg.n_layers):
+            attn = {
+                "wq": self._dense(g, d, nq * h),
+                "wk": self._dense(g, d, nkv * h),
+                "wv": self._dense(g, d, nkv * h),
+                "wo": self._dense(g, nq * h, d, (nq * h) ** -0.5),
+            }
+            if cfg.qk_norm:
+                attn["q_norm"] = {"scale": self._ones(h)}
+                attn["k_norm"] = {"scale": self._ones(h)}
+            stack.append({
+                "ln1": {"scale": self._ones(d)},
+                "attn": attn,
+                "ln2": {"scale": self._ones(d)},
+                "mlp": {"gate": self._dense(g, d, cfg.d_ff),
+                        "up": self._dense(g, d, cfg.d_ff),
+                        "down": self._dense(g, cfg.d_ff, d,
+                                            cfg.d_ff ** -0.5)},
+            })
+        p["stack"] = stack
+        return p
+
+    # ------------------------------------------------------------------
+    # cache (DecodeState protocol)
+    # ------------------------------------------------------------------
+    def init_cache(self, batch: int, max_len: int) -> Params:
+        return self.decode_state.init(self, batch, max_len)
+
+    def cache_specs(self) -> Params:
+        return self.decode_state.specs(self)
+
+    def cache_row(self, cache: Params, slot: int) -> Params:
+        """Batch row ``slot`` as a batch-1 cache of views (in place)."""
+        return decode_state.state_row(cache, self.cache_specs(), slot)
+
+    def set_cache_row(self, cache: Params, slot: int, row: Params) -> Params:
+        return decode_state.set_state_row(cache, self.cache_specs(), slot,
+                                          row)
+
+    def reset_cache_slots(self, cache: Params,
+                          slot_mask: torch.Tensor) -> Params:
+        """Zero the cache rows of the slots selected by ``slot_mask``."""
+        return decode_state.reset_state_slots(cache, self.cache_specs(),
+                                              slot_mask)
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def forward(self, params: Params, tokens: torch.Tensor,
+                positions: torch.Tensor, *, mode: str = "decode",
+                cache: Params, n_valid: Optional[torch.Tensor] = None,
+                paged: Optional[attention.PagedDecodeState] = None
+                ) -> Tuple[torch.Tensor, Params]:
+        """Decode-mode step: tokens / positions (B, S), ``n_valid`` (B,)
+        real tokens per row (``None``: all S).  Writes the step's K/V
+        into ``cache`` in place, advances ``cache["pos"]`` by
+        ``n_valid`` and returns (fp32 logits (B, S, V), cache).
+
+        ``paged`` names the page map of the cache's pool view; ``None``
+        is the row-local identity map with one page per row."""
+        if mode != "decode":
+            raise NotImplementedError(
+                f"mode={mode!r}: the port runs decode-mode steps only")
+        cfg = self.cfg
+        S_cache = cache["k"].shape[2]
+        if paged is None:
+            paged = attention.PagedDecodeState(page_idx=None,
+                                               page_size=S_cache)
+        x = layers.embed(tokens, params["embed"], self.compute_dtype)
+        write = attention.decode_write(cache["pos"], tokens.shape[1],
+                                       S_cache, n_valid)
+        rope = layers.rope_tables(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
+        x = blocks.run_stack(x, params["stack"], cfg, positions=positions,
+                             rope=rope, cache=cache, write=write,
+                             paged=paged)
+        cache["pos"].copy_(write.kv_valid)
+        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        emb = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        logits = layers.unembed(x, emb)
+        return logits.float(), cache
+
+
+def build_model(cfg: ModelConfig, device=None) -> LM:
+    return LM(cfg, device=device)

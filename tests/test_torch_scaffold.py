@@ -1,0 +1,49 @@
+"""The port package stands alone: importing it loads no jax, no module of
+it (nor ``chip_smoke.py``) imports ``repro``, and the reference's source
+lint (timing confinement and the rest) reports nothing on it."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+from repro.analysis import lint_tree
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, repro_torch, repro_torch.serve.engine, "
+            "repro_torch.weights, repro_torch.kernels.paged_attention.ops; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'repro' "
+            "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def test_no_reference_or_jax_imports():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = [(str(f.relative_to(ROOT)), m) for f in files
+           for m in _imports(f)
+           if m.split(".")[0] in ("repro", "jax", "jaxlib")]
+    assert len(files) > 15 and not bad, bad
+
+
+def test_reference_lint_is_clean_on_the_port():
+    findings = [f for f in lint_tree(ROOT, subdirs=("src/repro_torch",))]
+    assert not findings, "\n".join(f.format() for f in findings)
+    assert "time" not in set(m for f in PORT.rglob("*.py")
+                             for m in _imports(f))
