@@ -7,90 +7,122 @@ Phases (one line each; any failure exits nonzero and prints no result):
 
 1. device  — the card's name and power limit (nvidia-smi), capability
              (9, 0) required; there is no fallback to the CPU.
-2. build   — nvcc builds the paged-attention kernel from the checkout.
-3. kernel  — the CUDA kernel against its plain PyTorch version on the
-             card, at granite-3-2b (H 64) and qwen3-1.7b (H 128) shapes:
-             decode (Sq 1) and a prefill chunk (Sq 32), ragged kv_valid
-             (0, 1, page boundaries, partial last pages, full), identity
-             and permuted page maps.  Prints the kernel's time, the plain
-             version's, the time of F.scaled_dot_product_attention on the
-             gathered dense cache (a yardstick the port never calls) and
-             the bound (bytes over the memory rate, or operations over
-             the bf16 peak, whichever is larger).
-4. parity  — the port on the card against the port on the CPU, reduced
+2. build   — nvcc builds the five kernel libraries from the checkout, all
+             at once (paged attention, STREAM, SpMV, GEMM, conv2d).
+3. kernel  — the paged-attention kernel against its plain PyTorch version
+             on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
+             shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
+             kv_valid (0, 1, page boundaries, partial last pages, full),
+             identity and permuted page maps.  Prints the kernel's time,
+             the plain version's, the time of
+             F.scaled_dot_product_attention on the gathered dense cache (a
+             yardstick the port never calls) and the bound (bytes over the
+             memory rate, or operations over the bf16 peak, whichever is
+             larger).  Times come from repro_torch.perf.measure.
+4. kernels-veceval — the STREAM, SpMV, GEMM and conv2d kernels against
+             their plain versions on the card: ragged shapes, the JAX
+             package's default sizes and the card sizes past the 50 MB L2.
+             At the card size each prints kernel, plain, library (a PyTorch
+             call the port never makes: torch.add, cuSPARSE through a CSR
+             tensor, torch.matmul, F.conv2d) and bound ms.  TF32 is off.
+5. parity  — the port on the card against the port on the CPU, reduced
              granite-3-2b in fp32 (TF32 off): greedy tokens identical.
-5. serve   — the main path: full-width granite-3-2b in bf16 with random
+6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
-             kernel's launch count must equal 40 x the forward passes.
+             paged kernel's launch count must equal 40 x the forward passes.
+7. veceval — the proxy-app path: ``repro_torch.core.veceval`` over its six
+             apps at the default sizes and at the card sizes; scalar,
+             torch.compile and kernel versions timed interleaved, held
+             against each other, and each app's kernel launched.
 
-The line before the last is the per-kernel JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the per-kernel JSON record (after the card's
+name and power limit); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import datetime
 import json
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
+# Inductor compiles in this process: no pool of compile workers to outlive it
+os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.core import veceval  # noqa: E402
+from repro_torch.core.costmodel import hw_for  # noqa: E402
 from repro_torch.kernels.common import REQUIRED_CAPABILITY  # noqa: E402
+from repro_torch.kernels.conv2d import kernel as conv_kernel  # noqa: E402
+from repro_torch.kernels.conv2d import ref as conv_ref  # noqa: E402
+from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
+from repro_torch.kernels.gemm import ref as gemm_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.spmv import kernel as spmv_kernel  # noqa: E402
+from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
+from repro_torch.kernels.stream import kernel as stream_kernel  # noqa: E402
+from repro_torch.kernels.stream import ref as stream_ref  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.perf.measure import measure_group  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatchingEngine  # noqa: E402
 
-KERNEL_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
-REPLACES = "src/repro/kernels/paged_attention/kernel.py:40"
 TOL = 2e-3          # atol = rtol: bf16 inputs, fp32 math in both versions
-
-# (memory bytes/s, dense bf16 FLOP/s) per H100 variant, NVIDIA data sheets
-RATES = {"PCIe": (2.0e12, 756e12), "NVL": (3.9e12, 835e12),
-         "SXM": (3.35e12, 989e12)}
+# each kernel: its ctypes binding (with its sources and build), its
+# wrapper (which counts its launches) and the TPU kernel it replaces
+KERNELS = {
+    "paged_partials": (pa_kernel, pa_kernel.paged_flash_decode,
+                       "src/repro/kernels/paged_attention/kernel.py:40"),
+    "stream": (stream_kernel, stream_kernel.stream_call,
+               "src/repro/kernels/stream/kernel.py:30"),
+    "spmv_ell": (spmv_kernel, spmv_kernel.spmv_ell,
+                 "src/repro/kernels/spmv/kernel.py:24"),
+    "gemm": (gemm_kernel, gemm_kernel.gemm,
+             "src/repro/kernels/gemm/kernel.py:24"),
+    "conv2d_same": (conv_kernel, conv_kernel.conv2d_same,
+                    "src/repro/kernels/conv2d/kernel.py:21"),
+}
+WRAPPERS = {name: k[1] for name, k in KERNELS.items()}
+# veceval at card sizes: every array past the 50 MB L2 or the work
+# operation-bound (builders' own size arguments)
+CARD_SIZES = {
+    "stream": dict(n=1 << 26),
+    "spmv": dict(rows=1 << 22, cols=1 << 22, nnz=16),
+    "sgemm": dict(M=4096, K=4096, N=4096),
+    "dgemm": dict(M=4096, K=4096, N=4096),
+    "alexnet": dict(H=224, W=224, Cin=16),
+    "yolov3": dict(H=224, W=224, Cin=16),
+}
+APP_KERNEL = {"stream": "stream", "spmv": "spmv_ell", "sgemm": "gemm",
+              "dgemm": "gemm", "alexnet": "conv2d_same",
+              "yolov3": "conv2d_same"}
+SCALAR_MAX_ITERS = 4096       # at card sizes; a longer loop times the host
 
 
 def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def rates_for(name):
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return key, RATES[key]
-    return "SXM", RATES["SXM"]
-
-
-def time_ms(fn, reps, flush, cover_ms):
-    """Median device ms of ``fn`` over ``reps`` launches, each between two
-    CUDA events, with the L2 cache flushed before it (the main path finds
-    a layer's K/V cold).  A spin kernel of ``cover_ms`` runs before the
-    start event, so the host has enqueued all of ``fn`` by the time the
-    card reaches it: the events see device time, not host overhead."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(int(cover_ms * 2e6))      # ~2e6 cycles per ms
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        out.append(start.elapsed_time(end))
-    return float(np.median(out))
+def time_three(fns):
+    """Median device ms of kernel, plain and library over 30 rounds, timed
+    interleaved by repro_torch.perf.measure with the L2 flushed before
+    each call.  The plain version issues many ops, so its spin cover is
+    longer."""
+    ms = measure_group(fns, reps=30, flush_l2=True,
+                       cover_ms={"kernel": 2.0, "plain": 20.0,
+                                 "library": 2.0})
+    return {name: m.median_s * 1e3 for name, m in ms.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -111,10 +143,14 @@ def phase_device():
 
 
 def phase_build():
+    """nvcc for each kernel source, all started together."""
     t0 = datetime.datetime.now()
-    pa_kernel.load_library()
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(k[0].load_library)
+                    for k in KERNELS.values()]:
+            fut.result()
     secs = (datetime.datetime.now() - t0).total_seconds()
-    log("build", f"paged_attention built and loaded in {secs:.1f} s")
+    log("build", f"{', '.join(WRAPPERS)} built and loaded in {secs:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -139,7 +175,7 @@ def make_case(*, B, NKV, G, H, page, max_len, sq, valid, permuted, seed,
                 kv_valid=kv_valid, sq=sq)
 
 
-def bound_ms(c, rates):
+def bound_ms(c, hw):
     """Least time for the function on these inputs: K/V of the valid
     tokens, the queries, the pages ids touched and the outputs moved once,
     against the operations of QK^T and PV at the bf16 peak."""
@@ -151,9 +187,8 @@ def bound_ms(c, rates):
                    + c["qg"].numel() * 4 + pages.sum() * 4 + 2 * B * 4
                    + B * NKV * R * (H + 2) * 4)
     flops = float(4 * valid.sum() * NKV * R * H)
-    mem_rate, flop_rate = rates
-    t_bytes, t_ops = nbytes / mem_rate * 1e3, flops / flop_rate * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    s, by = hw.bound_s(flops, nbytes, torch.bfloat16)
+    return s * 1e3, by
 
 
 def library_fn(c):
@@ -173,7 +208,7 @@ def library_fn(c):
                                                   enable_gqa=True)
 
 
-def phase_kernel(card, rates, flush):
+def phase_kernel(card, hw):
     dev = torch.device("cuda")
     base = [0, 1, 16, 37, 256, 511, 777, 1024]       # ragged, 8 slots
     shapes = [("granite", 8, 4, 64), ("qwen3", 8, 2, 128)]
@@ -212,12 +247,13 @@ def phase_kernel(card, rates, flush):
         torch.testing.assert_close(out_k, out_p, atol=TOL, rtol=TOL)
         err = float((out_k - out_p).abs().max())
         worst = max(worst, err)
-        k_ms = time_ms(lambda: pa_kernel.paged_flash_decode(
-            *args, sq=c["sq"]), 30, flush, 2)
-        p_ms = time_ms(lambda: pa_ref.paged_partials(*args, sq=c["sq"]),
-                       10, flush, 20)
-        l_ms = time_ms(library_fn(c), 30, flush, 2)
-        b_ms, b_by = bound_ms(c, rates)
+        t = time_three({
+            "kernel": lambda: pa_kernel.paged_flash_decode(*args,
+                                                           sq=c["sq"]),
+            "plain": lambda: pa_ref.paged_partials(*args, sq=c["sq"]),
+            "library": library_fn(c)})
+        k_ms, p_ms, l_ms = t["kernel"], t["plain"], t["library"]
+        b_ms, b_by = bound_ms(c, hw)
         log("kernel", f"{name}: ok max_abs_err {err:.2e} | kernel_ms "
                       f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
                       f"{l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) | {card}")
@@ -228,7 +264,208 @@ def phase_kernel(card, rates, flush):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: port on card vs port on CPU
+# phase 4: the veceval kernels vs plain
+# ---------------------------------------------------------------------------
+def check(what, got, want, rtol, atol, scale=None):
+    """Max |got - want|; exits unless every element is finite and within
+    atol + rtol * scale (scale: |want| unless given)."""
+    torch.cuda.synchronize()
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"{what}: shape {tuple(got.shape)} vs "
+                         f"{tuple(want.shape)} or non-finite output")
+    err = (got.double() - want.double()).abs()
+    lim = atol + rtol * (want.double().abs() if scale is None
+                         else scale.double())
+    if not bool((err <= lim).all()):
+        raise SystemExit(f"{what}: {int((err > lim).sum())} elements past "
+                         f"rtol {rtol} atol {atol}, max abs err "
+                         f"{float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def timed_record(what, fns, flops, nbytes, dtype, hw, card, err):
+    t = time_three(fns)
+    s, by = hw.bound_s(flops, nbytes, dtype)
+    rec = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+               library_ms=t["library"], bound_ms=s * 1e3, bound_by=by)
+    log("kernels-veceval",
+        f"{what}: kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
+        f"library_ms {rec['library_ms']:.4f} bound_ms {rec['bound_ms']:.4f} "
+        f"({by}) | {card}")
+    return rec
+
+
+def kernels_stream(g, hw, card):
+    dev = torch.device("cuda")
+    worst = 0.0
+    for shape in [(1001, 127), (37, 128)]:          # ragged: a scalar tail
+        x = torch.randn(shape, generator=g, device=dev)
+        y = torch.randn(shape, generator=g, device=dev)
+        for kind in stream_kernel.KINDS:
+            for alpha in (2.0, 0.3):
+                for m in (1, 2, 4, 8):
+                    got = stream_kernel.stream_call(kind, x, y, alpha,
+                                                    block_multiplier=m)
+                    worst = max(worst, check(
+                        f"stream {kind} {shape} alpha {alpha} m{m}", got,
+                        stream_ref.stream(kind, x, y, alpha), 1e-6, 0.0))
+    for rows in (1 << 14, 1 << 19):                 # default, card
+        x = torch.rand((rows, 128), generator=g, device=dev)
+        y = torch.rand((rows, 128), generator=g, device=dev)
+        worst = max(worst, check(
+            f"stream triad ({rows}, 128)",
+            stream_kernel.stream_call("triad", x, y, 2.0),
+            stream_ref.stream_triad(x, y, 2.0), 1e-6, 0.0))
+    n = x.numel()
+    log("kernels-veceval", f"stream: all kinds ok, max abs err {worst:.2e}")
+    return timed_record(
+        f"stream triad n=2^{n.bit_length() - 1} fp32", {
+            "kernel": lambda: stream_kernel.stream_call("triad", x, y, 2.0),
+            "plain": lambda: stream_ref.stream_triad(x, y, 2.0),
+            "library": lambda: torch.add(x, y, alpha=2.0)},
+        2.0 * n, 12.0 * n, torch.float32, hw, card, worst)
+
+
+def _ell(R, C, K, g, dev):
+    vals = torch.randn((R, K), generator=g, device=dev)
+    cols = torch.randint(0, C, (R, K), generator=g, device=dev,
+                         dtype=torch.int32)
+    x = torch.rand((C,), generator=g, device=dev)
+    return vals, cols, x
+
+
+def _check_spmv(what, vals, cols, x, m=1):
+    got = spmv_kernel.spmv_ell(vals, cols, x, block_multiplier=m)
+    scale = (vals * x[cols]).abs().sum(-1, keepdim=True)
+    return check(what, got, spmv_ref.spmv_ell(vals, cols, x), 1e-6, 0.0,
+                 scale)
+
+
+def kernels_spmv(g, hw, card):
+    dev = torch.device("cuda")
+    worst = 0.0
+    for K in (1, 5, 13, 16, 33):                    # ragged rows and nnz
+        vals, cols, x = _ell(1000, 777, K, g, dev)
+        for m in (1, 2, 4, 8):
+            worst = max(worst, _check_spmv(f"spmv 1000x777 nnz {K} m{m}",
+                                           vals, cols, x, m))
+    for R in (1 << 14, 1 << 22):                    # default, card
+        vals, cols, x = _ell(R, R, 16, g, dev)
+        worst = max(worst, _check_spmv(f"spmv {R} nnz 16", vals, cols, x))
+    log("kernels-veceval", f"spmv: ok, max abs err {worst:.2e}")
+    # cuSPARSE through a CSR tensor built beforehand (columns sorted per row)
+    R, K = vals.shape
+    cs, perm = cols.sort(dim=1)
+    with warnings.catch_warnings():                 # "beta" notices
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, R * K + 1, K, dtype=torch.int32, device=dev),
+            cs.reshape(-1).contiguous(), vals.gather(1, perm).reshape(-1),
+            size=(R, R), check_invariants=False)
+    check("spmv cuSPARSE yardstick", torch.mv(csr, x)[:, None],
+          spmv_ref.spmv_ell(vals, cols, x), 1e-5, 1e-5)
+    # what the random gather costs: the same kernel and bytes with unit-
+    # stride columns, cols[r, k] = (16 r + k) mod C
+    unit = (torch.arange(R * K, device=dev) % R).to(torch.int32).view(R, K)
+    unit_ms = measure_group({"kernel": lambda: spmv_kernel.spmv_ell(
+        vals, unit, x)}, reps=30, flush_l2=True, cover_ms=2.0)
+    log("kernels-veceval", f"spmv same size, unit-stride columns: kernel_ms "
+        f"{unit_ms['kernel'].median_s * 1e3:.4f} | {card}")
+    return timed_record(
+        f"spmv rows=cols=2^22 nnz 16 fp32", {
+            "kernel": lambda: spmv_kernel.spmv_ell(vals, cols, x),
+            "plain": lambda: spmv_ref.spmv_ell(vals, cols, x),
+            "library": lambda: torch.mv(csr, x)},
+        2.0 * R * K, R * K * 8.0 + R * 4.0 + R * 4.0, torch.float32, hw,
+        card, worst)
+
+
+def kernels_gemm(g, hw, card):
+    dev = torch.device("cuda")
+    tol = {torch.float32: 1e-4, torch.float64: 1e-12}
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):    # ragged M, N and K
+        a = torch.randn((1000, 515), generator=g, device=dev, dtype=dtype)
+        b = torch.randn((515, 777), generator=g, device=dev, dtype=dtype)
+        want = gemm_ref.gemm(a, b)
+        for m in (1, 2, 4, 8):
+            worst = max(worst, check(
+                f"gemm 1000x515x777 {dtype} m{m}",
+                gemm_kernel.gemm(a, b, block_multiplier=m), want, tol[dtype],
+                tol[dtype]))
+    recs = {}
+    for dtype in (torch.float32, torch.float64):
+        for n in (512, 4096):                       # default, card
+            a = torch.rand((n, n), generator=g, device=dev, dtype=dtype)
+            b = torch.rand((n, n), generator=g, device=dev, dtype=dtype)
+            worst = max(worst, check(
+                f"gemm {n}^3 {dtype}", gemm_kernel.gemm(a, b,
+                                                        block_multiplier=2),
+                gemm_ref.gemm(a, b), tol[dtype], tol[dtype]))
+        recs[dtype] = timed_record(
+            f"gemm 4096^3 m2 {dtype}", {
+                "kernel": lambda: gemm_kernel.gemm(a, b, block_multiplier=2),
+                "plain": lambda: gemm_ref.gemm(a, b),
+                "library": lambda: torch.matmul(a, b)},
+            2.0 * n ** 3, 3.0 * n * n * a.element_size(), dtype, hw, card,
+            None)
+    log("kernels-veceval", f"gemm: ok, max abs err {worst:.2e}")
+    rec = recs[torch.float32]                       # the JSON line: sgemm
+    rec["max_abs_err"] = worst
+    return rec
+
+
+def kernels_conv2d(g, hw, card):
+    dev = torch.device("cuda")
+    worst = 0.0
+    for k in (1, 2, 3, 5):                          # ragged W, Cin, Cout
+        x = torch.randn((2, 24, 37, 5), generator=g, device=dev)
+        w = torch.randn((k, k, 5, 33), generator=g, device=dev) * 0.1
+        want = conv_ref.conv2d_same(x, w)
+        for bh in (4, 8, 12, 24):
+            worst = max(worst, check(
+                f"conv2d 2x24x37x5->33 k{k} block_h {bh}",
+                conv_kernel.conv2d_same(x, w, bh=bh), want, 1e-4, 1e-4))
+    for hw_side in (32, 224):                       # default, card
+        for specs in (veceval.ALEXNET_SPECS, veceval.YOLOV3_SPECS):
+            cin = 16
+            for k, cout in specs:
+                x = torch.rand((1, hw_side, hw_side, cin), generator=g,
+                               device=dev)
+                w = torch.rand((k, k, cin, cout), generator=g,
+                               device=dev) * 0.1
+                worst = max(worst, check(
+                    f"conv2d {hw_side}^2 {cin}->{cout} k{k}",
+                    conv_kernel.conv2d_same(x, w, bh=8),
+                    conv_ref.conv2d_same(x, w), 1e-4, 1e-4))
+                cin = cout
+    log("kernels-veceval", f"conv2d: ok, max abs err {worst:.2e}")
+    # the largest layer of the card-size AlexNet stack: 224^2, 64 -> 64, 3x3
+    x = torch.rand((1, 224, 224, 64), generator=g, device=dev)
+    w = torch.rand((3, 3, 64, 64), generator=g, device=dev) * 0.1
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    check("conv2d F.conv2d yardstick", F.conv2d(xn, wn, padding=1)
+          .permute(0, 2, 3, 1), conv_ref.conv2d_same(x, w), 1e-4, 1e-4)
+    return timed_record(
+        "conv2d 224^2 64->64 3x3 fp32", {
+            "kernel": lambda: conv_kernel.conv2d_same(x, w, bh=8),
+            "plain": lambda: conv_ref.conv2d_same(x, w),
+            "library": lambda: F.conv2d(xn, wn, padding=1)},
+        2.0 * 224 * 224 * 9 * 64 * 64,
+        4.0 * (x.numel() + w.numel() + x.numel()), torch.float32, hw, card,
+        worst)
+
+
+def phase_kernels_veceval(card, hw):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    return {"stream": kernels_stream(g, hw, card),
+            "spmv_ell": kernels_spmv(g, hw, card),
+            "gemm": kernels_gemm(g, hw, card),
+            "conv2d_same": kernels_conv2d(g, hw, card)}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: port on card vs port on CPU
 # ---------------------------------------------------------------------------
 def serve_tokens(cfg, params_cpu, device, prompts, gens):
     model = LM(cfg, device=device)
@@ -273,7 +510,7 @@ def phase_parity():
 
 
 # ---------------------------------------------------------------------------
-# phase 5: serve at full width
+# phase 6: serve at full width
 # ---------------------------------------------------------------------------
 def phase_serve(card, profile):
     cfg = get_config("granite-3-2b")
@@ -384,6 +621,59 @@ def profile_decode(model, params, eng, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: veceval, the proxy-app path
+# ---------------------------------------------------------------------------
+def phase_veceval(card, hw):
+    """``veceval.run_all`` at the default and the card sizes, one app at a
+    time: the versions of each app timed interleaved and held against
+    each other (it raises past the app's tolerance), and each app's
+    kernel launched.  Returns the launches of each kernel over the whole
+    path."""
+    names = sorted(set(APP_KERNEL.values()))
+    for name in names:
+        WRAPPERS[name].launches = 0
+    for label, sizes, max_iters in (("default", {}, None),
+                                    ("card", CARD_SIZES, SCALAR_MAX_ITERS)):
+        torch.cuda.reset_peak_memory_stats()
+        for app_name in veceval.BUILDERS:
+            wrapper = WRAPPERS[APP_KERNEL[app_name]]
+            before = wrapper.launches
+            rows = {r["version"]: r for r in veceval.run_all(
+                measure=True, apps=[app_name], sizes=sizes, hw=hw,
+                scalar_max_iters=max_iters)}
+            if wrapper.launches == before:
+                raise SystemExit(f"veceval {app_name}: the kernel version "
+                                 f"launched no {APP_KERNEL[app_name]} kernel")
+            _log_app(label, app_name, rows, card)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("veceval", f"{label} sizes: peak {peak:.2f} GiB | {card}")
+    return {name: WRAPPERS[name].launches for name in names}
+
+
+def _log_app(label, app_name, rows, card):
+    secs = {v: r["host_seconds"] for v, r in rows.items()}
+    bound = rows["kernel"]["bound_seconds"]
+    parts = []
+    for v, r in rows.items():
+        if r["omitted"]:
+            parts.append(f"{v}: omitted ({r['omitted']})")
+            continue
+        s = secs[v]
+        extra = (f", x{secs['scalar'] / s:.1f} over scalar"
+                 if secs.get("scalar") else "")
+        if v == "autovec":
+            extra += f", first call (torch.compile) " \
+                     f"{r['first_call_seconds']:.2f} s"
+        parts.append(f"{v} {s * 1e3:.4f} ms ({100 * bound / s:.1f}% of "
+                     f"bound{extra}, err {r['max_abs_err_vs_autovec']:.1e})")
+    log("veceval", f"{label} {app_name}: bound {bound * 1e3:.4f} ms "
+                   f"({rows['kernel']['bound_by']}, {rows['kernel']['hw']}) | "
+                   f"kernel/autovec speedup "
+                   f"x{secs['autovec'] / secs['kernel']:.2f} | "
+                   + " | ".join(parts) + f" | {card}")
+
+
+# ---------------------------------------------------------------------------
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -395,18 +685,26 @@ def main():
         return 1
     card = phase_device()
     phase_build()
-    variant, rates = rates_for(card)
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    log("kernel", f"bound rates: H100 {variant} {rates[0] / 1e12:.2f} TB/s, "
-                  f"{rates[1] / 1e12:.0f} TFLOP/s bf16 dense")
-    worst, main_case = phase_kernel(card, rates, flush)
-    del flush
+    hw = hw_for(card)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("kernel", f"bound rates: {hw.name} {hw.hbm_bw / 1e12:.2f} TB/s, "
+                  f"{hw.peak_flops_bf16 / 1e12:.0f} TFLOP/s bf16, "
+                  f"{hw.peak_flops_fp32 / 1e12:.0f} fp32, "
+                  f"{hw.peak_flops_fp64 / 1e12:.0f} fp64 dense | TF32 "
+                  f"matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
+                  f"{torch.backends.cudnn.allow_tf32}")
+    worst, main_case = phase_kernel(card, hw)
+    records = phase_kernels_veceval(card, hw)
+    records["paged_partials"] = dict(max_abs_err=worst, **main_case)
     phase_parity()
-    launches = phase_serve(card, args.profile)
+    launches = {"paged_partials": phase_serve(card, args.profile)}
+    launches.update(phase_veceval(card, hw))
     record = {"kernels": [dict(
-        name="paged_partials", route="cuda", source=KERNEL_SOURCE,
-        replaces=REPLACES, launches=launches, max_abs_err=worst,
-        **main_case)]}
+        name=name, route="cuda",
+        source=os.path.relpath(module.SOURCES[0], ROOT), replaces=replaces,
+        launches=launches[name], **records[name])
+        for name, (module, _, replaces) in KERNELS.items()]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,10 @@ copy of.
 Covered so far: the dense family (``granite-3-2b``, ``qwen3-1.7b``)
 served by ``serve.engine.ContinuousBatchingEngine``, with paged
 attention in a hand-written CUDA kernel
-(``kernels/paged_attention/csrc/paged_attention.cu``).  Entry points run
-on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU every
-kernel wrapper runs its plain PyTorch version.
+(``kernels/paged_attention/csrc/paged_attention.cu``); and the paper's
+proxy-app harness ``core.veceval`` with its STREAM, ELL SpMV, GEMM and
+conv2d kernels (``kernels/{stream,spmv,gemm,conv2d}/csrc``), timed by
+``perf.measure`` against the ceilings in ``core.costmodel``.  Entry
+points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
+CPU every kernel wrapper runs its plain PyTorch version.
 """

@@ -27,6 +27,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 REQUIRED_CAPABILITY: Tuple[int, int] = (9, 0)
 
+# the JAX kernels' "LMUL" axis: tiles grouped {1, 2, 4, 8} at a time
+VALID_MULTIPLIERS = (1, 2, 4, 8)
+
+
+def check_multiplier(m: int) -> int:
+    if m not in VALID_MULTIPLIERS:
+        raise ValueError(f"block multiplier must be one of {VALID_MULTIPLIERS}")
+    return m
+
 
 def resolve_device(device=None) -> torch.device:
     """An entry point's device: ``cuda`` unless the caller names one."""
@@ -90,4 +99,47 @@ def build_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
                 f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
         os.replace(tmp, out)            # atomic: a reader never sees half
     return ctypes.CDLL(str(out))
+
+
+def bind(lib: ctypes.CDLL, fn_name: str, *argtypes):
+    """Declare ``int fn(*argtypes, void* stream)`` on ``lib`` and return
+    the function.  Every launcher of this package takes the CUDA stream
+    last and returns ``cudaGetLastError()``; every library exports
+    ``const char* kernel_error_string(int)``."""
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [*argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.kernel_error_string.argtypes = [ctypes.c_int]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return fn
+
+
+def check_launch(lib: ctypes.CDLL, what: str, err: int) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if err:
+        msg = lib.kernel_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current CUDA stream on ``t``'s device, as ctypes takes it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operand(name: str, t: torch.Tensor, dtype, device,
+                  shape=None, align: int = 0) -> None:
+    """Raise unless ``t`` has this dtype, device, shape (if given), is
+    contiguous and, if ``align``, starts at a multiple of ``align`` bytes."""
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if align and t.data_ptr() % align:
+        raise ValueError(f"{name} must start on a {align}-byte boundary")
 

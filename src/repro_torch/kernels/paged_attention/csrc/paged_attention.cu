@@ -258,7 +258,7 @@ int paged_partials_launch(const void* qg, const void* k_pages,
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* paged_partials_error_string(int err) {
+const char* kernel_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

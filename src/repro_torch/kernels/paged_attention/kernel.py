@@ -27,22 +27,9 @@ _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, once a process."""
     lib = common.build_library("paged_attention", SOURCES)
-    fn = lib.paged_partials_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    lib.paged_partials_error_string.argtypes = [ctypes.c_int]
-    lib.paged_partials_error_string.restype = ctypes.c_char_p
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    common.bind(lib, "paged_partials_launch", *[p] * 9, *[i] * 8, f, f)
     return lib
-
-
-def _check(name, t, dtype, shape=None):
-    if t.dtype != dtype:
-        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def paged_flash_decode(qg, k_pages, v_pages, page_idx, pos0, kv_valid, *,
@@ -67,38 +54,29 @@ def paged_flash_decode(qg, k_pages, v_pages, page_idx, pos0, kv_valid, *,
         raise ValueError(f"K/V pool dtype {k_pages.dtype} not in "
                          f"{list(_KV_DTYPES)}")
     pps = page_idx.shape[1] if page_idx.dim() == 2 else -1
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
-                    ("page_idx", page_idx), ("pos0", pos0),
-                    ("kv_valid", kv_valid)):
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, qg on {dev}")
-    _check("qg", qg, torch.float32)
-    _check("k_pages", k_pages, k_pages.dtype)
-    _check("v_pages", v_pages, k_pages.dtype, k_pages.shape)
-    _check("page_idx", page_idx, torch.int32, (B, pps))
-    _check("pos0", pos0, torch.int32, (B,))
-    _check("kv_valid", kv_valid, torch.int32, (B,))
+    common.check_operand("qg", qg, torch.float32, dev)
+    # the kernel reads the pools as 16-byte vectors
+    common.check_operand("k_pages", k_pages, k_pages.dtype, dev, align=16)
+    common.check_operand("v_pages", v_pages, k_pages.dtype, dev,
+                         k_pages.shape, align=16)
+    common.check_operand("page_idx", page_idx, torch.int32, dev, (B, pps))
+    common.check_operand("pos0", pos0, torch.int32, dev, (B,))
+    common.check_operand("kv_valid", kv_valid, torch.int32, dev, (B,))
     if R % sq:
         raise ValueError(f"query rows {R} not a multiple of sq={sq}")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("K/V pools must be 16-byte aligned (the kernel "
-                         "reads them as 16-byte vectors)")
     acc = torch.empty((B, NKV, R, H), dtype=torch.float32, device=dev)
     m = torch.empty((B, NKV, R), dtype=torch.float32, device=dev)
     l = torch.empty((B, NKV, R), dtype=torch.float32, device=dev)
     if B == 0 or R == 0:
         return acc, m, l
     lib = load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.paged_partials_launch(
         qg.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_idx.data_ptr(), pos0.data_ptr(), kv_valid.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(),
         B, NKV, R, sq, H, page, pps, _KV_DTYPES[k_pages.dtype],
-        float(H ** -0.5), float(softcap), stream)
-    if err:
-        msg = lib.paged_partials_error_string(err).decode()
-        raise RuntimeError(f"paged_partials_launch: CUDA error {err} ({msg})")
+        float(H ** -0.5), float(softcap), common.stream_of(qg))
+    common.check_launch(lib, "paged_partials_launch", err)
     paged_flash_decode.launches += 1
     return acc, m, l
 

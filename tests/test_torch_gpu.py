@@ -1,6 +1,7 @@
-"""Tests of the port that need a Hopper card (marker ``gpu``): the CUDA
-paged-attention kernel against its plain version, and the port's engine
-on the card against the same engine on the CPU.  Without a card they
+"""Tests of the port that need a Hopper card (marker ``gpu``): each CUDA
+kernel (paged attention, STREAM, ELL SpMV, GEMM, conv2d) against its
+plain version on ragged shapes, with its launch counter checked, and the
+port's engine on the card against the same engine on the CPU.  Without a card they
 skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -13,8 +14,16 @@ import torch
 
 from repro_torch.configs import reduced_config
 from repro_torch.kernels.common import require_hopper
+from repro_torch.kernels.conv2d import kernel as conv_kernel
+from repro_torch.kernels.conv2d import ops as conv_ops
+from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.spmv import kernel as spmv_kernel
+from repro_torch.kernels.spmv import ops as spmv_ops
+from repro_torch.kernels.stream import kernel as stream_kernel
+from repro_torch.kernels.stream import ops as stream_ops
 from repro_torch.models.model import LM
 from repro_torch.serve.engine import ContinuousBatchingEngine
 
@@ -64,6 +73,79 @@ def test_kernel_matches_plain(card, H, sq, permuted, dtype):
     assert torch.isfinite(out).all() and (out[0] == 0).all()
     torch.testing.assert_close(out, pa_ops.combine_partials([want]),
                                rtol=2e-3, atol=2e-3)
+
+
+def _counted(wrapper, call):
+    before = wrapper.launches
+    out = call()
+    assert wrapper.launches == before + 1
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("kind", ["copy", "scale", "add", "triad"])
+@pytest.mark.parametrize("shape,mult", [((37, 128), 1), ((1001, 127), 8)])
+def test_stream_kernel_matches_plain(card, kind, shape, mult):
+    """Every kind, rows past the block and a length that is not a
+    multiple of 4 (the masked tail): exact, as the kernel rounds as the
+    plain version does (rtol 1e-6)."""
+    rng = np.random.default_rng(0)
+    x, y = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            for _ in range(2))
+    got = _counted(stream_kernel.stream_call, lambda: stream_ops.stream(
+        kind, x.to(card), y.to(card), 0.3, block_multiplier=mult))
+    want = stream_ops.stream(kind, x, y, 0.3)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("nnz,mult", [(1, 1), (13, 2), (16, 4), (33, 8)])
+def test_spmv_kernel_matches_plain(card, nnz, mult):
+    """1000 rows (not a multiple of any block), nnz below, at and past a
+    warp; each row within 1e-6 of the scale of its terms."""
+    rng = np.random.default_rng(nnz)
+    vals = torch.from_numpy(rng.standard_normal((1000, nnz)).astype(
+        np.float32))
+    cols = torch.from_numpy(rng.integers(0, 777, (1000, nnz)).astype(
+        np.int32))
+    x = torch.from_numpy(rng.random(777).astype(np.float32))
+    got = _counted(spmv_kernel.spmv_ell, lambda: spmv_ops.spmv_ell(
+        vals.to(card), cols.to(card), x.to(card), block_multiplier=mult))
+    want = spmv_ops.spmv_ell(vals, cols, x)
+    scale = (vals * x[cols]).abs().sum(-1, keepdim=True)
+    assert ((got.cpu() - want).abs() <= 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("mult", [1, 2, 4, 8])
+def test_gemm_kernel_matches_plain(card, dtype, tol, mult):
+    """M, N and K not multiples of any tile; fp32 without TF32, fp64
+    accumulated in fp64."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(mult)
+    a = torch.from_numpy(rng.standard_normal((1000, 515))).to(dtype)
+    b = torch.from_numpy(rng.standard_normal((515, 777))).to(dtype)
+    got = _counted(gemm_kernel.gemm, lambda: gemm_ops.gemm(
+        a.to(card), b.to(card), block_multiplier=mult))
+    torch.testing.assert_close(got.cpu(), gemm_ops.gemm(a, b), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("block_h", [4, 8, 12])
+def test_conv2d_kernel_matches_plain(card, k, block_h):
+    """Ragged width, input and output channels; even filters pad as the
+    TPU kernel does; block rows below, at and past the kernel's 8-row
+    chunk."""
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy(rng.standard_normal((2, 24, 37, 5)).astype(
+        np.float32))
+    w = torch.from_numpy((rng.standard_normal((k, k, 5, 33)) * 0.1).astype(
+        np.float32))
+    got = _counted(conv_kernel.conv2d_same, lambda: conv_ops.conv2d_same(
+        x.to(card), w.to(card), block_h=block_h))
+    torch.testing.assert_close(got.cpu(), conv_ops.conv2d_same(x, w),
+                               rtol=1e-4, atol=1e-4)
 
 
 def test_engine_on_card_matches_cpu(card):

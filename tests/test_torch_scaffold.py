@@ -15,7 +15,8 @@ PORT = ROOT / "src" / "repro_torch"
 
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.serve.engine, "
-            "repro_torch.weights, repro_torch.kernels.paged_attention.ops; "
+            "repro_torch.weights, repro_torch.kernels.paged_attention.ops, "
+            "repro_torch.core.veceval, repro_torch.perf.measure; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")

@@ -1,0 +1,76 @@
+"""The port's ELL SpMV on the CPU (its plain version) against the JAX
+package's ``spmv_ell`` (the Pallas take-idiom kernel in interpret mode),
+on the same numpy matrices: rows that are and are not a multiple of the
+TPU's 8-row block, and nonzeros per row that are not a power of two.
+fp32; the tolerance is fp32 roundoff of a <= 16-term sum (1e-5)."""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels.spmv import ops as jax_ops
+from repro.kernels.spmv import ref as jax_ref
+from repro_torch.kernels.spmv import kernel as pt_kernel
+from repro_torch.kernels.spmv import ops as pt_ops
+from repro_torch.kernels.spmv import ref as pt_ref
+
+
+@pytest.mark.parametrize("rows,cols,nnz", [(64, 256, 16), (100, 77, 13),
+                                           (9, 512, 1)])
+def test_spmv_matches_jax(rows, cols, nnz):
+    vals, idx = pt_ref.random_ell(rows, rows, cols, nnz)
+    x = np.random.default_rng(2).standard_normal(cols).astype(np.float32)
+    got = pt_ops.spmv_ell(torch.from_numpy(vals), torch.from_numpy(idx),
+                          torch.from_numpy(x))
+    want = jax_ops.spmv_ell(jnp.asarray(vals), jnp.asarray(idx),
+                            jnp.asarray(x), idiom="take")
+    assert got.shape == (rows, 1)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_random_ell_is_the_reference_helper():
+    for a, b in zip(pt_ref.random_ell(4, 33, 70, 5),
+                    jax_ref.random_ell(4, 33, 70, 5)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("mult", [0, 1, 3, 8, 16])
+def test_block_multiplier_validation_matches(mult):
+    vals, idx = pt_ref.random_ell(0, 16, 32, 4)
+    x = np.ones(32, np.float32)
+    outcomes = []
+    for call in (lambda: jax_ops.spmv_ell(jnp.asarray(vals),
+                                          jnp.asarray(idx), jnp.asarray(x),
+                                          block_multiplier=mult),
+                 lambda: pt_ops.spmv_ell(torch.from_numpy(vals),
+                                         torch.from_numpy(idx),
+                                         torch.from_numpy(x),
+                                         block_multiplier=mult)):
+        try:
+            call()
+            outcomes.append(None)
+        except ValueError:
+            outcomes.append(ValueError)
+    assert outcomes[0] == outcomes[1]
+
+
+def test_onehot_idiom_is_queued():
+    vals, idx = pt_ref.random_ell(0, 16, 32, 4)
+    with pytest.raises(NotImplementedError, match="B8"):
+        pt_ops.spmv_ell(torch.from_numpy(vals), torch.from_numpy(idx),
+                        torch.ones(32), idiom="onehot")
+    with pytest.raises(ValueError):
+        pt_ops.spmv_ell(torch.from_numpy(vals), torch.from_numpy(idx),
+                        torch.ones(32), idiom="gather")
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    vals, idx = pt_ref.random_ell(0, 16, 32, 4)
+    before = pt_kernel.spmv_ell.launches
+    with pytest.raises(RuntimeError):
+        pt_kernel.spmv_ell(torch.from_numpy(vals), torch.from_numpy(idx),
+                           torch.ones(32))
+    assert pt_kernel.spmv_ell.launches == before
