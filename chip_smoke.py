@@ -7,8 +7,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
 
 1. device  — the card's name and power limit (nvidia-smi), capability
              (9, 0) required; there is no fallback to the CPU.
-2. build   — nvcc builds the five kernel libraries from the checkout, all
-             at once (paged attention, STREAM, SpMV, GEMM, conv2d).
+2. build   — nvcc builds the eight kernel libraries from the checkout, all
+             at once (paged attention, STREAM, SpMV, GEMM, conv2d, strided
+             gather, tail mask, Qsim gate).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
@@ -25,6 +26,14 @@ Phases (one line each; any failure exits nonzero and prints no result):
              At the card size each prints kernel, plain, library (a PyTorch
              call the port never makes: torch.add, cuSPARSE through a CSR
              tensor, torch.matmul, F.conv2d) and bound ms.  TF32 is off.
+   kernels-paper — the strided-gather (both idioms), tail-mask (both
+             idioms) and Qsim gate kernels against their plain versions:
+             ragged rows (stride not dividing rows, remainders 0, 1, 7),
+             every block multiplier, qubits 0, 1, 4, 5, 12 and n-1, the
+             JAX sizes and the card sizes (2^21 x 128 rows, 28 qubits).
+             Library yardsticks: x[::s].contiguous(), F.silu(x).mul_(2)
+             (two calls) and torch.matmul of the complex gate with the
+             state viewed as (outer, 2, 2^q).
 5. parity  — the port on the card against the port on the CPU, reduced
              granite-3-2b in fp32 (TF32 off): greedy tokens identical.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
@@ -35,6 +44,14 @@ Phases (one line each; any failure exits nonzero and prints no result):
              apps at the default sizes and at the card sizes; scalar,
              torch.compile and kernel versions timed interleaved, held
              against each other, and each app's kernel launched.
+8. paper   — the paper layer's path: ``figures.fig9_qsim`` (Qsim, §6) at
+             16 qubits depth 6 (the JAX size) and 28 qubits depth 2 (1 GiB
+             a plane): nonvec, torch.compile'd interleaved and planar, and
+             the kernel version, held together by fidelity and norm, the
+             gate kernel's launches equal to the uncontrolled gates times
+             the calls, peak memory under 40 GiB.  Then
+             ``figures.fig2_strided`` and ``fig3_tail`` at the JAX sizes
+             and 2^21 x 128 rows, and ``core.microbench.run_suite``.
 
 The line before the last is the per-kernel JSON record (after the card's
 name and power limit); the last line is ``{"ok": true, "device": {...}}``.
@@ -61,7 +78,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
-from repro_torch.core import veceval  # noqa: E402
+from repro_torch.core import microbench, veceval  # noqa: E402
 from repro_torch.core.costmodel import hw_for  # noqa: E402
 from repro_torch.kernels.common import REQUIRED_CAPABILITY  # noqa: E402
 from repro_torch.kernels.conv2d import kernel as conv_kernel  # noqa: E402
@@ -70,28 +87,45 @@ from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.gemm import ref as gemm_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
+from repro_torch.kernels.qsim_gate import kernel as gate_kernel  # noqa: E402
+from repro_torch.kernels.qsim_gate import ref as gate_ref  # noqa: E402
 from repro_torch.kernels.spmv import kernel as spmv_kernel  # noqa: E402
 from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
 from repro_torch.kernels.stream import kernel as stream_kernel  # noqa: E402
 from repro_torch.kernels.stream import ref as stream_ref  # noqa: E402
+from repro_torch.kernels.strided import kernel as strided_kernel  # noqa: E402
+from repro_torch.kernels.strided import ref as strided_ref  # noqa: E402
+from repro_torch.kernels.tailmask import kernel as tail_kernel  # noqa: E402
+from repro_torch.kernels.tailmask import ref as tail_ref  # noqa: E402
+from repro_torch.figures import fig2_strided, fig3_tail, fig9_qsim  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.quantum import gates  # noqa: E402
 from repro_torch.perf.measure import measure_group  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatchingEngine  # noqa: E402
 
 TOL = 2e-3          # atol = rtol: bf16 inputs, fp32 math in both versions
 # each kernel: its ctypes binding (with its sources and build), its
-# wrapper (which counts its launches) and the TPU kernel it replaces
+# wrappers (which count their launches: one per idiom) and the TPU kernel
+# it replaces
 KERNELS = {
-    "paged_partials": (pa_kernel, pa_kernel.paged_flash_decode,
+    "paged_partials": (pa_kernel, (pa_kernel.paged_flash_decode,),
                        "src/repro/kernels/paged_attention/kernel.py:40"),
-    "stream": (stream_kernel, stream_kernel.stream_call,
+    "stream": (stream_kernel, (stream_kernel.stream_call,),
                "src/repro/kernels/stream/kernel.py:30"),
-    "spmv_ell": (spmv_kernel, spmv_kernel.spmv_ell,
+    "spmv_ell": (spmv_kernel, (spmv_kernel.spmv_ell,),
                  "src/repro/kernels/spmv/kernel.py:24"),
-    "gemm": (gemm_kernel, gemm_kernel.gemm,
+    "gemm": (gemm_kernel, (gemm_kernel.gemm,),
              "src/repro/kernels/gemm/kernel.py:24"),
-    "conv2d_same": (conv_kernel, conv_kernel.conv2d_same,
+    "conv2d_same": (conv_kernel, (conv_kernel.conv2d_same,),
                     "src/repro/kernels/conv2d/kernel.py:21"),
+    "strided": (strided_kernel, (strided_kernel.strided_rowwise,
+                                 strided_kernel.overfetch_select),
+                "src/repro/kernels/strided/kernel.py:24"),
+    "tailmask": (tail_kernel, (tail_kernel.exact_tail,
+                               tail_kernel.masked_full),
+                 "src/repro/kernels/tailmask/kernel.py:33"),
+    "qsim_gate": (gate_kernel, (gate_kernel.apply_gate_planar,),
+                  "src/repro/kernels/qsim_gate/kernel.py:26"),
 }
 WRAPPERS = {name: k[1] for name, k in KERNELS.items()}
 # veceval at card sizes: every array past the 50 MB L2 or the work
@@ -108,6 +142,28 @@ APP_KERNEL = {"stream": "stream", "spmv": "spmv_ell", "sgemm": "gemm",
               "dgemm": "gemm", "alexnet": "conv2d_same",
               "yolov3": "conv2d_same"}
 SCALAR_MAX_ITERS = 4096       # at card sizes; a longer loop times the host
+CARD_ROWS = 1 << 21           # (rows, 128) fp32: 1 GiB, past the 50 MB L2
+# Qsim (qubits, depth): the JAX figure's size, then 1 GiB a plane
+QSIM_SIZES = ((16, 6), (28, 2))
+PEAK_LIMIT_GIB = 40.0         # the Qsim path's device memory
+
+
+def reset_launches(names):
+    for name in names:
+        for w in WRAPPERS[name]:
+            w.launches = 0
+
+
+def launches_of(name) -> int:
+    return sum(w.launches for w in WRAPPERS[name])
+
+
+def require_launched(names, what):
+    """Exit unless every wrapper of every kernel named launched."""
+    idle = [w.__name__ for name in names for w in WRAPPERS[name]
+            if w.launches == 0]
+    if idle:
+        raise SystemExit(f"{what}: no launch of {', '.join(idle)}")
 
 
 def log(phase, msg):
@@ -283,12 +339,13 @@ def check(what, got, want, rtol, atol, scale=None):
     return float(err.max()) if err.numel() else 0.0
 
 
-def timed_record(what, fns, flops, nbytes, dtype, hw, card, err):
+def timed_record(what, fns, flops, nbytes, dtype, hw, card, err,
+                 phase="kernels-veceval"):
     t = time_three(fns)
     s, by = hw.bound_s(flops, nbytes, dtype)
     rec = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
                library_ms=t["library"], bound_ms=s * 1e3, bound_by=by)
-    log("kernels-veceval",
+    log(phase,
         f"{what}: kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
         f"library_ms {rec['library_ms']:.4f} bound_ms {rec['bound_ms']:.4f} "
         f"({by}) | {card}")
@@ -465,6 +522,170 @@ def phase_kernels_veceval(card, hw):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: the paper layer's kernels vs plain
+# ---------------------------------------------------------------------------
+def kernels_strided(g, hw, card):
+    """Both idioms exact against the plain gather: ragged rows (remainders
+    0, 1 and 7 for stride 8; stride not dividing rows), rows of 127 floats
+    (the one-float path), every block multiplier; then the JAX size and
+    the card size."""
+    dev = torch.device("cuda")
+    for rows in (1000, 1001, 1007):
+        for cols in (128, 127):
+            x = torch.randn((rows, cols), generator=g, device=dev)
+            for s in (2, 3, 4, 8):
+                check(f"strided_rowwise {rows}x{cols} s{s}",
+                      strided_kernel.strided_rowwise(x, s),
+                      strided_ref.strided_gather(x, s), 0.0, 0.0)
+                for m in (1, 2, 4, 8):
+                    check(f"overfetch_select {rows}x{cols} s{s} m{m}",
+                          strided_kernel.overfetch_select(
+                              x, s, block_multiplier=m),
+                          strided_ref.strided_gather(x, s, rows // s),
+                          0.0, 0.0)
+    for rows in (fig2_strided.ROWS, CARD_ROWS):
+        x = torch.rand((rows, 128), generator=g, device=dev)
+        for s in fig2_strided.STRIDES:
+            check(f"strided_rowwise ({rows}, 128) s{s}",
+                  strided_kernel.strided_rowwise(x, s),
+                  strided_ref.strided_gather(x, s), 0.0, 0.0)
+            check(f"overfetch_select ({rows}, 128) s{s}",
+                  strided_kernel.overfetch_select(x, s),
+                  strided_ref.strided_gather(x, s, rows // s), 0.0, 0.0)
+    log("kernels-paper", "strided: both idioms exact on every shape")
+    for s in fig2_strided.STRIDES:
+        t = measure_group({"kernel": lambda: strided_kernel.overfetch_select(
+            x, s)}, reps=30, flush_l2=True, cover_ms=2.0)
+        log("kernels-paper", f"overfetch_select ({rows}, 128) s{s}: "
+                             f"kernel_ms {t['kernel'].median_s * 1e3:.4f} | "
+                             f"{card}")
+        rec = timed_record(
+            f"strided_rowwise ({rows}, 128) s{s}", {
+                "kernel": lambda: strided_kernel.strided_rowwise(x, s),
+                "plain": lambda: strided_ref.strided_gather(x, s),
+                "library": lambda: x[::s].contiguous()},
+            0.0, 8.0 * (rows // s) * 128, torch.float32, hw, card, 0.0,
+            "kernels-paper")
+        if s == 2:
+            kept = rec
+    return kept
+
+
+def kernels_tailmask(g, hw, card):
+    """exact_tail and masked_full within rtol 1e-6 of F.silu(x) * 2:
+    remainders of 0, 1 and 7 rows, tiles of 8 and 16 rows, n_valid from 0
+    past the end; then the JAX size and the card size."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    for rows in (1000, 1001, 1007):
+        for cols in (128, 127):
+            x = torch.randn((rows, cols), generator=g, device=dev) * 4
+            for br in (8, 16):
+                worst = max(worst, check(
+                    f"exact_tail {rows}x{cols} br{br}",
+                    tail_kernel.exact_tail(x, block_rows=br),
+                    tail_ref.compute(x), 1e-6, 0.0))
+                xp = x[: rows // br * br]
+                for nv in (0, 1, 4000, xp.numel() - 3, xp.numel() + 9):
+                    worst = max(worst, check(
+                        f"masked_full {tuple(xp.shape)} br{br} n_valid {nv}",
+                        tail_kernel.masked_full(xp, nv, block_rows=br),
+                        tail_ref.compute_masked(xp, nv), 1e-6, 0.0))
+    for rows in (fig3_tail.ROWS, CARD_ROWS):
+        x = torch.randn((rows, 128), generator=g, device=dev) * 4
+        for r in (rows, rows - 7):
+            worst = max(worst, check(
+                f"exact_tail ({r}, 128)", tail_kernel.exact_tail(x[:r]),
+                tail_ref.compute(x[:r]), 1e-6, 0.0))
+        nv = int(rows * 0.9) * 128
+        worst = max(worst, check(
+            f"masked_full ({rows}, 128) n_valid {nv}",
+            tail_kernel.masked_full(x, nv), tail_ref.compute_masked(x, nv),
+            1e-6, 0.0))
+    log("kernels-paper", f"tailmask: ok, max abs err {worst:.2e}")
+    t = measure_group({"kernel": lambda: tail_kernel.masked_full(x, nv)},
+                      reps=30, flush_l2=True, cover_ms=2.0)
+    log("kernels-paper", f"masked_full ({rows}, 128) frac 0.9: kernel_ms "
+                         f"{t['kernel'].median_s * 1e3:.4f} | {card}")
+    # the library yardstick is two PyTorch calls (silu, then an in-place
+    # multiply): no single call computes silu(x) * 2
+    return timed_record(
+        f"exact_tail ({rows}, 128)", {
+            "kernel": lambda: tail_kernel.exact_tail(x),
+            "plain": lambda: tail_ref.compute(x),
+            "library": lambda: F.silu(x).mul_(2)},
+        fig3_tail.FLOPS_PER_ELEM * x.numel(), 8.0 * x.numel(),
+        torch.float32, hw, card, worst, "kernels-paper")
+
+
+def _gate():
+    return (gates.rx(0.83) @ gates.rz(2.1) @ gates.H).astype(np.complex64)
+
+
+def kernels_qsim_gate(g, hw, card):
+    """The gate kernel against the plain planar gate at qubits 0, 1, 4, 5,
+    12 and n-1 of a random normalised state, at 16 qubits (the JAX size)
+    and 28: within 1e-6 of max |amplitude|."""
+    dev = torch.device("cuda")
+    gate = _gate()
+    coeffs = gate_ref.gate_coeffs(gate)
+    worst = 0.0
+    for n, _ in QSIM_SIZES:
+        re = torch.randn((1 << n,), generator=g, device=dev)
+        im = torch.randn((1 << n,), generator=g, device=dev)
+        scale = float((re.double().square().sum()
+                       + im.double().square().sum()).sqrt())
+        re.div_(scale)
+        im.div_(scale)
+        amp = float(torch.maximum(re.abs().max(), im.abs().max()))
+        for q in (0, 1, 4, 5, 12, n - 1):
+            got = gate_kernel.apply_gate_planar(re, im, coeffs, q)
+            want = gate_ref.apply_gate_planar(re, im, gate, q)
+            for gp, wp, part in zip(got, want, ("re", "im")):
+                worst = max(worst, check(f"qsim_gate {n}q q{q} {part}", gp,
+                                         wp, 0.0, 1e-6 * amp))
+            del got, want
+    log("kernels-paper", f"qsim_gate: ok, max abs err {worst:.2e} "
+                         f"(amplitudes up to {amp:.2e})")
+    psi = torch.complex(re, im)
+    G = torch.as_tensor(gate, device=dev)
+    # (q = 0 would make torch.matmul expand the gate over 2^27 batches)
+    for q in (14, n - 1):
+        view = psi.view(-1, 2, 1 << q)
+        lib = torch.matmul(G, view).reshape(-1)
+        check(f"qsim_gate torch.matmul yardstick q{q}",
+              torch.view_as_real(lib),
+              torch.stack(gate_ref.apply_gate_planar(re, im, gate, q), -1),
+              1e-6, 1e-6 * amp)
+        del lib
+        rec = timed_record(
+            f"qsim_gate {n}q q{q}", {
+                "kernel": lambda: gate_kernel.apply_gate_planar(re, im,
+                                                                coeffs, q),
+                "plain": lambda: gate_ref.apply_gate_planar(re, im, gate, q),
+                "library": lambda: torch.matmul(G, view)},
+            14.0 * (1 << n), 16.0 * (1 << n), torch.float32, hw, card, worst,
+            "kernels-paper")
+        if q == 14:
+            kept = rec
+    return kept
+
+
+def phase_kernels_paper(card, hw):
+    g = torch.Generator(device="cuda").manual_seed(1)
+    names = ("strided", "tailmask", "qsim_gate")
+    reset_launches(names)
+    recs = {"strided": kernels_strided(g, hw, card),
+            "tailmask": kernels_tailmask(g, hw, card),
+            "qsim_gate": kernels_qsim_gate(g, hw, card)}
+    log("kernels-paper", "launches in this phase (checks and timing): "
+        + ", ".join(f"{w.__name__} {w.launches}" for name in names
+                    for w in WRAPPERS[name]))
+    torch.cuda.empty_cache()
+    return recs
+
+
+# ---------------------------------------------------------------------------
 # phase 5: port on card vs port on CPU
 # ---------------------------------------------------------------------------
 def serve_tokens(cfg, params_cpu, device, prompts, gens):
@@ -630,24 +851,22 @@ def phase_veceval(card, hw):
     kernel launched.  Returns the launches of each kernel over the whole
     path."""
     names = sorted(set(APP_KERNEL.values()))
-    for name in names:
-        WRAPPERS[name].launches = 0
+    reset_launches(names)
     for label, sizes, max_iters in (("default", {}, None),
                                     ("card", CARD_SIZES, SCALAR_MAX_ITERS)):
         torch.cuda.reset_peak_memory_stats()
         for app_name in veceval.BUILDERS:
-            wrapper = WRAPPERS[APP_KERNEL[app_name]]
-            before = wrapper.launches
+            before = launches_of(APP_KERNEL[app_name])
             rows = {r["version"]: r for r in veceval.run_all(
                 measure=True, apps=[app_name], sizes=sizes, hw=hw,
                 scalar_max_iters=max_iters)}
-            if wrapper.launches == before:
+            if launches_of(APP_KERNEL[app_name]) == before:
                 raise SystemExit(f"veceval {app_name}: the kernel version "
                                  f"launched no {APP_KERNEL[app_name]} kernel")
             _log_app(label, app_name, rows, card)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log("veceval", f"{label} sizes: peak {peak:.2f} GiB | {card}")
-    return {name: WRAPPERS[name].launches for name in names}
+    return {name: launches_of(name) for name in names}
 
 
 def _log_app(label, app_name, rows, card):
@@ -674,6 +893,84 @@ def _log_app(label, app_name, rows, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the paper layer (Qsim, Fig 2, Fig 3, microbenchmarks)
+# ---------------------------------------------------------------------------
+def phase_paper(card, hw):
+    """Fig 9 at the JAX size and at 28 qubits, then Fig 2 and Fig 3 at the
+    JAX sizes and the card size, then the microbenchmark suite.  fig9's
+    ``run`` raises unless its versions agree; here the gate kernel's
+    launches must equal the uncontrolled gates times the calls of the
+    kernel version, and the peak device memory of the 28-qubit run stays
+    under PEAK_LIMIT_GIB.  Returns the launches of each kernel."""
+    names = ("qsim_gate", "strided", "tailmask")
+    reset_launches(names)
+    for n_qubits, depth in QSIM_SIZES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = launches_of("qsim_gate")
+        rows = {r["version"]: r for r in fig9_qsim.run(
+            n_qubits=n_qubits, depth=depth, hw=hw)}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        kern = rows["kernel/planar"]
+        want = kern["uncontrolled_gates"] * kern["calls"]
+        got = launches_of("qsim_gate") - before
+        if got != want:
+            raise SystemExit(f"Qsim {n_qubits}q: gate kernel launched {got} "
+                             f"times, expected {kern['uncontrolled_gates']} "
+                             f"uncontrolled gates x {kern['calls']} calls")
+        if peak >= PEAK_LIMIT_GIB:
+            raise SystemExit(f"Qsim {n_qubits}q: peak {peak:.2f} GiB >= "
+                             f"{PEAK_LIMIT_GIB} GiB")
+        parts = []
+        for v, r in rows.items():
+            t = r["host_seconds"]
+            extra = (f", first call {r['first_call_seconds']:.2f} s"
+                     if v.startswith("autovec") else "")
+            if r["fidelity_vs_kernel"] is not None:
+                extra += f", fidelity {r['fidelity_vs_kernel']:.9f}"
+            parts.append(f"{v} {t * 1e3:.4f} ms ({100 * r['bound_seconds'] / t:.1f}% "
+                         f"of bound, x{r['speedup_vs_nonvec']:.1f} over "
+                         f"nonvec{extra})")
+        log("paper", f"fig9 Qsim {n_qubits}q depth {depth} ({kern['gates']} "
+                     f"gates, {kern['uncontrolled_gates']} uncontrolled): "
+                     f"bound {kern['bound_seconds'] * 1e3:.4f} ms "
+                     f"({kern['bound_by']}, {kern['hw']}) | "
+                     + " | ".join(parts)
+                     + f" | nonvec: {rows['nonvec/planar']['note']} | norm "
+                     f"{kern['norm']:.9f} | gate launches {got} = "
+                     f"{kern['uncontrolled_gates']} x {kern['calls']} | "
+                     f"peak {peak:.2f} GiB | {card}")
+    for rows_n in (fig2_strided.ROWS, fig2_strided.CARD_ROWS):
+        torch.cuda.empty_cache()
+        for r in fig2_strided.run(rows=rows_n, hw=hw):
+            got = (f"omitted ({r['omitted']})" if r["omitted"] else
+                   f"{r['seconds'] * 1e3:.4f} ms, {r['gelem_per_s']:.2f} "
+                   f"Gelem/s")
+            log("paper", f"fig2 ({rows_n}, 128) stride {r['stride']} "
+                         f"{r['idiom']}: {got} | bound "
+                         f"{r['bound_seconds'] * 1e3:.4f} ms, "
+                         f"{r['bound_gelem_per_s']:.2f} Gelem/s | {card}")
+    for rows_n in (fig3_tail.ROWS, fig3_tail.CARD_ROWS):
+        torch.cuda.empty_cache()
+        for r in fig3_tail.run(rows=rows_n, hw=hw):
+            log("paper", f"fig3 ({rows_n}, 128) frac {r['active_frac']}: "
+                         f"exact {r['exact_seconds'] * 1e3:.4f} ms "
+                         f"({r['exact_gelem_per_s']:.2f} Gelem/s, bound "
+                         f"{r['bound_exact_gelem_per_s']:.2f}), masked "
+                         f"{r['masked_seconds'] * 1e3:.4f} ms "
+                         f"({r['masked_gelem_per_s']:.2f}, bound "
+                         f"{r['bound_masked_gelem_per_s']:.2f}), penalty "
+                         f"{100 * r['penalty']:.1f}% (bytes "
+                         f"{100 * r['bytes_penalty']:.1f}%) | {card}")
+    rows = microbench.run_suite(hw=hw)
+    log("paper", "microbench: " + "; ".join(
+        f"{r['name']} {r['dtype']} {r['host_gops']:.1f} of "
+        f"{r['bound_gops']:.1f} Gops" for r in rows) + f" | {card}")
+    require_launched(names, "paper path")
+    return {name: launches_of(name) for name in names}
+
+
+# ---------------------------------------------------------------------------
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -696,10 +993,12 @@ def main():
                   f"{torch.backends.cudnn.allow_tf32}")
     worst, main_case = phase_kernel(card, hw)
     records = phase_kernels_veceval(card, hw)
+    records.update(phase_kernels_paper(card, hw))
     records["paged_partials"] = dict(max_abs_err=worst, **main_case)
     phase_parity()
     launches = {"paged_partials": phase_serve(card, args.profile)}
     launches.update(phase_veceval(card, hw))
+    launches.update(phase_paper(card, hw))
     record = {"kernels": [dict(
         name=name, route="cuda",
         source=os.path.relpath(module.SOURCES[0], ROOT), replaces=replaces,

@@ -12,7 +12,12 @@ attention in a hand-written CUDA kernel
 (``kernels/paged_attention/csrc/paged_attention.cu``); and the paper's
 proxy-app harness ``core.veceval`` with its STREAM, ELL SpMV, GEMM and
 conv2d kernels (``kernels/{stream,spmv,gemm,conv2d}/csrc``), timed by
-``perf.measure`` against the ceilings in ``core.costmodel``.  Entry
+``perf.measure`` against the ceilings in ``core.costmodel``; and the
+paper layer: the Qsim simulator ``quantum.qsim`` with its planar gate
+kernel (``kernels/qsim_gate``), the microbenchmark suite
+``core.microbench`` with the Fig 2 strided-gather and Fig 3 tail-mask
+kernels (``kernels/{strided,tailmask}``), and the drivers of Figs 2, 3
+and 9 in ``figures``.  Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version.
 """

@@ -10,7 +10,7 @@ rates names the card and its power limit beside them.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,4 +66,15 @@ def hw_for(card_name: str) -> HWSpec:
         return H100_PCIE
     if "NVL" in card_name:
         return H100_NVL
+    return H100_SXM
+
+
+def hw_of(device: torch.device, hw: Optional[HWSpec] = None) -> HWSpec:
+    """``hw`` if given, else the spec of the card ``device`` is on; a CPU
+    device (where only the tests run, and nothing is timed) gets the SXM
+    part's spec."""
+    if hw is not None:
+        return hw
+    if device.type == "cuda":
+        return hw_for(torch.cuda.get_device_name(device))
     return H100_SXM

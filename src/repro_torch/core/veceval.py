@@ -37,7 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.costmodel import H100_SXM, HWSpec, hw_for
+from repro_torch.core.costmodel import HWSpec, hw_of
 from repro_torch.kernels.common import resolve_device
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.conv2d.ref import pads
@@ -317,9 +317,7 @@ def evaluate_app(app: ProxyApp, measure: bool = True, *,
     runs more than ``scalar_max_iters`` iterations is not run; its row says
     why."""
     dev = app.device
-    if hw is None:
-        hw = (hw_for(torch.cuda.get_device_name(dev)) if dev.type == "cuda"
-              else H100_SXM)
+    hw = hw_of(dev, hw)
     bound_s, bound_by = hw.bound_s(app.flops, app.bytes_moved, app.dtype)
     omitted = {v.name: (f"host loop of {v.iters} iterations > "
                         f"{scalar_max_iters}: it would time the host's "

@@ -1,5 +1,6 @@
 """Tests of the port that need a Hopper card (marker ``gpu``): each CUDA
-kernel (paged attention, STREAM, ELL SpMV, GEMM, conv2d) against its
+kernel (paged attention, STREAM, ELL SpMV, GEMM, conv2d, strided gather,
+tail mask, Qsim gate) against its
 plain version on ragged shapes, with its launch counter checked, and the
 port's engine on the card against the same engine on the CPU.  Without a card they
 skip; on the card run them with
@@ -20,11 +21,18 @@ from repro_torch.kernels.gemm import kernel as gemm_kernel
 from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.qsim_gate import kernel as gate_kernel
+from repro_torch.kernels.qsim_gate import ops as gate_ops
 from repro_torch.kernels.spmv import kernel as spmv_kernel
 from repro_torch.kernels.spmv import ops as spmv_ops
 from repro_torch.kernels.stream import kernel as stream_kernel
 from repro_torch.kernels.stream import ops as stream_ops
+from repro_torch.kernels.strided import kernel as strided_kernel
+from repro_torch.kernels.strided import ops as strided_ops
+from repro_torch.kernels.tailmask import kernel as tail_kernel
+from repro_torch.kernels.tailmask import ops as tail_ops
 from repro_torch.models.model import LM
+from repro_torch.quantum import gates, qsim
 from repro_torch.serve.engine import ContinuousBatchingEngine
 
 pytestmark = pytest.mark.gpu
@@ -146,6 +154,83 @@ def test_conv2d_kernel_matches_plain(card, k, block_h):
         x.to(card), w.to(card), block_h=block_h))
     torch.testing.assert_close(got.cpu(), conv_ops.conv2d_same(x, w),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("idiom,wrapper", [
+    ("strided_rowwise", "strided_rowwise"),
+    ("overfetch_select", "overfetch_select")])
+@pytest.mark.parametrize("rows,cols,stride,mult", [
+    (1001, 128, 8, 1), (1007, 128, 2, 8), (257, 127, 4, 2), (1000, 4, 3, 4)])
+def test_strided_kernel_matches_plain(card, idiom, wrapper, rows, cols,
+                                      stride, mult):
+    """Rows the stride does not divide, a ragged last block, rows of 127
+    floats (the one-float path): exact."""
+    x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+        (rows, cols)).astype(np.float32))
+    got = _counted(getattr(strided_kernel, wrapper),
+                   lambda: strided_ops.strided_gather(
+                       x.to(card), stride, idiom, block_multiplier=mult))
+    want = strided_ops.strided_gather(x, stride, idiom)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("rows,block_rows,launches", [
+    (1000, 8, 1), (1001, 8, 2), (1007, 16, 2), (3, 8, 1)])
+def test_tailmask_exact_kernel_matches_plain(card, rows, block_rows,
+                                             launches):
+    """Whole tiles in one launch and the remainder in a second: the
+    counter shows 1 or 2 launches; within rtol 1e-6 of F.silu(x) * 2."""
+    x = torch.from_numpy(np.random.default_rng(rows).standard_normal(
+        (rows, 128)).astype(np.float32) * 4)
+    before = tail_kernel.exact_tail.launches
+    got = tail_ops.tail_compute(x.to(card), "exact_tail",
+                                block_rows=block_rows)
+    assert tail_kernel.exact_tail.launches == before + launches
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.cpu(), tail_ops.tail_compute(x),
+                               rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("n_valid", [0, 1, 1000, 6143, 6144, 7000])
+def test_tailmask_masked_kernel_matches_plain(card, n_valid):
+    x = torch.from_numpy(np.random.default_rng(n_valid).standard_normal(
+        (48, 128)).astype(np.float32) * 4)
+    got = _counted(tail_kernel.masked_full, lambda: tail_ops.tail_compute(
+        x.to(card), "masked_full", n_valid=n_valid))
+    torch.testing.assert_close(
+        got.cpu(), tail_ops.tail_compute(x, "masked_full", n_valid=n_valid),
+        rtol=1e-6, atol=0.0)
+
+
+@pytest.mark.parametrize("n,qubit", [(1, 0), (6, 0), (6, 3), (12, 4),
+                                     (12, 11)])
+def test_qsim_gate_kernel_matches_plain(card, n, qubit):
+    """Pairs within one 128-byte line (q < 5) and across lines; bitwise the
+    plain version (the kernel rounds each operation as it does)."""
+    rng = np.random.default_rng(n + qubit)
+    re, im = (torch.from_numpy(rng.standard_normal(2 ** n).astype(
+        np.float32)) for _ in range(2))
+    gate = (gates.rx(0.4) @ gates.T).astype(np.complex64)
+    got = _counted(gate_kernel.apply_gate_planar,
+                   lambda: gate_ops.apply_gate_planar(re.to(card),
+                                                      im.to(card), gate,
+                                                      qubit))
+    want = gate_ops.apply_gate_planar(re, im, gate, qubit)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.cpu(), w_, rtol=0, atol=0)
+
+
+def test_qsim_kernel_version_on_card_matches_cpu(card):
+    """run_kernel_planar on the card launches the kernel once per
+    uncontrolled gate and agrees with the CPU run (atol 1e-5)."""
+    circuit = gates.random_circuit(10, 3, 4)
+    before = gate_kernel.apply_gate_planar.launches
+    got = qsim.run_kernel_planar(*qsim.init_planar(10, card), circuit)
+    assert gate_kernel.apply_gate_planar.launches - before == sum(
+        g.control is None for g in circuit)
+    want = qsim.run_kernel_planar(*qsim.init_planar(10, "cpu"), circuit)
+    for g_, w_ in zip(got, want):
+        torch.testing.assert_close(g_.cpu(), w_, rtol=0, atol=1e-5)
 
 
 def test_engine_on_card_matches_cpu(card):

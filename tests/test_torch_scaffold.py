@@ -16,7 +16,13 @@ PORT = ROOT / "src" / "repro_torch"
 def test_import_leaves_jax_out():
     code = ("import sys, repro_torch, repro_torch.serve.engine, "
             "repro_torch.weights, repro_torch.kernels.paged_attention.ops, "
-            "repro_torch.core.veceval, repro_torch.perf.measure; "
+            "repro_torch.core.veceval, repro_torch.perf.measure, "
+            "repro_torch.quantum.qsim, repro_torch.core.microbench, "
+            "repro_torch.figures.fig9_qsim, repro_torch.figures.fig2_strided, "
+            "repro_torch.figures.fig3_tail, "
+            "repro_torch.kernels.qsim_gate.ops, "
+            "repro_torch.kernels.strided.ops, "
+            "repro_torch.kernels.tailmask.ops; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
