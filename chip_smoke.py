@@ -1,15 +1,15 @@
 """Drive the PyTorch port on one NVIDIA Hopper card and check it end to end.
 
     python3 chip_smoke.py              # every phase; needs one sm_90 card
-    python3 chip_smoke.py --profile    # also profile pure decode steps
+    python3 chip_smoke.py --profile    # also profile decode and train steps
 
 Phases (one line each; any failure exits nonzero and prints no result):
 
 1. device  — the card's name and power limit (nvidia-smi), capability
              (9, 0) required; there is no fallback to the CPU.
-2. build   — nvcc builds the eight kernel libraries from the checkout, all
+2. build   — nvcc builds the nine kernel libraries from the checkout, all
              at once (paged attention, STREAM, SpMV, GEMM, conv2d, strided
-             gather, tail mask, Qsim gate).
+             gather, tail mask, Qsim gate, flash attention).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
@@ -34,17 +34,38 @@ Phases (one line each; any failure exits nonzero and prints no result):
              Library yardsticks: x[::s].contiguous(), F.silu(x).mul_(2)
              (two calls) and torch.matmul of the complex gate with the
              state viewed as (outer, 2, 2^q).
+   kernels-train — the flash-attention forward against its plain version:
+             the two shapes the train phase gives it (qwen3-1.7b, bf16,
+             causal, at batch 8 x seq 128 and batch 1 x seq 4096), then
+             S 1, 63, 200 and 4096, G 1, 2 and 8, H 64 and 128 (and 32 at
+             the short lengths), softcap 0 and 30, causal and full, fp32
+             and bf16; out and lse both checked (bf16 out within one bf16
+             ulp of the value: rtol 8e-3, atol 1e-4).  Timed at qwen3-1.7b's
+             training shape (B 1, S 4096, 16/8 heads, H 128, bf16, causal)
+             against F.scaled_dot_product_attention(is_causal=True,
+             enable_gqa=True), a yardstick the port never calls.
 5. parity  — the port on the card against the port on the CPU, reduced
-             granite-3-2b in fp32 (TF32 off): greedy tokens identical.
+             granite-3-2b in fp32 (TF32 off): greedy tokens identical; and
+             one train step of reduced qwen3-1.7b with the flash kernel
+             (fp32): loss and grad norm within 1e-4 relative.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
              paged kernel's launch count must equal 40 x the forward passes.
-7. veceval — the proxy-app path: ``repro_torch.core.veceval`` over its six
+7. train   — the train path: ``repro_torch.launch.train.run`` on
+             full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
+             remat full) with attention_impl "pallas", at the JAX
+             launcher's batch 8 x seq 128: 3 steps ending in a checkpoint
+             (restored bitwise), then a run resumed from it to step 6;
+             then 2 steps at batch 1 x seq 4096 without checkpoints.  Per
+             step: CUDA-event ms, tokens/s, loss, flash launches (2 x 28 per
+             step: the checkpointed forward runs again in the backward);
+             peak memory; the loss finite and lower at the end.
+8. veceval — the proxy-app path: ``repro_torch.core.veceval`` over its six
              apps at the default sizes and at the card sizes; scalar,
              torch.compile and kernel versions timed interleaved, held
              against each other, and each app's kernel launched.
-8. paper   — the paper layer's path: ``figures.fig9_qsim`` (Qsim, §6) at
+9. paper   — the paper layer's path: ``figures.fig9_qsim`` (Qsim, §6) at
              16 qubits depth 6 (the JAX size) and 28 qubits depth 2 (1 GiB
              a plane): nonvec, torch.compile'd interleaved and planar, and
              the kernel version, held together by fidelity and norm, the
@@ -63,6 +84,8 @@ import concurrent.futures
 import datetime
 import json
 import os
+import shutil
+import statistics
 import subprocess
 import sys
 import warnings
@@ -83,6 +106,8 @@ from repro_torch.core.costmodel import hw_for  # noqa: E402
 from repro_torch.kernels.common import REQUIRED_CAPABILITY  # noqa: E402
 from repro_torch.kernels.conv2d import kernel as conv_kernel  # noqa: E402
 from repro_torch.kernels.conv2d import ref as conv_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.gemm import ref as gemm_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
@@ -98,7 +123,14 @@ from repro_torch.kernels.strided import ref as strided_ref  # noqa: E402
 from repro_torch.kernels.tailmask import kernel as tail_kernel  # noqa: E402
 from repro_torch.kernels.tailmask import ref as tail_ref  # noqa: E402
 from repro_torch.figures import fig2_strided, fig3_tail, fig9_qsim  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.data import SyntheticLMStream  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.optim import AdamWConfig  # noqa: E402
+from repro_torch.train import init_train_state, make_train_step  # noqa: E402
+from repro_torch.train.parity import card_step_matches_cpu  # noqa: E402
+from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.quantum import gates  # noqa: E402
 from repro_torch.perf.measure import measure_group  # noqa: E402
 from repro_torch.serve.engine import ContinuousBatchingEngine  # noqa: E402
@@ -126,6 +158,8 @@ KERNELS = {
                  "src/repro/kernels/tailmask/kernel.py:33"),
     "qsim_gate": (gate_kernel, (gate_kernel.apply_gate_planar,),
                   "src/repro/kernels/qsim_gate/kernel.py:26"),
+    "flash_attention": (fa_kernel, (fa_kernel.flash_fwd,),
+                        "src/repro/kernels/flash_attention/kernel.py:32"),
 }
 WRAPPERS = {name: k[1] for name, k in KERNELS.items()}
 # veceval at card sizes: every array past the 50 MB L2 or the work
@@ -146,6 +180,11 @@ CARD_ROWS = 1 << 21           # (rows, 128) fp32: 1 GiB, past the 50 MB L2
 # Qsim (qubits, depth): the JAX figure's size, then 1 GiB a plane
 QSIM_SIZES = ((16, 6), (28, 2))
 PEAK_LIMIT_GIB = 40.0         # the Qsim path's device memory
+# the train path: full-width qwen3-1.7b through the flash kernel
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_SHAPES = ((8, 128), (1, 4096))    # (batch, seq): the JAX launcher's
+# defaults, then qwen3's long context
+TRAIN_CKPT = os.path.join(ROOT, "checkpoints", "chip_smoke_train")
 
 
 def reset_launches(names):
@@ -686,6 +725,109 @@ def phase_kernels_paper(card, hw):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: the train path's flash-attention kernel vs plain
+# ---------------------------------------------------------------------------
+# out: (rtol, atol).  fp32: the sums in another order.  bf16: both versions
+# compute in fp32 and round once to bf16, so they are at most one bf16 ulp
+# apart, which is 2^-7 = 7.8e-3 of the value at most.  lse: 1e-4, 1e-4.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
+
+
+def _flash_cases():
+    """(BN, S, G, H, softcap, causal, dtype).  First the two shapes the
+    train phase gives the kernel (qwen3-1.7b, bf16, causal: BN = batch x
+    8 KV heads, G 2, H 128, at batch 8 x seq 128 and batch 1 x seq 4096).
+    Then every combination of the four lengths, three group sizes, both
+    caps, both masks and both dtypes at H 64 and 128, and at H 32 (the
+    reduced configs) for the short ones, over 3 KV heads (2 at S 4096)."""
+    cfg = get_config(TRAIN_ARCH)
+    for B, S in TRAIN_SHAPES:
+        yield (B * cfg.n_kv_heads, S, cfg.n_heads // cfg.n_kv_heads,
+               cfg.resolved_head_dim, cfg.attn_logit_softcap, True,
+               torch.bfloat16)
+    for S in (1, 63, 200, 4096):
+        for H in ((32, 64, 128) if S < 4096 else (64, 128)):
+            for G in (1, 2, 8):
+                for softcap in (0.0, 30.0):
+                    for causal in (True, False):
+                        for dtype in (torch.float32, torch.bfloat16):
+                            yield (2 if S == 4096 else 3, S, G, H, softcap,
+                                   causal, dtype)
+
+
+def kernels_flash(g, hw, card):
+    """The flash forward against ref.flash_fwd on the same card inputs:
+    out within FLASH_TOL of its dtype, lse within 1e-4.  Then timed at
+    qwen3-1.7b's training shape."""
+    dev = torch.device("cuda")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for BN, S, G, H, softcap, causal, dtype in _flash_cases():
+        q = torch.randn((BN, G * S, H), generator=g, device=dev).to(dtype)
+        k = torch.randn((BN, S, H), generator=g, device=dev).to(dtype)
+        v = torch.randn((BN, S, H), generator=g, device=dev).to(dtype)
+        what = (f"flash BN{BN} S{S} G{G} H{H} cap{softcap:g} "
+                f"{'causal' if causal else 'full'} {dtype}")
+        out, lse = fa_kernel.flash_fwd(q, k, v, causal=causal,
+                                       softcap=softcap, sq_real=S)
+        w_out, w_lse = fa_ref.flash_fwd(q, k, v, causal=causal,
+                                        softcap=softcap, sq_real=S)
+        rtol, atol = FLASH_TOL[dtype]
+        worst[dtype] = max(worst[dtype], check(
+            f"{what} out", out.float(), w_out.float(), rtol, atol))
+        check(f"{what} lse", lse, w_lse, 1e-4, 1e-4)
+        n += 1
+        del q, k, v, out, lse, w_out, w_lse
+    torch.cuda.empty_cache()
+    log("kernels-train", f"flash_attention: {n} cases ok (the train "
+                         f"phase's two shapes among them), max abs err of "
+                         f"out fp32 {worst[torch.float32]:.2e}, bf16 "
+                         f"{worst[torch.bfloat16]:.2e}")
+    cfg = get_config(TRAIN_ARCH)
+    B, S, NQ, NKV, H = 1, 4096, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.resolved_head_dim
+    G = NQ // NKV
+    q = torch.randn((B, NQ, S, H), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    k = torch.randn((B, NKV, S, H), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    v = torch.randn((B, NKV, S, H), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    # the grouped layout of ops._group: (B*NKV, G*S, H), no K/V copy
+    qg = q.reshape(B * NKV, G * S, H)
+    kg, vg = k.reshape(B * NKV, S, H), v.reshape(B * NKV, S, H)
+    out, _ = fa_kernel.flash_fwd(qg, kg, vg, causal=True, sq_real=S)
+    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                         enable_gqa=True)
+    # SDPA rounds the probabilities to bf16 before P.V: a looser yardstick
+    err = check("flash qwen3 shape vs SDPA yardstick",
+                out.view(B, NQ, S, H).float(), lib.float(), 1e-2, 1e-2)
+    log("kernels-train", f"qwen3 training shape: kernel vs SDPA max abs err "
+                         f"{err:.2e}")
+    # causal pairs (the diagonal included); QK^T and PV, 2 flops a MAC
+    flops = 2.0 * B * NQ * H * S * (S + 1)
+    nbytes = 2.0 * (qg.numel() + kg.numel() + vg.numel() + qg.numel()) \
+        + 4.0 * qg.shape[0] * qg.shape[1]
+    return timed_record(
+        f"flash_attention B{B} S{S} {NQ}/{NKV} heads H{H} bf16 causal", {
+            "kernel": lambda: fa_kernel.flash_fwd(qg, kg, vg, causal=True,
+                                                  sq_real=S),
+            "plain": lambda: fa_ref.flash_fwd(qg, kg, vg, causal=True,
+                                              sq_real=S),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)},
+        flops, nbytes, torch.bfloat16, hw, card,
+        max(worst.values()), "kernels-train")
+
+
+def phase_kernels_train(card, hw):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    rec = kernels_flash(g, hw, card)
+    torch.cuda.empty_cache()
+    return {"flash_attention": rec}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: port on card vs port on CPU
 # ---------------------------------------------------------------------------
 def serve_tokens(cfg, params_cpu, device, prompts, gens):
@@ -728,6 +870,23 @@ def phase_parity():
                   f"{sum(map(len, card))} greedy tokens identical card vs "
                   f"CPU over {len(prompts)} requests; kernel launches "
                   f"{launched}")
+    parity_train_step()
+
+
+def parity_train_step():
+    """One train step of reduced qwen3-1.7b (fp32, H 32, flash kernel on
+    the card, its plain version on the CPU) through
+    ``train.parity.card_step_matches_cpu``: loss and grad norm within 1e-4
+    relative, the kernel launched once per layer."""
+    cfg = reduced_config(TRAIN_ARCH, attention_impl="pallas")
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator(device="cpu").manual_seed(0))
+    got, launched = card_step_matches_cpu(cfg, params, batch=4, seq=128)
+    log("parity", f"reduced {TRAIN_ARCH} fp32 train step, batch 4 x 128: "
+                  f"loss {got['cuda']['loss']:.6f} card vs "
+                  f"{got['cpu']['loss']:.6f} CPU, grad norm "
+                  f"{got['cuda']['grad_norm']:.6f} vs "
+                  f"{got['cpu']['grad_norm']:.6f}; flash launches {launched}")
 
 
 # ---------------------------------------------------------------------------
@@ -825,13 +984,7 @@ def profile_decode(model, params, eng, card):
         end.record()
         end.synchronize()
     wall = start.elapsed_time(end) / 5
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        raise AttributeError("profiler event has no device time field")
-
-    rows = [(e.key, dev_us(e) / 1e3 / 5, e.count // 5)
+    rows = [(e.key, _device_us(e) / 1e3 / 5, e.count // 5)
             for e in prof.key_averages()]
     busy = sum(r[1] for r in rows)
     log("profile", f"decode forward (8 x 1, ctx 288): {wall:.3f} ms "
@@ -842,7 +995,153 @@ def profile_decode(model, params, eng, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: veceval, the proxy-app path
+# phase 7: train at full width
+# ---------------------------------------------------------------------------
+def _train_log(what, log_, B, S, card):
+    for r in log_:
+        log("train", f"{what} step {r['step']}: {r['seconds'] * 1e3:.1f} ms, "
+                     f"{B * S / r['seconds']:.0f} tokens/s, loss "
+                     f"{r['loss']:.4f}, grad norm {r['grad_norm']:.4f}, lr "
+                     f"{r['lr']:.2e} | {card}")
+
+
+def _train_run(cfg, per_step, B, S, steps, ckpt_dir, what, card):
+    """launch.train.run, its flash launches held to ``per_step`` a step."""
+    before = fa_kernel.flash_fwd.launches
+    out = launch_train.run(cfg, steps=steps, batch=B, seq=S,
+                           ckpt_dir=ckpt_dir, checkpoint_every=3)
+    launched = fa_kernel.flash_fwd.launches - before
+    if launched != per_step * len(out["log"]) or not out["log"]:
+        raise SystemExit(f"{what}: {launched} flash launches over "
+                         f"{len(out['log'])} steps, expected {per_step} a "
+                         f"step")
+    losses = [r["loss"] for r in out["log"]]
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f"{what}: loss {losses}")
+    _train_log(what, out["log"], B, S, card)
+    return out, launched
+
+
+def phase_train(card, profile=False):
+    """Full-width qwen3-1.7b through the launcher with the flash kernel:
+    3 steps and a checkpoint, the checkpoint restored bitwise, a run
+    resumed from it to step 6; then 2 steps at batch 1 x seq 4096.
+    Returns the flash launches of the whole phase."""
+    t0 = datetime.datetime.now()
+    cfg = get_config(TRAIN_ARCH, attention_impl="pallas")
+    per_step = 2 * cfg.n_layers            # remat full: forward runs twice
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    fa_kernel.flash_fwd.launches = 0
+    B, S = TRAIN_SHAPES[0]
+    torch.cuda.reset_peak_memory_stats()
+    first, _ = _train_run(cfg, per_step, B, S, 3, TRAIN_CKPT,
+                          f"{TRAIN_ARCH} bf16 B{B} S{S}", card)
+    ck = Checkpointer(TRAIN_CKPT)
+    if ck.all_steps() != [3]:
+        raise SystemExit(f"checkpoints {ck.all_steps()}, expected [3]")
+    restored, manifest = ck.restore(3, like=first["state"])
+    saved = tree_leaves(first["state"])
+    back = tree_leaves(restored)
+    if len(saved) != len(back) or not all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in zip(saved, back)):
+        raise SystemExit("the restored checkpoint differs from the state")
+    log("train", f"checkpoint at step {manifest['step']}: {len(back)} "
+                 f"leaves in {len(manifest['leaves'])} files restored "
+                 f"bitwise; phase wall {_since(t0):.1f} s so far")
+    loss0 = first["log"][0]["loss"]
+    del first, restored, saved, back
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    resumed, _ = _train_run(cfg, per_step, B, S, 6, TRAIN_CKPT,
+                            f"{TRAIN_ARCH} bf16 B{B} S{S} resumed", card)
+    steps = [r["step"] for r in resumed["log"]]
+    loss1 = resumed["log"][-1]["loss"]
+    if steps != [3, 4, 5] or not loss1 < loss0:
+        raise SystemExit(f"resumed at steps {steps}; loss {loss0} -> {loss1}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = [r["seconds"] * 1e3 for r in resumed["log"]]
+    log("train", f"{TRAIN_ARCH} bf16 full width, B{B} S{S}: loss {loss0:.4f} "
+                 f"-> {loss1:.4f} over 6 steps (resumed at 3), steady step "
+                 f"{statistics.median(ms):.1f} ms, "
+                 f"{B * S / statistics.median(ms) * 1e3:.0f} tokens/s, flash "
+                 f"launches {per_step} a step, peak {peak:.2f} GiB | {card}")
+    del resumed
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.empty_cache()
+    B, S = TRAIN_SHAPES[1]
+    torch.cuda.reset_peak_memory_stats()
+    long_, _ = _train_run(cfg, per_step, B, S, 2, None,
+                          f"{TRAIN_ARCH} bf16 B{B} S{S}", card)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("train", f"{TRAIN_ARCH} bf16 full width, B{B} S{S}: peak "
+                 f"{peak:.2f} GiB; phase wall {_since(t0):.1f} s | {card}")
+    del long_
+    torch.cuda.empty_cache()
+    launches = fa_kernel.flash_fwd.launches
+    if profile:
+        for B, S in TRAIN_SHAPES:
+            profile_train_step(cfg, B, S, card)
+    return launches
+
+
+def _since(t0):
+    return (datetime.datetime.now() - t0).total_seconds()
+
+
+def profile_train_step(cfg, B, S, card):
+    """Device-busy share of one full-width train step under
+    torch.profiler, and the kernels that take most of its device time."""
+    from torch.profiler import ProfilerActivity, profile
+    model = LM(cfg)
+    opt = AdamWConfig(lr=1e-4)
+    state = init_train_state(
+        model, torch.Generator(device=model.device).manual_seed(0), opt)
+    batch = SyntheticLMStream(cfg, B, S).batch_for_step(0)
+    step = make_train_step(model, opt)
+    state, _ = step(state, batch)                      # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        state, _ = step(state, batch)
+        end.record()
+        end.synchronize()
+    wall = start.elapsed_time(end)
+    # kernels (device events) apart from the ops and annotations that
+    # launched them, whose device time would count the same kernels again
+    from torch.autograd import DeviceType
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        row = (e.key, _device_us(e) / 1e3, e.count)
+        if e.device_type == DeviceType.CUDA:
+            if not getattr(e, "is_user_annotation", False):
+                kernels.append(row)
+        elif row[1] > 0 and not getattr(e, "is_user_annotation", False):
+            ops.append(row)
+    busy = sum(r[1] for r in kernels)
+    log("profile", f"train step {TRAIN_ARCH} B{B} S{S}: {wall:.1f} ms "
+                   f"between events, kernels busy {busy:.1f} ms "
+                   f"({100 * busy / wall:.1f}%), {sum(r[2] for r in kernels)} "
+                   f"kernel launches | {card}")
+    for what, rows in (("kernel", kernels), ("op", ops)):
+        for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
+            log("profile", f"  {what} {ms:.3f} ms  x{n}  {key[:70]}")
+    del state
+    torch.cuda.empty_cache()
+
+
+def _device_us(e):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    raise AttributeError("profiler event has no device time field")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: veceval, the proxy-app path
 # ---------------------------------------------------------------------------
 def phase_veceval(card, hw):
     """``veceval.run_all`` at the default and the card sizes, one app at a
@@ -893,7 +1192,7 @@ def _log_app(label, app_name, rows, card):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: the paper layer (Qsim, Fig 2, Fig 3, microbenchmarks)
+# phase 9: the paper layer (Qsim, Fig 2, Fig 3, microbenchmarks)
 # ---------------------------------------------------------------------------
 def phase_paper(card, hw):
     """Fig 9 at the JAX size and at 28 qubits, then Fig 2 and Fig 3 at the
@@ -974,7 +1273,7 @@ def phase_paper(card, hw):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile pure decode forwards")
+                    help="also profile pure decode forwards and train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -994,9 +1293,11 @@ def main():
     worst, main_case = phase_kernel(card, hw)
     records = phase_kernels_veceval(card, hw)
     records.update(phase_kernels_paper(card, hw))
+    records.update(phase_kernels_train(card, hw))
     records["paged_partials"] = dict(max_abs_err=worst, **main_case)
     phase_parity()
     launches = {"paged_partials": phase_serve(card, args.profile)}
+    launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))
     launches.update(phase_paper(card, hw))
     record = {"kernels": [dict(

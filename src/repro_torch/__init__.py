@@ -17,7 +17,10 @@ paper layer: the Qsim simulator ``quantum.qsim`` with its planar gate
 kernel (``kernels/qsim_gate``), the microbenchmark suite
 ``core.microbench`` with the Fig 2 strided-gather and Fig 3 tail-mask
 kernels (``kernels/{strided,tailmask}``), and the drivers of Figs 2, 3
-and 9 in ``figures``.  Entry
+and 9 in ``figures``; and the train stack (``train``, ``optim``,
+``data``, ``checkpoint``, ``launch.train``) with the flash-attention
+forward in a hand-written CUDA kernel (``kernels/flash_attention``).
+Entry
 points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version.
 """

@@ -37,6 +37,7 @@ def reduced_config(arch_id: str, **overrides) -> ModelConfig:
         vocab_pad_multiple=64,
         param_dtype="float32",
         compute_dtype="float32",
+        remat="none",
         rope_theta=cfg.rope_theta,
         n_heads=4,
         n_kv_heads=max(1, 4 * cfg.n_kv_heads // cfg.n_heads),

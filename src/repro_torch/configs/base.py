@@ -1,7 +1,7 @@
 """Model configuration schema (dense subset of ``repro.configs.base``).
 
-A copy of the fields the dense family reads, with the same names and
-defaults so a config reads the same in both packages.
+A copy of the fields the dense family reads, serving and training, with
+the same names and defaults so a config reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -31,6 +31,8 @@ class ModelConfig:
     compute_dtype: str = "bfloat16"
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    attention_impl: str = "reference"    # reference (jnp flash port) | pallas (CUDA kernel)
+    remat: str = "full"                  # none | full
     vocab_pad_multiple: int = 256
     notes: str = ""
 

@@ -1,7 +1,13 @@
-"""GQA attention for decode-mode steps against a paged KV cache.
+"""GQA attention: train-mode causal attention, and decode-mode steps
+against a paged KV cache.
 
-Counterpart of ``repro.models.attention``'s decode path: projections
-with optional qk-norm, RoPE, the ragged ``n_valid`` KV write, and
+Counterpart of ``repro.models.attention``.  Train half: ``attn_train``
+dispatches on ``cfg.attention_impl`` as the reference does —
+``reference`` is the port of the jnp chunked flash (``chunked_attention``:
+an online softmax over KV chunks with its own memory-flat backward, the
+comparison point), ``pallas`` the hand-written CUDA flash kernel
+(``kernels/flash_attention``).  Decode half: projections with optional
+qk-norm, RoPE, the ragged ``n_valid`` KV write, and
 ``_paged_attention_with_cache``, which views the cache as a page pool
 and runs ``kernels/paged_attention``.  Where the reference enters a
 global ``paged_decode`` context, the port passes a ``PagedDecodeState``
@@ -13,7 +19,9 @@ import dataclasses
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import dense, rms_norm_nd
@@ -84,6 +92,134 @@ def _project_kv(params, x, cfg):
 def _out_proj(params, out):
     B, S = out.shape[:2]
     return dense(out.reshape(B, S, -1), params["wo"])
+
+
+# ---------------------------------------------------------------------------
+# train: chunked online-softmax reference and the flash kernel
+# ---------------------------------------------------------------------------
+NEG_INF = fa_ops.NEG_INF
+
+
+def _chunk_attend(q, k_c, v_c, m, l, acc, *, scale, softcap, mask):
+    """One online-softmax step.  q: (B,N,Sq,H) fp32; k_c/v_c: (B,N,Ck,H);
+    mask: (Sq, Ck) boolean (True = attend)."""
+    s = torch.einsum("bnqh,bnkh->bnqk", q, k_c.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    corr = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l_new = l * corr + p.sum(dim=-1)
+    # p rounded to V's dtype, accumulated in fp32, as the reference does
+    acc_new = acc * corr[..., None] + torch.einsum(
+        "bnqk,bnkh->bnqh", p.to(v_c.dtype).float(), v_c.float())
+    return m_new, l_new, acc_new
+
+
+def _expand_kv(q, k, v):
+    """Broadcast KV heads to query heads; transpose to (B,N,S,H)."""
+    G = q.shape[2] // k.shape[2]
+    k = k.repeat_interleave(G, dim=2)
+    v = v.repeat_interleave(G, dim=2)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _chunk_mask(Sq, kv_chunk, c_idx, causal, skv_real, device):
+    """(Sq, Ck) mask of KV chunk ``c_idx``."""
+    q_pos = torch.arange(Sq, device=device)[:, None]
+    kv_pos = c_idx * kv_chunk + torch.arange(kv_chunk, device=device)[None]
+    mask = kv_pos < skv_real
+    if causal:
+        return mask & (kv_pos <= q_pos)
+    return mask.expand(Sq, kv_chunk)
+
+
+def _flash_fwd_impl(qT, kT, vT, causal, softcap, skv_real, kv_chunk):
+    """qT: (B,N,Sq,H) fp32; kT/vT: (B,N,n_chunks*kv_chunk,H).  Returns
+    out, m, l (fp32), skipping chunks wholly above the causal diagonal."""
+    B, N, Sq, H = qT.shape
+    m = torch.full((B, N, Sq), NEG_INF, dtype=torch.float32,
+                   device=qT.device)
+    l = torch.zeros((B, N, Sq), dtype=torch.float32, device=qT.device)
+    acc = torch.zeros((B, N, Sq, H), dtype=torch.float32, device=qT.device)
+    for c in range(kT.shape[2] // kv_chunk):
+        if causal and Sq - 1 < c * kv_chunk:
+            break
+        sl = slice(c * kv_chunk, (c + 1) * kv_chunk)
+        mask = _chunk_mask(Sq, kv_chunk, c, causal, skv_real, qT.device)
+        m, l, acc = _chunk_attend(qT, kT[:, :, sl], vT[:, :, sl], m, l, acc,
+                                  scale=H ** -0.5, softcap=softcap,
+                                  mask=mask)
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out, m, l
+
+
+class _Flash(torch.autograd.Function):
+    """The jnp flash's custom VJP: forward saves (q, k, v, out, lse); the
+    backward (``flash_backward``) recomputes each chunk's probabilities
+    from ``lse``, so only out + lse are kept per layer."""
+
+    @staticmethod
+    def forward(ctx, qT, kT, vT, causal, softcap, skv_real, kv_chunk):
+        out, m, l = _flash_fwd_impl(qT, kT, vT, causal, softcap, skv_real,
+                                    kv_chunk)
+        lse = m + torch.log(l.clamp_min(1e-30))
+        ctx.save_for_backward(qT, kT, vT, out, lse)
+        ctx.opts = (causal, softcap, skv_real, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        causal, softcap, skv_real, kv_chunk = ctx.opts
+        qT, kT, vT, out, lse = ctx.saved_tensors
+        B, N, Sq, H = qT.shape
+        flat = lambda t: t.reshape(B * N, t.shape[2], H)     # noqa: E731
+        grads = fa_ops.flash_backward(
+            flat(qT), flat(kT), flat(vT), flat(out),
+            lse.reshape(B * N, Sq), flat(dout.contiguous()), causal=causal,
+            softcap=softcap, sq_real=Sq, skv_real=skv_real,
+            kv_chunk=kv_chunk)
+        dq, dk, dv = (g.reshape(B, N, -1, H) for g in grads)
+        return dq, dk, dv, None, None, None, None
+
+
+def chunked_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
+                      kv_chunk: int = 1024):
+    """q: (B, Sq, NQ, H); k/v: (B, Skv, NKV, H) -> (B, Sq, NQ, H) in q's
+    dtype.  The port of the reference's jnp flash: K/V heads repeated to
+    the query heads, padded to whole chunks, online softmax in fp32."""
+    B, Sq, NQ, H = q.shape
+    Skv = k.shape[1]
+    kv_chunk = min(kv_chunk, Skv)
+    pad = -Skv % kv_chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qT, kT, vT = _expand_kv(q, k, v)
+    out = _Flash.apply(qT.float(), kT, vT, causal, float(softcap), Skv,
+                       kv_chunk)
+    return out.transpose(1, 2).to(q.dtype)                   # (B,Sq,NQ,H)
+
+
+def attn_train(params, x, cfg, *, rope):
+    """Train-mode causal attention over the whole sequence.  ``rope`` is the
+    forward's fp32 (cos, sin) pair; ``cfg.attention_impl`` picks the jnp
+    flash port (``reference``) or the CUDA flash kernel (``pallas``)."""
+    q = _project_q(params, x, cfg)
+    k, v = _project_kv(params, x, cfg)
+    if cfg.rope_theta > 0:
+        q = layers.apply_rope(q, *rope)
+        k = layers.apply_rope(k, *rope)
+    if cfg.attention_impl == "pallas":
+        out = fa_ops.flash_attention(q, k, v, causal=True,
+                                     softcap=cfg.attn_logit_softcap)
+    elif cfg.attention_impl == "reference":
+        out = chunked_attention(q, k, v, causal=True,
+                                softcap=cfg.attn_logit_softcap)
+    else:
+        raise ValueError(f"attention_impl {cfg.attention_impl!r}")
+    return _out_proj(params, out)
 
 
 # ---------------------------------------------------------------------------

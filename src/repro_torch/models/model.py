@@ -1,4 +1,5 @@
-"""The LM (dense family): parameters, decode-mode forward, slotted cache.
+"""The LM (dense family): parameters, train- and decode-mode forward,
+slotted cache.
 
 Counterpart of ``repro.models.model.LM`` for the dense family.  The
 parameters are a dict with the JAX tree's keys — ``embed.table``,
@@ -9,7 +10,7 @@ Weights are random, drawn from an explicit ``torch.Generator``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -110,19 +111,26 @@ class LM:
     # ------------------------------------------------------------------
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: torch.Tensor, *, mode: str = "decode",
-                cache: Params, n_valid: Optional[torch.Tensor] = None,
-                paged: Optional[attention.PagedDecodeState] = None
-                ) -> Tuple[torch.Tensor, Params]:
-        """Decode-mode step: tokens / positions (B, S), ``n_valid`` (B,)
-        real tokens per row (``None``: all S).  Writes the step's K/V
-        into ``cache`` in place, advances ``cache["pos"]`` by
-        ``n_valid`` and returns (fp32 logits (B, S, V), cache).
+                cache: Optional[Params] = None,
+                n_valid: Optional[torch.Tensor] = None,
+                paged: Optional[attention.PagedDecodeState] = None):
+        """tokens / positions (B, S).
 
+        ``mode="train"``: causal attention over the whole sequence through
+        ``cfg.attention_impl``, each layer rematerialised as ``cfg.remat``
+        says; returns (fp32 logits (B, S, V), None, aux) — aux is the
+        dense family's zero auxiliary loss.
+
+        ``mode="decode"``: ``n_valid`` (B,) real tokens per row (``None``:
+        all S).  Writes the step's K/V into ``cache`` in place, advances
+        ``cache["pos"]`` by ``n_valid`` and returns (fp32 logits, cache).
         ``paged`` names the page map of the cache's pool view; ``None``
         is the row-local identity map with one page per row."""
+        if mode == "train":
+            return self._forward_train(params, tokens, positions)
         if mode != "decode":
             raise NotImplementedError(
-                f"mode={mode!r}: the port runs decode-mode steps only")
+                f"mode={mode!r}: the port runs train and decode modes")
         cfg = self.cfg
         S_cache = cache["k"].shape[2]
         if paged is None:
@@ -137,10 +145,23 @@ class LM:
                              rope=rope, cache=cache, write=write,
                              paged=paged)
         cache["pos"].copy_(write.kv_valid)
+        return self._logits(params, x), cache
+
+    def _forward_train(self, params, tokens, positions):
+        cfg = self.cfg
+        x = layers.embed(tokens, params["embed"], self.compute_dtype)
+        rope = layers.rope_tables(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
+        x = blocks.run_stack(x, params["stack"], cfg, mode="train",
+                             rope=rope, remat=cfg.remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(params, x), None, aux
+
+    def _logits(self, params, x):
+        cfg = self.cfg
         x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
         emb = params["embed"] if cfg.tie_embeddings else params["unembed"]
-        logits = layers.unembed(x, emb)
-        return logits.float(), cache
+        return layers.unembed(x, emb).float()
 
 
 def build_model(cfg: ModelConfig, device=None) -> LM:

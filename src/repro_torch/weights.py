@@ -1,12 +1,17 @@
-"""Carry a JAX parameter tree, given as numpy arrays, into the port.
+"""Carry a JAX parameter tree, given as numpy arrays, into the port and
+back.
 
 ``params_from_numpy(tree)`` takes the reference ``LM``'s parameter tree
 with every leaf converted to numpy — ``embed.table``, ``final_norm.scale``
 (``unembed.table`` when untied) and ``stack.*`` with a leading layer
 axis — and returns the port's parameters: the same dicts with the stack
-split into one dict per layer.  Dense weights stay (d_in, d_out), so both
-packages compute ``x @ w``.  bfloat16 leaves (numpy's ``bfloat16``
-extension dtype) are carried bit for bit.
+split into one dict per layer.  ``params_to_numpy`` is the inverse: it
+restacks the per-layer dicts into ``(L, ...)`` leaves.  Dense weights
+stay (d_in, d_out), so both packages compute ``x @ w``.  bfloat16 leaves
+are carried bit for bit: in, from numpy's ``bfloat16`` extension dtype
+or from raw 2-byte ``V2`` bits; out, as ``V2`` bits (``np.save`` writes
+them as the reference's checkpointer does), since numpy has no bfloat16
+of its own.
 """
 from __future__ import annotations
 
@@ -16,30 +21,54 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
+from repro_torch.tree import tree_leaves, tree_map
+
+
+BF16_BITS = np.dtype("V2")
 
 
 def tensor_from_numpy(a, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
-    if a.dtype.name == "bfloat16":
+    a = np.ascontiguousarray(a).reshape(np.shape(a))     # keeps 0-d 0-d
+    if a.dtype.name == "bfloat16" or a.dtype == BF16_BITS:
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a.copy())
     return t.to(device)
 
 
-def _map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
-    out = {k: _map(lambda a: tensor_from_numpy(a, dev), v)
+    out = {k: tree_map(lambda a: tensor_from_numpy(a, dev), v)
            for k, v in tree.items() if k != "stack"}
-    leaves = []
-    _map(leaves.append, tree["stack"])
-    n_layers = int(np.shape(leaves[0])[0])
-    out["stack"] = [_map(lambda a, i=i: tensor_from_numpy(a[i], dev),
-                         tree["stack"]) for i in range(n_layers)]
+    n_layers = int(np.shape(tree_leaves(tree["stack"])[0])[0])
+    out["stack"] = [tree_map(lambda a, i=i: tensor_from_numpy(a[i], dev),
+                             tree["stack"]) for i in range(n_layers)]
     return out
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bfloat16 as ``V2`` bits."""
+    t = t.detach().to("cpu", copy=True).contiguous()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(BF16_BITS)
+    return t.numpy()
+
+
+def params_to_numpy(tree) -> Any:
+    """A tree of the port (params, moments, a train state) as the
+    reference's tree of numpy arrays: every per-layer list restacked
+    into ``(L, ...)`` leaves."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return stack_layers(tree)
+    return tensor_to_numpy(tree)
+
+
+def stack_layers(layers):
+    """A list of same-structure per-layer dicts of tensors -> one dict of
+    numpy leaves with a leading layer axis."""
+    if isinstance(layers[0], dict):
+        return {k: stack_layers([layer[k] for layer in layers])
+                for k in layers[0]}
+    return np.stack([tensor_to_numpy(t) for t in layers])

@@ -1,9 +1,9 @@
 """Tests of the port that need a Hopper card (marker ``gpu``): each CUDA
 kernel (paged attention, STREAM, ELL SpMV, GEMM, conv2d, strided gather,
-tail mask, Qsim gate) against its
+tail mask, Qsim gate, flash attention) against its
 plain version on ragged shapes, with its launch counter checked, and the
-port's engine on the card against the same engine on the CPU.  Without a card they
-skip; on the card run them with
+port's engine and train step on the card against the same on the CPU.
+Without a card they skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
@@ -18,6 +18,8 @@ from repro_torch.kernels.common import require_hopper
 from repro_torch.kernels.conv2d import kernel as conv_kernel
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
@@ -34,6 +36,7 @@ from repro_torch.kernels.tailmask import ops as tail_ops
 from repro_torch.models.model import LM
 from repro_torch.quantum import gates, qsim
 from repro_torch.serve.engine import ContinuousBatchingEngine
+from repro_torch.train.parity import card_step_matches_cpu
 
 pytestmark = pytest.mark.gpu
 
@@ -252,6 +255,48 @@ def test_engine_on_card_matches_cpu(card):
         res = eng.run()
         outs.append([res[r].tolist() for r in rids])
     assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("S,G,H,dtype,causal,softcap", [
+    (1, 1, 32, torch.float32, True, 0.0),
+    (63, 2, 64, torch.float32, True, 0.0),
+    (97, 8, 32, torch.float32, True, 30.0),
+    (130, 2, 128, torch.bfloat16, False, 0.0),
+    (200, 8, 128, torch.bfloat16, True, 30.0)])
+def test_flash_kernel_matches_plain(card, S, G, H, dtype, causal, softcap):
+    """Grouped rows that wrap from one query head to the next inside a
+    64-row tile (S not a multiple of 64, G 2 and 8): out and lse against
+    the plain version on the same card inputs.  fp32 out and lse 1e-4
+    (sums in another order); bf16 out rtol 8e-3, atol 1e-4 (both round
+    the same fp32 value once to bf16, so they are at most one bf16 ulp,
+    2^-7 of the value, apart)."""
+    rng = np.random.default_rng(S + G)
+    BN = 3
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(card, dtype) for shape in
+        [(BN, G * S, H), (BN, S, H), (BN, S, H)])
+    out, lse = _counted(fa_kernel.flash_fwd, lambda: fa_kernel.flash_fwd(
+        q, k, v, causal=causal, softcap=softcap, sq_real=S))
+    want_out, want_lse = fa_ref.flash_fwd(q, k, v, causal=causal,
+                                          softcap=softcap, sq_real=S)
+    rtol = 1e-4 if dtype == torch.float32 else 8e-3
+    torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
+                               atol=1e-4)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(card):
+    """One train step of reduced qwen3-1.7b (fp32, attention_impl
+    "pallas": the kernel on the card, the plain version on the CPU, TF32
+    off) through ``card_step_matches_cpu``: loss and grad norm within
+    1e-4 relative; the kernel launched once per layer."""
+    cfg = reduced_config("qwen3-1.7b", attention_impl="pallas")
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    got, launches = card_step_matches_cpu(cfg, params, batch=4, seq=48)
+    assert launches == cfg.n_layers
+    for k, want in got["cpu"].items():
+        assert abs(got["cuda"][k] - want) <= 1e-4 * abs(want), (k, got)
 
 
 def _to(tree, dev):

@@ -122,7 +122,7 @@ def test_unported_modes_and_families_raise():
     _, _, model, params = _models("granite-3-2b")
     with pytest.raises(NotImplementedError):
         model.forward(params, torch.ones((1, 1), dtype=torch.long),
-                      torch.zeros((1, 1), dtype=torch.long), mode="train",
+                      torch.zeros((1, 1), dtype=torch.long), mode="prefill",
                       cache=model.init_cache(1, 8))
     moe = dataclasses.replace(get_config("granite-3-2b"), family="moe")
     with pytest.raises(NotImplementedError):

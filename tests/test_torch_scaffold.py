@@ -22,7 +22,11 @@ def test_import_leaves_jax_out():
             "repro_torch.figures.fig3_tail, "
             "repro_torch.kernels.qsim_gate.ops, "
             "repro_torch.kernels.strided.ops, "
-            "repro_torch.kernels.tailmask.ops; "
+            "repro_torch.kernels.tailmask.ops, "
+            "repro_torch.kernels.flash_attention.ops, repro_torch.train, "
+            "repro_torch.train.trainer, repro_torch.train.parity, "
+            "repro_torch.launch.train, "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.optim; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
