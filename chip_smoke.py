@@ -7,9 +7,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
 
 1. device  — the card's name and power limit (nvidia-smi), capability
              (9, 0) required; there is no fallback to the CPU.
-2. build   — nvcc builds the nine kernel libraries from the checkout, all
+2. build   — nvcc builds the ten kernel libraries from the checkout, all
              at once (paged attention, STREAM, SpMV, GEMM, conv2d, strided
-             gather, tail mask, Qsim gate, flash attention).
+             gather, tail mask, Qsim gate, flash attention, SSD scan).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
@@ -44,14 +44,40 @@ Phases (one line each; any failure exits nonzero and prints no result):
              training shape (B 1, S 4096, 16/8 heads, H 128, bf16, causal)
              against F.scaled_dot_product_attention(is_causal=True,
              enable_gqa=True), a yardstick the port never calls.
+   kernels-ssm — the SSD chunked-scan kernel against ref.ssd_chunked: y and
+             h_final within 2e-3 (the JAX kernel test's tolerance) for every
+             P (16, 32, 64), N (16 to 128) and chunk (16 to 256) it takes,
+             at S 1, 200 and 2048 (b 8 at S 200), then at mamba2-780m's
+             layer (b 8, S 2048, 48 heads, P 64, N 128, chunk 256), where
+             kernel and plain are timed (no PyTorch call computes the SSD,
+             so no library time) and the bound is printed.
 5. parity  — the port on the card against the port on the CPU, reduced
              granite-3-2b in fp32 (TF32 off): greedy tokens identical; and
              one train step of reduced qwen3-1.7b with the flash kernel
-             (fp32): loss and grad norm within 1e-4 relative.
+             (fp32): loss and grad norm within 1e-4 relative.  Then reduced
+             mamba2-780m in fp32 on tests/test_serve_families.py's request
+             mix (a preemption, a mid-run admission): the continuous and
+             the static engine's greedy tokens identical to each other and
+             on the card and the CPU; the static prefills launch the SSD
+             kernel once a layer.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
              paged kernel's launch count must equal 40 x the forward passes.
+6b. serve-ssm — the ssm serving path: full-width mamba2-780m in bf16 with
+             random weights from a seeded generator.  (a)
+             ``launch.serve.run(static=True)``: 8 prompts of 2048 tokens,
+             32 new tokens each; the prefill runs the SSD kernel, 48
+             launches (one a layer).  (b) the ContinuousBatchingEngine, as
+             phase 6 runs granite (8 slots, 16 requests of 32-256 prompt
+             tokens, 32 new, prefill chunk 32): its prefill is the
+             token-by-token recurrence, so 0 SSD launches.  Each prints
+             tokens/s, step p50 (and the static prefill ms) from CUDA
+             events and peak memory.  (c) the first prompt of (a) through
+             the recurrence in one decode forward against the kernel's
+             prefill, in bf16 and then in fp32 (the same weights before
+             rounding): each layer's max relative error of h and whether
+             the first greedy token agrees, reported only.
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -116,6 +142,8 @@ from repro_torch.kernels.qsim_gate import kernel as gate_kernel  # noqa: E402
 from repro_torch.kernels.qsim_gate import ref as gate_ref  # noqa: E402
 from repro_torch.kernels.spmv import kernel as spmv_kernel  # noqa: E402
 from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.stream import kernel as stream_kernel  # noqa: E402
 from repro_torch.kernels.stream import ref as stream_ref  # noqa: E402
 from repro_torch.kernels.strided import kernel as strided_kernel  # noqa: E402
@@ -125,6 +153,7 @@ from repro_torch.kernels.tailmask import ref as tail_ref  # noqa: E402
 from repro_torch.figures import fig2_strided, fig3_tail, fig9_qsim  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.data import SyntheticLMStream  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
@@ -133,7 +162,8 @@ from repro_torch.train.parity import card_step_matches_cpu  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.quantum import gates  # noqa: E402
 from repro_torch.perf.measure import measure_group  # noqa: E402
-from repro_torch.serve.engine import ContinuousBatchingEngine  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    ContinuousBatchingEngine, StaticBatchEngine)
 
 TOL = 2e-3          # atol = rtol: bf16 inputs, fp32 math in both versions
 # each kernel: its ctypes binding (with its sources and build), its
@@ -160,6 +190,8 @@ KERNELS = {
                   "src/repro/kernels/qsim_gate/kernel.py:26"),
     "flash_attention": (fa_kernel, (fa_kernel.flash_fwd,),
                         "src/repro/kernels/flash_attention/kernel.py:32"),
+    "ssd_scan": (ssd_kernel, (ssd_kernel.ssd_scan_fwd,),
+                 "src/repro/kernels/ssd_scan/kernel.py:25"),
 }
 WRAPPERS = {name: k[1] for name, k in KERNELS.items()}
 # veceval at card sizes: every array past the 50 MB L2 or the work
@@ -185,6 +217,9 @@ TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_SHAPES = ((8, 128), (1, 4096))    # (batch, seq): the JAX launcher's
 # defaults, then qwen3's long context
 TRAIN_CKPT = os.path.join(ROOT, "checkpoints", "chip_smoke_train")
+# the ssm serving path: full-width mamba2-780m
+SSM_ARCH = "mamba2-780m"
+SSM_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
 
 
 def reset_launches(names):
@@ -210,14 +245,18 @@ def log(phase, msg):
 
 
 def time_three(fns):
-    """Median device ms of kernel, plain and library over 30 rounds, timed
-    interleaved by repro_torch.perf.measure with the L2 flushed before
-    each call.  The plain version issues many ops, so its spin cover is
-    longer."""
+    """Median device ms of kernel, plain and (where there is one) library
+    over 30 rounds, timed interleaved by repro_torch.perf.measure with the
+    L2 flushed before each call.  The plain version issues many ops, so
+    its spin cover is longer."""
     ms = measure_group(fns, reps=30, flush_l2=True,
                        cover_ms={"kernel": 2.0, "plain": 20.0,
                                  "library": 2.0})
     return {name: m.median_s * 1e3 for name, m in ms.items()}
+
+
+def _ms(x):
+    return "—" if x is None else f"{x:.4f}"
 
 
 # ---------------------------------------------------------------------------
@@ -383,11 +422,11 @@ def timed_record(what, fns, flops, nbytes, dtype, hw, card, err,
     t = time_three(fns)
     s, by = hw.bound_s(flops, nbytes, dtype)
     rec = dict(max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
-               library_ms=t["library"], bound_ms=s * 1e3, bound_by=by)
+               library_ms=t.get("library"), bound_ms=s * 1e3, bound_by=by)
     log(phase,
         f"{what}: kernel_ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} "
-        f"library_ms {rec['library_ms']:.4f} bound_ms {rec['bound_ms']:.4f} "
-        f"({by}) | {card}")
+        f"library_ms {_ms(rec['library_ms'])} bound_ms "
+        f"{rec['bound_ms']:.4f} ({by}) | {card}")
     return rec
 
 
@@ -828,6 +867,94 @@ def phase_kernels_train(card, hw):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: the ssm path's SSD scan kernel vs plain
+# ---------------------------------------------------------------------------
+SSD_TOL = 2e-3      # rtol = atol: fp32 both, sums in another order
+
+
+def _ssd_inputs(g, b, S, h, P, N):
+    """Model-layout fp32 inputs at the scales of the JAX kernel test."""
+    dev = torch.device("cuda")
+    x = torch.randn((b, S, h, P), generator=g, device=dev)
+    dt = F.softplus(torch.randn((b, S, h), generator=g, device=dev)) * 0.1
+    A = -torch.exp(torch.randn((h,), generator=g, device=dev))
+    B = torch.randn((b, S, N), generator=g, device=dev) * 0.5
+    C = torch.randn((b, S, N), generator=g, device=dev) * 0.5
+    D = torch.randn((h,), generator=g, device=dev)
+    return x, dt, A, B, C, D
+
+
+def _ssd_kernel_call(x, dt, A, B, C, D, chunk):
+    """The kernel through its binding, A and D one value a stream."""
+    b, _, h, _ = x.shape
+    return ssd_kernel.ssd_scan_fwd(
+        x, dt, B, C, A.expand(b, h).reshape(-1), D.expand(b, h).reshape(-1),
+        chunk=chunk)
+
+
+def _ssd_cases():
+    """(b, S, h, P, N, chunk): every head dim, state dim and chunk the
+    kernel takes at S 1, 200 (b 8) and 2048; then mamba2-780m's layer."""
+    for P in ssd_kernel.HEAD_DIMS:
+        for N in ssd_kernel.STATE_DIMS:
+            for chunk in (16, 32, 64, 128, 256):
+                for S in (1, 200, 2048):
+                    yield (8 if S == 200 else 1, S, 2, P, N, chunk)
+    yield _ssd_full_shape()
+
+
+def _ssd_full_shape():
+    cfg = get_config(SSM_ARCH)
+    s = cfg.ssm
+    heads = s.expand * cfg.d_model // s.head_dim
+    return (SSM_STATIC["slots"], SSM_STATIC["prompt_len"], heads,
+            s.head_dim, s.d_state, s.chunk_size)
+
+
+def kernels_ssd(g, hw, card):
+    """y and h_final of the kernel against ref.ssd_chunked on the same card
+    inputs, within SSD_TOL; then timed at mamba2-780m's layer shape."""
+    worst = 0.0
+    n = 0
+    for b, S, h, P, N, chunk in _ssd_cases():
+        args = _ssd_inputs(g, b, S, h, P, N)
+        y, hf = _ssd_kernel_call(*args, chunk)
+        w_y, w_h = ssd_ref.ssd_chunked(*args, chunk)
+        what = f"ssd b{b} S{S} h{h} P{P} N{N} chunk{chunk}"
+        worst = max(worst, check(f"{what} y", y, w_y, SSD_TOL, SSD_TOL),
+                    check(f"{what} h_final", hf, w_h, SSD_TOL, SSD_TOL))
+        n += 1
+        del args, y, hf, w_y, w_h
+    torch.cuda.empty_cache()
+    log("kernels-ssm", f"ssd_scan: {n} cases ok (mamba2-780m's layer shape "
+                       f"among them), max abs err of y and h_final "
+                       f"{worst:.2e}")
+    b, S, h, P, N, L = _ssd_full_shape()
+    args = _ssd_inputs(g, b, S, h, P, N)
+    nc = -(-S // L)
+    # causal pairs only: C.B^T once per (row, chunk), and per head W.xdt,
+    # the inter-chunk term and the state update; 2 flops a MAC
+    tri = L * (L + 1) / 2
+    flops = 2.0 * b * nc * (tri * N + h * (tri * P + 2 * L * P * N))
+    # x and y, dt, B and C, h_final: each read or written once, fp32
+    nbytes = 4.0 * (2 * b * S * h * P + b * S * h + 2 * b * S * N
+                    + b * h * P * N)
+    rec = timed_record(
+        f"ssd_scan b{b} S{S} h{h} P{P} N{N} chunk{L} fp32", {
+            "kernel": lambda: _ssd_kernel_call(*args, L),
+            "plain": lambda: ssd_ref.ssd_chunked(*args, L)},
+        flops, nbytes, torch.float32, hw, card, worst, "kernels-ssm")
+    del args
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_kernels_ssm(card, hw):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    return {"ssd_scan": kernels_ssd(g, hw, card)}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: port on card vs port on CPU
 # ---------------------------------------------------------------------------
 def serve_tokens(cfg, params_cpu, device, prompts, gens):
@@ -871,6 +998,65 @@ def phase_parity():
                   f"CPU over {len(prompts)} requests; kernel launches "
                   f"{launched}")
     parity_train_step()
+    parity_ssm()
+
+
+def ssm_tokens(cfg, params_cpu, device, prompts, gens):
+    """Greedy tokens of the continuous engine (tests/test_serve_families.py's
+    set-up: 2 slots, page 8, chunk 4, a 4-page budget) and of the static
+    engine, one request at a time; and the SSD launches of each."""
+    model = LM(cfg, device=device)
+    params = _to(params_cpu, model.device)
+    before = ssd_kernel.ssd_scan_fwd.launches
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32,
+                                   page_size=8, prefill_chunk=4,
+                                   page_budget=4)
+    rids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
+    out = eng.run()
+    reqs = eng.requests()
+    if not (sum(r.n_preemptions for r in reqs) >= 1
+            and any(r.admit_step > 0 for r in reqs)):
+        raise SystemExit("ssm parity: the mix forced no preemption or no "
+                         "mid-run admission")
+    cont_launched = ssd_kernel.ssd_scan_fwd.launches - before
+    static = StaticBatchEngine(model, params, max_len=32, batch=1)
+    st = [static.generate(p[None], g)[0].tolist()
+          for p, g in zip(prompts, gens)]
+    static_launched = ssd_kernel.ssd_scan_fwd.launches - before \
+        - cont_launched
+    return [out[r].tolist() for r in rids], st, cont_launched, \
+        static_launched
+
+
+def parity_ssm():
+    """Reduced mamba2-780m in fp32: continuous and static engines agree
+    token for token, on the card and on the CPU; the static prefills
+    launch the SSD kernel once a layer each, the continuous engine
+    never."""
+    cfg = reduced_config(SSM_ARCH)
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator(device="cpu").manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
+    gens = [5, 4, 6]
+    c_card, s_card, c_launch, s_launch = ssm_tokens(cfg, params, "cuda",
+                                                    prompts, gens)
+    c_cpu, s_cpu, _, _ = ssm_tokens(cfg, params, "cpu", prompts, gens)
+    if not (c_card == s_card == c_cpu == s_cpu):
+        raise SystemExit(f"ssm greedy tokens differ:\n continuous card "
+                         f"{c_card}\n static card {s_card}\n continuous "
+                         f"cpu {c_cpu}\n static cpu {s_cpu}")
+    if c_launch != 0 or s_launch != cfg.n_layers * len(prompts):
+        raise SystemExit(f"ssm parity: SSD launches {c_launch} (continuous) "
+                         f"and {s_launch} (static), expected 0 and "
+                         f"{cfg.n_layers} x {len(prompts)}")
+    log("parity", f"reduced {SSM_ARCH} fp32 ({cfg.n_layers} layers, P "
+                  f"{cfg.ssm.head_dim}, N {cfg.ssm.d_state}, chunk "
+                  f"{cfg.ssm.chunk_size}): {sum(map(len, c_card))} greedy "
+                  f"tokens identical, continuous = static, card = CPU, over "
+                  f"{len(prompts)} requests (a preemption, a mid-run "
+                  f"admission); SSD launches {s_launch} = {cfg.n_layers} x "
+                  f"{len(prompts)} static prefills, 0 continuous")
 
 
 def parity_train_step():
@@ -992,6 +1178,137 @@ def profile_decode(model, params, eng, card):
                    f"({100 * busy / wall:.1f}%) | {card}")
     for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
         log("profile", f"  {ms:.4f} ms/forward  x{n}  {key[:70]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: serve mamba2-780m at full width
+# ---------------------------------------------------------------------------
+def _check_tokens(what, tokens, n_new, vocab):
+    for rid, toks in tokens.items():
+        toks = np.asarray(toks)
+        if len(toks) != n_new or toks.min() < 0 or toks.max() >= vocab:
+            raise SystemExit(f"{what} request {rid}: bad tokens "
+                             f"{toks.tolist()}")
+
+
+def _recurrence_vs_kernel(cfg, prompt):
+    """One prompt through ``mode="prefill"`` (the SSD kernel) and through
+    ``mode="decode"`` (the recurrence, as the continuous engine prefills)
+    from a zero state: each layer's max |h_rec - h_kernel| / max
+    |h_kernel|, and both first greedy tokens."""
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    S = len(prompt)
+    toks = torch.as_tensor(prompt, device=model.device)[None]
+    pos = torch.arange(S, device=model.device)[None]
+    lk, kc = model.forward(params, toks, pos, mode="prefill",
+                           cache=model.init_cache(1, S))
+    lr, rc = model.forward(params, toks, pos, mode="decode",
+                           cache=model.init_cache(1, S))
+    for what, lg in (("prefill", lk), ("recurrence", lr)):
+        if lg.shape != (1, S, cfg.padded_vocab) or \
+                not bool(torch.isfinite(lg).all()):
+            raise SystemExit(f"(c) {what}: bad logits {tuple(lg.shape)}")
+    rel = [float((rc["h"][i] - kc["h"][i]).abs().max()
+                 / kc["h"][i].abs().max()) for i in range(cfg.n_layers)]
+    first = (int(lk[0, -1].argmax()), int(lr[0, -1].argmax()))
+    del model, params, kc, rc, lk, lr
+    torch.cuda.empty_cache()
+    return rel, first
+
+
+def phase_serve_ssm(card):
+    """Full-width mamba2-780m in bf16: (a) the static engine through
+    ``launch.serve.run`` (the SSD kernel prefills, once a layer); (b) the
+    continuous engine (recurrent prefill, no SSD launch); (c) the
+    recurrence against the kernel's final state on one prompt.  Returns
+    the SSD launches of (a)."""
+    t0 = datetime.datetime.now()
+    cfg = get_config(SSM_ARCH)
+    torch.cuda.empty_cache()
+    ssd_kernel.ssd_scan_fwd.launches = 0
+    res = launch_serve.run(SSM_ARCH, static=True, **SSM_STATIC)
+    launches = ssd_kernel.ssd_scan_fwd.launches
+    _check_tokens("static", res["tokens"], SSM_STATIC["gen_len"],
+                  cfg.padded_vocab)
+    if launches != cfg.n_layers:            # one prefill of the batch
+        raise SystemExit(f"static: {launches} SSD launches, expected "
+                         f"{cfg.n_layers} x 1 prefill")
+    B, S = SSM_STATIC["slots"], SSM_STATIC["prompt_len"]
+    log("serve-ssm", f"(a) {SSM_ARCH} bf16 full width, StaticBatchEngine "
+                     f"via launch.serve.run: {B} x {S} prompt tokens, "
+                     f"{res['generated_tokens']} tokens | prefill "
+                     f"{res['prefill_ms']:.3f} ms, decode step p50 "
+                     f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_s']:.1f} "
+                     f"tok/s over {res['run_ms']:.1f} ms | SSD launches "
+                     f"{launches} = {cfg.n_layers} x 1 prefill | peak "
+                     f"{res['peak_gib']:.2f} GiB | {card}")
+    prompt0 = np.asarray(res["prompts"][0])
+    del res
+    torch.cuda.empty_cache()
+
+    # (b) the continuous engine, at phase 6's request mix
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
+                                   page_size=16, prefill_chunk=32)
+    rng = np.random.default_rng(0)
+    n_req, n_new = 16, 32
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               for n in rng.integers(32, 257, size=n_req)]
+    rids = [eng.submit(p, n_new) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_kernel.ssd_scan_fwd.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = eng.run()
+    end.record()
+    end.synchronize()
+    cont_launches = ssd_kernel.ssd_scan_fwd.launches
+    run_ms = start.elapsed_time(end)
+    if sorted(out) != sorted(rids):
+        raise SystemExit("continuous: not every request finished")
+    _check_tokens("continuous", out, n_new, cfg.padded_vocab)
+    if cont_launches:
+        raise SystemExit(f"continuous: {cont_launches} SSD launches, its "
+                         f"prefill is the recurrence")
+    st = eng.stats.summary()
+    decode_ms = sorted(s.device_ms() for s in eng.stats.steps
+                       if s.n_decode and not s.n_prefill_tokens)
+    p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
+    gen_tok = st["generated_tokens"]
+    log("serve-ssm", f"(b) {SSM_ARCH} bf16 full width, "
+                     f"ContinuousBatchingEngine: {n_req} requests "
+                     f"({sum(r.admit_step > 0 for r in eng.requests())} "
+                     f"admitted mid-run), {gen_tok} tokens in "
+                     f"{st['steps']} steps | {gen_tok / (run_ms / 1e3):.1f} "
+                     f"tok/s over {run_ms:.1f} ms | step p50 "
+                     f"{st['step_ms_p50']:.3f} ms, pure-decode step p50 "
+                     f"{p50:.3f} ms ({len(decode_ms)} steps) | SSD launches "
+                     f"0 (recurrent prefill) | peak "
+                     f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                     f"| {card}")
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+    # (c) the recurrence against the kernel's final state, one prompt; in
+    # bf16 as served, then in fp32 (the same weights before rounding)
+    for cfg_c in (cfg, get_config(SSM_ARCH, param_dtype="float32",
+                                  compute_dtype="float32")):
+        rel, first = _recurrence_vs_kernel(cfg_c, prompt0)
+        log("serve-ssm", f"(c) one {S}-token prompt, {cfg_c.compute_dtype}: "
+                         f"recurrence vs SSD-kernel prefill, max relative "
+                         f"error of h: layer 0 {rel[0]:.2e}, median "
+                         f"{statistics.median(rel):.2e}, max {max(rel):.2e} "
+                         f"(layer {int(np.argmax(rel))}); first greedy token "
+                         f"{first[0]} vs {first[1]} "
+                         f"({'agrees' if first[0] == first[1] else 'differs'})"
+                         f"; phase wall {_since(t0):.1f} s | {card}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1294,9 +1611,11 @@ def main():
     records = phase_kernels_veceval(card, hw)
     records.update(phase_kernels_paper(card, hw))
     records.update(phase_kernels_train(card, hw))
+    records.update(phase_kernels_ssm(card, hw))
     records["paged_partials"] = dict(max_abs_err=worst, **main_case)
     phase_parity()
     launches = {"paged_partials": phase_serve(card, args.profile)}
+    launches["ssd_scan"] = phase_serve_ssm(card)
     launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))
     launches.update(phase_paper(card, hw))

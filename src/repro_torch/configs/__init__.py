@@ -1,19 +1,21 @@
 """Config registry: ``get_config(arch_id)`` and ``reduced_config(arch_id)``.
 
-The dense architectures of ``repro.configs``; ``reduced_config`` makes
-the same tiny same-family config the JAX package's tests use, so both
-packages build identical shapes from one arch id.
+The architectures of ``repro.configs`` this port runs; ``reduced_config``
+makes the same tiny same-family config as the JAX package's
+``reduced_config``, so both packages build identical shapes from one
+arch id.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import granite_3_2b, qwen3_1_7b
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs import granite_3_2b, mamba2_780m, qwen3_1_7b
+from repro_torch.configs.base import ModelConfig, SSMConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
-    m.CONFIG.arch_id: m.CONFIG for m in (granite_3_2b, qwen3_1_7b)}
+    m.CONFIG.arch_id: m.CONFIG for m in (granite_3_2b, qwen3_1_7b,
+                                         mamba2_780m)}
 ARCH_IDS: List[str] = list(REGISTRY)
 
 
@@ -26,12 +28,13 @@ def get_config(arch_id: str, **overrides) -> ModelConfig:
 
 def reduced_config(arch_id: str, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests: few layers, narrow
-    widths, small vocab, fp32 — keeping the GQA ratio and qk-norm."""
+    widths, small vocab, fp32 — keeping the GQA ratio, qk-norm and the
+    SSM's structure (expand, conv kernel)."""
     cfg = get_config(arch_id)
     kw = dict(
         n_layers=min(cfg.n_layers, 4),
         d_model=128,
-        d_ff=256,
+        d_ff=0 if cfg.d_ff == 0 else 256,
         vocab_size=512,
         head_dim=32,
         vocab_pad_multiple=64,
@@ -39,12 +42,22 @@ def reduced_config(arch_id: str, **overrides) -> ModelConfig:
         compute_dtype="float32",
         remat="none",
         rope_theta=cfg.rope_theta,
-        n_heads=4,
-        n_kv_heads=max(1, 4 * cfg.n_kv_heads // cfg.n_heads),
     )
+    if cfg.n_heads:
+        # keep the GQA ratio (scaled down) but stay >= 1
+        kw["n_heads"] = 4
+        kw["n_kv_heads"] = max(1, 4 * cfg.n_kv_heads // cfg.n_heads)
+    if cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(
+            d_state=16,
+            head_dim=16,
+            expand=cfg.ssm.expand,
+            conv_kernel=cfg.ssm.conv_kernel,
+            chunk_size=16,
+        )
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ModelConfig", "REGISTRY", "ARCH_IDS", "get_config",
+__all__ = ["ModelConfig", "SSMConfig", "REGISTRY", "ARCH_IDS", "get_config",
            "reduced_config"]

@@ -1,12 +1,14 @@
-"""Model configuration schema (dense subset of ``repro.configs.base``).
+"""Model configuration schema (subset of ``repro.configs.base``).
 
-A copy of the fields the dense family reads, serving and training, with
-the same names and defaults so a config reads the same in both packages.
+A copy of the fields the dense and ssm families read, serving and
+training, with the same names and defaults so a config reads the same in
+both packages.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 
 def pad_to_multiple(x: int, multiple: int) -> int:
@@ -14,12 +16,24 @@ def pad_to_multiple(x: int, multiple: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64            # SSD head dim (P)
+    expand: int = 2               # d_inner = expand * d_model
+    conv_kernel: int = 4
+    chunk_size: int = 256         # SSD chunk length (the matmul-rich block)
+    dt_min: float = 1e-3
+    dt_max: float = 1e-1
+    ngroups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # only "dense" is served by this port so far
+    family: str                   # "dense" or "ssm" in this port so far
     n_layers: int
     d_model: int
-    n_heads: int                  # query heads
+    n_heads: int                  # query heads (0 for attention-free)
     n_kv_heads: int
     d_ff: int
     vocab_size: int
@@ -27,6 +41,7 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e4
     attn_logit_softcap: float = 0.0
+    ssm: Optional[SSMConfig] = None
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     norm_eps: float = 1e-5

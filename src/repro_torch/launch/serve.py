@@ -1,0 +1,187 @@
+"""Serving launcher: continuous batching, or the fixed-batch baseline.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --static --slots 8 --prompt-len 2048 --gen-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
+      --reduced --device cpu --slots 2 --requests 4 --prompt-len 16
+
+The counterpart of ``repro.launch.serve`` for the families the port
+serves (dense, ssm).  By default requests go through the
+``ContinuousBatchingEngine``; ``--static`` selects the
+``StaticBatchEngine`` baseline (one prefill forward over the batch, then
+a decode loop; the ssm family's prefill runs the SSD kernel).  Weights
+are random, drawn from a seeded generator; prompts come from a seeded
+numpy generator as in the reference.  Runs on ``cuda`` unless
+``--device`` names another device.  Times are device times from CUDA
+events; on the CPU none are reported.
+
+Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
+item: ``--int8``, ``--prefix-cache``, ``--mesh``, ``--sp-kv``,
+``--open-loop``, ``--speculative`` and ``--chunk-policy stall_free``.
+"""
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.models.model import LM
+from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
+
+# option -> (the value that means "off", the ROADMAP item that ports it)
+NOT_PORTED = {
+    "int8": (False, "B5: weight-only int8 serving through wq_gemm"),
+    "prefix_cache": (False, "A7: the prefix cache"),
+    "mesh": (None, "A10: the device mesh"),
+    "sp_kv": (False, "A10: the sequence-parallel KV cache"),
+    "open_loop": (False, "A7: the open-loop front end"),
+    "speculative": (False, "A7: speculative decoding"),
+    "chunk_policy": ("fixed", "A7: the stall_free chunk policy"),
+}
+
+
+def _p50(ms):
+    ms = sorted(ms)
+    return ms[len(ms) // 2] if ms else None
+
+
+def run(arch: str = "granite-3-2b", *, reduced: bool = False,
+        slots: int = 4, requests: int = 0, prompt_len: int = 32,
+        gen_len: int = 32, prefill_chunk: int = 8, page_size: int = 16,
+        temperature: float = 0.0, static: bool = False, device=None,
+        **options) -> Dict[str, Any]:
+    """Serve ``requests`` (default 2 x ``slots``; ``slots`` with
+    ``static``) random prompts and return what the launcher prints: the
+    prompts and generated tokens, counts, and on the card the CUDA-event
+    times (``run_ms``, ``tokens_per_s``, ``prefill_ms`` for ``static``,
+    ``step_ms_p50``) and ``peak_gib``."""
+    for name, value in options.items():
+        if name not in NOT_PORTED:
+            raise TypeError(f"unexpected keyword argument {name!r}")
+        off, item = NOT_PORTED[name]
+        if value != off:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (ROADMAP {item})")
+    cfg = reduced_config(arch) if reduced else get_config(arch)
+    model = LM(cfg, device=device)
+    dev = model.device
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    rng = np.random.default_rng(1)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+    max_len = prompt_len + gen_len + 8
+    if static:
+        engine = StaticBatchEngine(model, params, max_len=max_len,
+                                   batch=slots,
+                                   sample_temperature=temperature)
+        prompts = rng.integers(1, cfg.vocab_size, size=(slots, prompt_len))
+        if on_card:
+            start.record()
+        out = engine.generate(prompts, n_steps=gen_len)
+        tokens = {i: row for i, row in enumerate(out.cpu().numpy())}
+        prompts = list(prompts)
+        n_req = slots
+    else:
+        max_len = -(-max_len // page_size) * page_size    # whole pages
+        engine = ContinuousBatchingEngine(
+            model, params, n_slots=slots, max_len=max_len,
+            page_size=page_size, prefill_chunk=prefill_chunk)
+        n_req = requests or 2 * slots
+        prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(
+            max(1, prompt_len // 2), prompt_len + 1))) for _ in range(n_req)]
+        for prompt in prompts:
+            engine.submit(prompt, gen_len, temperature=temperature)
+        if on_card:
+            start.record()
+        tokens = engine.run()
+    st = engine.stats.summary()
+    res: Dict[str, Any] = dict(
+        arch=arch, family=cfg.family, engine="static" if static else
+        "continuous", device=str(dev), requests=n_req, prompts=prompts,
+        tokens=tokens,
+        generated_tokens=st["generated_tokens"], steps=st["steps"],
+        forwards=st["forwards"], run_ms=None, tokens_per_s=None,
+        prefill_ms=None, step_ms_p50=None, peak_gib=None)
+    if on_card:
+        end.record()
+        end.synchronize()
+        res["run_ms"] = start.elapsed_time(end)
+        res["tokens_per_s"] = st["generated_tokens"] / (res["run_ms"] / 1e3)
+        res["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        ms = [s.device_ms() for s in engine.stats.steps]
+        if static:
+            res["prefill_ms"] = ms[0]
+            res["step_ms_p50"] = _p50(ms[1:])
+        else:
+            res["step_ms_p50"] = st["step_ms_p50"]
+    return res
+
+
+def report(res: Dict[str, Any]) -> str:
+    """The launcher's summary line."""
+    first = next(iter(res["tokens"].values()))
+    line = (f"[serve] {res['arch']} ({res['family']}) {res['engine']} on "
+            f"{res['device']}: {res['requests']} request(s), "
+            f"{res['generated_tokens']} tokens in {res['steps']} steps")
+    if res["run_ms"] is not None:
+        line += (f" | {res['tokens_per_s']:.1f} tok/s over "
+                 f"{res['run_ms']:.1f} ms, step p50 "
+                 f"{res['step_ms_p50']:.3f} ms")
+        if res["prefill_ms"] is not None:
+            line += f", prefill {res['prefill_ms']:.3f} ms"
+        line += f", peak {res['peak_gib']:.2f} GiB"
+    return line + f" | sample: {list(map(int, first[:12]))}"
+
+
+def main(argv: Optional[list] = None) -> Dict[str, Any]:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="granite-3-2b", choices=ARCH_IDS)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--slots", "--batch", dest="slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="queued requests (default: 2x slots)")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--prefill-chunk", type=int, default=8)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--static", action="store_true",
+                    help="fixed-batch StaticBatchEngine baseline")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu runs the plain "
+                         "versions of the kernels)")
+    ap.add_argument("--int8", action="store_true", help="not ported (B5)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="not ported (A7)")
+    ap.add_argument("--mesh", default=None, help="not ported (A10)")
+    ap.add_argument("--sp-kv", action="store_true", help="not ported (A10)")
+    ap.add_argument("--open-loop", action="store_true",
+                    help="not ported (A7)")
+    ap.add_argument("--speculative", action="store_true",
+                    help="not ported (A7)")
+    ap.add_argument("--chunk-policy", default="fixed",
+                    choices=("fixed", "stall_free"),
+                    help="stall_free is not ported (A7)")
+    args = ap.parse_args(argv)
+    res = run(args.arch, reduced=args.reduced, slots=args.slots,
+              requests=args.requests, prompt_len=args.prompt_len,
+              gen_len=args.gen_len, prefill_chunk=args.prefill_chunk,
+              page_size=args.page_size, temperature=args.temperature,
+              static=args.static, device=args.device, int8=args.int8,
+              prefix_cache=args.prefix_cache, mesh=args.mesh,
+              sp_kv=args.sp_kv, open_loop=args.open_loop,
+              speculative=args.speculative, chunk_policy=args.chunk_policy)
+    print(report(res), flush=True)
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -1,8 +1,9 @@
-"""The dense decoder layer and the stack runner.
+"""The dense decoder layer, the mamba layer and the stack runner.
 
-Counterparts of ``repro.models.blocks.attn_layer`` and ``run_stack``:
-the reference scans over layer-stacked parameters; the port keeps one
-parameter dict per layer and runs the stack as a Python loop.  In train
+Counterparts of ``repro.models.blocks.attn_layer``, ``mamba_layer`` and
+``run_stack``: the reference scans over layer-stacked parameters; the
+port keeps one parameter dict per layer and runs the stack as a Python
+loop, choosing the layer by the config's family.  In train
 mode ``remat="full"`` wraps each layer in a non-reentrant
 ``torch.utils.checkpoint``: only the layer's input is kept, and the
 backward runs the layer's forward again — the reference's
@@ -16,7 +17,8 @@ from typing import Sequence
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba2
+from repro_torch.models.layers import dtype_of
 
 REMAT_MODES = ("none", "full")
 
@@ -40,15 +42,68 @@ def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
     return x + layers.mlp(h, p["mlp"])
 
 
+def init_mamba_layer(generator: torch.Generator, cfg, device):
+    """Pre-norm + Mamba-2 block: the whole layer of the ssm family (its
+    d_ff is 0, so there is no FFN)."""
+    if cfg.d_ff:
+        raise NotImplementedError(
+            "a mamba layer with an FFN (hybrid / d_ff > 0) is not ported "
+            "yet (ROADMAP A6)")
+    return {
+        "ln1": {"scale": torch.ones((cfg.d_model,),
+                                    dtype=dtype_of(cfg.param_dtype),
+                                    device=device)},
+        "mamba": mamba2.init_mamba(generator, cfg, device),
+    }
+
+
+def mamba_layer(p, x, cfg, *, mode, state=None, n_valid=None):
+    """One pre-norm Mamba-2 layer.  ``state`` ({"h", "conv"} views of the
+    layer's slice of the recurrent state) and ``n_valid`` apply to decode
+    mode only.  Returns (x, the prefill state or None)."""
+    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+    y, new_state = mamba2.mamba_forward(
+        p["mamba"], h, cfg, state=state if mode == "decode" else None,
+        mode=mode, n_valid=n_valid if mode == "decode" else None)
+    return x + y, new_state
+
+
+def _mamba_stack(x, layer_params, cfg, *, mode, cache, n_valid, remat):
+    for i, p in enumerate(layer_params):
+        if mode == "train":
+            fn = functools.partial(mamba_layer, p, cfg=cfg, mode="train")
+            x = (checkpoint(fn, x, use_reentrant=False) if remat == "full"
+                 else fn(x))[0]
+        elif mode == "prefill":
+            x, st = mamba_layer(p, x, cfg, mode="prefill")
+            cache["h"][i].copy_(st["h"])
+            cache["conv"][i].copy_(st["conv"])
+        else:
+            x, _ = mamba_layer(p, x, cfg, mode="decode",
+                               state={"h": cache["h"][i],
+                                      "conv": cache["conv"][i]},
+                               n_valid=n_valid)
+    return x
+
+
 def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
-              mode: str = "decode", rope, positions=None, cache=None,
-              write=None, paged=None, remat: str = "none") -> torch.Tensor:
-    """Run every layer over ``x``.  Decode mode: ``cache`` holds
-    layer-stacked K/V (n_layers, B, S_cache, NKV, H), indexed per layer as
-    views.  Train mode: ``remat`` in ``REMAT_MODES``."""
+              mode: str = "decode", rope=None, positions=None, cache=None,
+              write=None, paged=None, n_valid=None,
+              remat: str = "none") -> torch.Tensor:
+    """Run every layer over ``x``, by the config's family.
+
+    dense: decode mode's ``cache`` holds layer-stacked K/V (n_layers, B,
+    S_cache, NKV, H), indexed per layer as views.  ssm: ``cache`` holds
+    the layer-stacked recurrent state (``mamba2.init_state``); prefill
+    writes each layer's final state into it and decode (``n_valid``:
+    ragged rows) updates it in place.  Train mode: ``remat`` in
+    ``REMAT_MODES``."""
     if remat not in REMAT_MODES:
         raise NotImplementedError(f"remat={remat!r}; the port has "
                                   f"{REMAT_MODES}")
+    if cfg.family == "ssm":
+        return _mamba_stack(x, layer_params, cfg, mode=mode, cache=cache,
+                            n_valid=n_valid, remat=remat)
     for i, p in enumerate(layer_params):
         if mode == "train":
             fn = functools.partial(attn_layer, p, cfg=cfg, mode="train",

@@ -1,5 +1,5 @@
-"""DecodeState protocol (dense family): the slotted cache and its row
-primitives.
+"""DecodeState protocol (dense and ssm families): the slotted cache and
+its row primitives.
 
 Counterpart of ``repro.models.decode_state``.  An adapter lays the
 whole per-slot decode state out as a dict of tensors whose every leaf
@@ -16,7 +16,7 @@ from typing import Any, Callable, Dict
 
 import torch
 
-from repro_torch.models import attention
+from repro_torch.models import attention, mamba2
 
 Params = Dict[str, Any]
 
@@ -64,11 +64,28 @@ def reset_state_slots(state: Params, specs: Params,
     return _map(reset, state, specs)
 
 
-class AttentionDecodeState:
-    """dense: layer-stacked K/V plus one position counter per slot."""
+class DecodeStateAdapter:
+    """What the engine may ask of a family's decode state.
+
+    ``token_addressable``: the state is a per-token prefix (KV entries
+    and position counters) that can be truncated or copied by token.
+    ``prefix_cachable``: the prefix cache may share it between requests.
+    ``paged``: the family attends through the paged KV cache, so the
+    engine hands the forward a page map."""
+
+    token_addressable = True
+    prefix_cachable = False
+    paged = False
 
     def context_tokens(self, cfg) -> int:
         return 0
+
+
+class AttentionDecodeState(DecodeStateAdapter):
+    """dense: layer-stacked K/V plus one position counter per slot."""
+
+    prefix_cachable = True
+    paged = True
 
     def init(self, model, batch: int, max_len: int) -> Params:
         cfg = model.cfg
@@ -79,10 +96,25 @@ class AttentionDecodeState:
         return attention.cache_specs()
 
 
-_ADAPTERS = {"dense": AttentionDecodeState()}
+class SSMDecodeState(DecodeStateAdapter):
+    """ssm: one recurrent state (conv window + SSD ``h``) per layer,
+    layer-stacked; no position counter and no KV."""
+
+    token_addressable = False
+
+    def init(self, model, batch: int, max_len: int) -> Params:
+        cfg = model.cfg
+        return mamba2.init_state(cfg, cfg.n_layers, batch,
+                                 model.compute_dtype, model.device)
+
+    def specs(self, model) -> Params:
+        return mamba2.state_specs()
 
 
-def get_adapter(family: str) -> AttentionDecodeState:
+_ADAPTERS = {"dense": AttentionDecodeState(), "ssm": SSMDecodeState()}
+
+
+def get_adapter(family: str) -> DecodeStateAdapter:
     if family not in _ADAPTERS:
         raise NotImplementedError(
             f"family {family!r} is not ported yet; the port serves "

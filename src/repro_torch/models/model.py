@@ -1,12 +1,18 @@
-"""The LM (dense family): parameters, train- and decode-mode forward,
-slotted cache.
+"""The LM (dense and ssm families): parameters, forward modes, slotted
+cache.
 
-Counterpart of ``repro.models.model.LM`` for the dense family.  The
-parameters are a dict with the JAX tree's keys — ``embed.table``,
+Counterpart of ``repro.models.model.LM`` for the dense and ssm families.
+The parameters are a dict with the JAX tree's keys — ``embed.table``,
 ``final_norm.scale``, ``unembed.table`` when untied — except that the
-layer stack is a list of per-layer dicts (``stack[i]`` holds ``ln1``,
-``attn``, ``ln2``, ``mlp``) instead of leaves with a leading layer axis.
-Weights are random, drawn from an explicit ``torch.Generator``.
+layer stack is a list of per-layer dicts (dense: ``stack[i]`` holds
+``ln1``, ``attn``, ``ln2``, ``mlp``; ssm: ``ln1``, ``mamba``) instead of
+leaves with a leading layer axis.  Weights are random, drawn from an
+explicit ``torch.Generator``.
+
+Modes: ``train`` (both families), ``decode`` (both: the dense cache's
+K/V through the paged kernel, the ssm's recurrent state), ``prefill``
+(ssm only: the SSD kernel over the prompt, leaving the final state in
+the cache; the dense prefill mode is ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -60,6 +66,10 @@ class LM:
         if not cfg.tie_embeddings:
             p["unembed"] = {"table": self._normal(g, (cfg.padded_vocab, d),
                                                   0.02)}
+        if cfg.family == "ssm":
+            p["stack"] = [blocks.init_mamba_layer(g, cfg, self.device)
+                          for _ in range(cfg.n_layers)]
+            return p
         stack = []
         for _ in range(cfg.n_layers):
             attn = {
@@ -116,22 +126,39 @@ class LM:
                 paged: Optional[attention.PagedDecodeState] = None):
         """tokens / positions (B, S).
 
-        ``mode="train"``: causal attention over the whole sequence through
-        ``cfg.attention_impl``, each layer rematerialised as ``cfg.remat``
-        says; returns (fp32 logits (B, S, V), None, aux) — aux is the
-        dense family's zero auxiliary loss.
+        ``mode="train"``: the whole sequence (dense: causal attention
+        through ``cfg.attention_impl``; ssm: the chunked SSD), each layer
+        rematerialised as ``cfg.remat`` says; returns (fp32 logits (B, S,
+        V), None, aux) — aux is the zero auxiliary loss of both families.
+
+        ``mode="prefill"`` (ssm): the prompt through the chunked SSD
+        (the CUDA kernel on the card); each layer's final recurrent state
+        and conv tail are written into ``cache`` (from ``init_cache``) in
+        place.  Returns (fp32 logits, cache).
 
         ``mode="decode"``: ``n_valid`` (B,) real tokens per row (``None``:
-        all S).  Writes the step's K/V into ``cache`` in place, advances
-        ``cache["pos"]`` by ``n_valid`` and returns (fp32 logits, cache).
-        ``paged`` names the page map of the cache's pool view; ``None``
-        is the row-local identity map with one page per row."""
+        all S).  dense: writes the step's K/V into ``cache`` in place,
+        advances ``cache["pos"]`` by ``n_valid``; ``paged`` names the page
+        map of the cache's pool view (``None``: the row-local identity
+        map with one page per row).  ssm: advances the recurrent state in
+        place through rows' valid columns only; ``positions`` and
+        ``paged`` are not read.  Returns (fp32 logits, cache)."""
         if mode == "train":
             return self._forward_train(params, tokens, positions)
-        if mode != "decode":
+        if mode not in ("decode", "prefill"):
             raise NotImplementedError(
-                f"mode={mode!r}: the port runs train and decode modes")
+                f"mode={mode!r}: the port runs train, prefill and decode "
+                f"modes")
         cfg = self.cfg
+        if cfg.family == "ssm":
+            x = layers.embed(tokens, params["embed"], self.compute_dtype)
+            x = blocks.run_stack(x, params["stack"], cfg, mode=mode,
+                                 cache=cache, n_valid=n_valid)
+            return self._logits(params, x), cache
+        if mode == "prefill":
+            raise NotImplementedError(
+                "mode='prefill' for the dense family is not ported yet "
+                "(ROADMAP A2); the engine prefills in decode mode")
         S_cache = cache["k"].shape[2]
         if paged is None:
             paged = attention.PagedDecodeState(page_idx=None,
@@ -150,8 +177,8 @@ class LM:
     def _forward_train(self, params, tokens, positions):
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], self.compute_dtype)
-        rope = layers.rope_tables(positions, cfg.resolved_head_dim,
-                                  cfg.rope_theta)
+        rope = (None if cfg.family == "ssm" else layers.rope_tables(
+            positions, cfg.resolved_head_dim, cfg.rope_theta))
         x = blocks.run_stack(x, params["stack"], cfg, mode="train",
                              rope=rope, remat=cfg.remat)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)

@@ -1,13 +1,24 @@
-"""Continuous-batching serving engine over the port's LM.
+"""Serving engines over the port's LM: continuous batching, plus the
+fixed-batch baseline.
 
-Counterpart of ``repro.serve.engine.ContinuousBatchingEngine``, with the
-same host loop: the scheduler (a copy of the reference's) composes
-sarathi-style mixed steps, and each step runs one batched
-(n_slots, 1) decode forward plus one batch-1 (1, prefill_chunk) forward
-per prefilling slot, both in decode mode through the paged-attention
-kernel.  The decode step walks the cache's pool view with the engine's
-identity page map (``PagedKVCache.page_index_array``, uploaded once);
-a prefill row uses the row-local identity map (``page_idx=None``).
+``ContinuousBatchingEngine`` is the counterpart of
+``repro.serve.engine.ContinuousBatchingEngine``, with the same host
+loop: the scheduler (a copy of the reference's) composes sarathi-style
+mixed steps, and each step runs one batched (n_slots, 1) decode forward
+plus one batch-1 (1, prefill_chunk) forward per prefilling slot, both in
+decode mode.  It never branches on a family: the model's DecodeState
+adapter says what the state is.  For a family that attends through the
+paged cache (dense), the decode step walks the cache's pool view with
+the engine's identity page map (``PagedKVCache.page_index_array``,
+uploaded once) and a prefill row uses the row-local identity map
+(``page_idx=None``); a family without attention (ssm) gets no page map,
+and its recurrent prompt prefill runs token by token through the masked
+recurrence.
+
+``StaticBatchEngine`` is the reference's run-to-completion baseline: one
+``mode="prefill"`` forward over the whole batch of prompts (for the ssm
+family, the SSD kernel), then a decode loop.  ``make_prefill_step`` /
+``make_serve_step`` are its two steps, as in the reference.
 
 Sampled tokens stay on the device between steps: ``prev_sampled``
 (n_slots,) feeds the next step's decode rows and ``out_buf``
@@ -24,12 +35,15 @@ Not ported yet (each raises ``NotImplementedError`` if asked for): the
 device mesh, speculative decoding, the prefix cache, the stall-free
 chunk policy, build-time trace analysis, the paged-kernel autotune, and
 ``StepCostModel`` (so ``EngineStats`` carries no modeled flops or
-bytes).
+bytes).  For a family whose state cannot be cut to a token prefix (ssm)
+``prefix_cache=True`` warns and serves with the pool off, as the
+reference does.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+import warnings
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -47,6 +61,54 @@ _NOT_PORTED = {
     "prefix_cache": False, "analyze": False, "retune": False,
     "check": None, "chunk_policy": "fixed", "tbt_target_s": None,
 }
+
+
+def make_prefill_step(model: LM) -> Callable:
+    """``(params, cache, tokens, positions) -> (next_tok (B,) int32,
+    cache)``: one ``mode="prefill"`` forward, greedy on the last column."""
+    def prefill_step(params, cache, tokens, positions):
+        logits, cache = model.forward(params, tokens, positions,
+                                      mode="prefill", cache=cache)
+        return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
+
+    return prefill_step
+
+
+def make_serve_step(model: LM, *, sample_temperature: float = 0.0,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Callable:
+    """One decode step: ``(params, cache, tokens (B, 1), positions) ->
+    (next_tok (B,) int32, cache)``.  Temperature > 0 draws from
+    ``generator`` (the reference keys its draw on the position)."""
+    def serve_step(params, cache, tokens, positions):
+        logits, cache = model.forward(params, tokens, positions,
+                                      mode="decode", cache=cache)
+        last = logits[:, -1]
+        temps = torch.full((last.shape[0],), sample_temperature,
+                           dtype=torch.float32, device=last.device)
+        return sampling.sample_tokens(last, temps, generator,
+                                      any_temp=sample_temperature > 0), cache
+
+    return serve_step
+
+
+def _events(device: torch.device):
+    """A started (start, end) pair of CUDA events on the card; None on
+    the CPU, where no step time is recorded."""
+    if device.type != "cuda":
+        return None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    return start, end
+
+
+def _record(stats, events, **counts) -> None:
+    rec = StepRecord(**counts)
+    if events is not None:
+        events[1].record()
+        rec.start, rec.end = events
+    stats.steps.append(rec)
 
 
 # ---------------------------------------------------------------------------
@@ -111,6 +173,14 @@ class ContinuousBatchingEngine:
                  page_size: int = 16, prefill_chunk: int = 8,
                  page_budget: Optional[int] = None,
                  eos_id: Optional[int] = None, seed: int = 0, **kwargs):
+        if kwargs.get("prefix_cache") and \
+                not model.decode_state.prefix_cachable:
+            warnings.warn(
+                f"prefix_cache=True ignored: family {model.cfg.family!r} "
+                "has non-token-addressable (recurrent) decode state that "
+                "cannot be truncated to a prompt prefix; serving with the "
+                "prefix cache off", UserWarning, stacklevel=2)
+            kwargs["prefix_cache"] = False
         for name, value in kwargs.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
@@ -127,9 +197,12 @@ class ContinuousBatchingEngine:
             slot_aux_tokens=model.decode_state.context_tokens(model.cfg))
         self.sched = Scheduler(self.kv, prefill_chunk=prefill_chunk,
                                eos_id=eos_id)
-        # identity page map of the decode step's pool view
-        self._page_idx = torch.as_tensor(self.kv.page_index_array(),
-                                         device=self.device)
+        # identity page map of the decode step's pool view (families that
+        # attend through the paged cache only)
+        self._paged = model.decode_state.paged
+        self._page_idx = (torch.as_tensor(self.kv.page_index_array(),
+                                          device=self.device)
+                          if self._paged else None)
         self._n_out_rows = 3 * n_slots
         self.cache = self.model.init_cache(self.n_slots, self.max_len)
         self._out_buf = torch.zeros((self._n_out_rows, self.max_len),
@@ -150,6 +223,10 @@ class ContinuousBatchingEngine:
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
                                device=self.device)
+
+    def _paged_state(self, page_idx) -> Optional[PagedDecodeState]:
+        return (PagedDecodeState(page_idx, self.kv.page_size)
+                if self._paged else None)
 
     # -- steps ----------------------------------------------------------
     def _commit_samples(self, nxt: torch.Tensor, slots: Sequence[int],
@@ -178,7 +255,7 @@ class ContinuousBatchingEngine:
             self.params, tokens, self._dev(plan.positions, torch.long),
             mode="decode", cache=self.cache,
             n_valid=self._dev(plan.n_valid, torch.int32),
-            paged=PagedDecodeState(self._page_idx, self.kv.page_size))
+            paged=self._paged_state(self._page_idx))
         temps = self._dev(plan.temperatures, torch.float32)
         nxt = sampling.sample_tokens(
             logits[:, 0], temps, self._gen,
@@ -195,7 +272,7 @@ class ContinuousBatchingEngine:
             self.params, self._dev(pf.tokens, torch.long),
             self._dev(pf.positions, torch.long), mode="decode", cache=row,
             n_valid=self._dev(pf.n_valid, torch.int32),
-            paged=PagedDecodeState(None, self.kv.page_size))
+            paged=self._paged_state(None))
         self.model.set_cache_row(self.cache, pf.slot, row)
         # the sample comes from the last valid column (it only commits
         # when the chunk completes the prompt)
@@ -214,11 +291,7 @@ class ContinuousBatchingEngine:
         plan = self.sched.next_plan(self._step_idx)
         if plan is None:
             return self.sched.has_work()
-        timed = self.device.type == "cuda"
-        if timed:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
+        events = _events(self.device)
         for slot in np.nonzero(plan.reset_mask)[0]:
             # a request enters this slot: give it a fresh output row (a
             # still-mapped old row can only be a preemption orphan)
@@ -245,12 +318,8 @@ class ContinuousBatchingEngine:
             self._pending.append(req)
             self._pending_rows[req.rid] = int(self._slot_row[req.finish_slot])
             self._slot_row[req.finish_slot] = -1
-        rec = StepRecord(n_decode=plan.n_decode,
-                         n_prefill_tokens=plan.n_prefill_tokens)
-        if timed:
-            end.record()
-            rec.start, rec.end = start, end
-        self.stats.steps.append(rec)
+        _record(self.stats, events, n_decode=plan.n_decode,
+                n_prefill_tokens=plan.n_prefill_tokens)
         # count only useful tokens: samples a preemption throws away
         # come back off the total
         discarded = self.sched.discarded_tokens - self._seen_discarded
@@ -304,3 +373,59 @@ class ContinuousBatchingEngine:
 
     def requests(self) -> List[Request]:
         return list(self.sched.finished)
+
+
+# ---------------------------------------------------------------------------
+# fixed-batch baseline
+# ---------------------------------------------------------------------------
+class StaticBatchEngine:
+    """Run-to-completion fixed-batch engine: one prefill + a decode loop.
+
+    The reference's baseline, kept for correctness (temperature-0 parity
+    with the continuous engine) and throughput comparison.  The prefill
+    is ``LM.forward(mode="prefill")``: for the ssm family the SSD kernel
+    over every prompt at once, one launch a layer; the dense family has
+    no prefill mode yet (ROADMAP A2).  ``stats.steps`` holds the prefill
+    as its first record and then one record a decode step, timed by CUDA
+    events on the card.
+    """
+
+    def __init__(self, model: LM, params, max_len: int, batch: int, *,
+                 sample_temperature: float = 0.0):
+        self.model = model
+        self.params = params
+        self.max_len = max_len
+        self.batch = batch
+        self.device = model.device
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(0)
+        self.prefill_fn = make_prefill_step(model)
+        self.decode_fn = make_serve_step(
+            model, sample_temperature=sample_temperature, generator=gen)
+        self.stats = EngineStats()
+
+    def generate(self, prompt_tokens, n_steps: int) -> torch.Tensor:
+        """prompt_tokens (B, S) -> (B, n_steps) int32 tokens, on the
+        model's device."""
+        toks = torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.long,
+                               device=self.device)
+        B, S = toks.shape
+        if B != self.batch:
+            raise ValueError(f"batch {B} != the engine's {self.batch}")
+        cache = self.model.init_cache(B, self.max_len)
+        positions = torch.arange(S, device=self.device)[None].expand(B, S)
+        events = _events(self.device)
+        nxt, cache = self.prefill_fn(self.params, cache, toks, positions)
+        _record(self.stats, events, n_decode=0, n_prefill_tokens=B * S)
+        out = [nxt]
+        for t in range(n_steps - 1):
+            events = _events(self.device)
+            pos = torch.full((B, 1), S + t, dtype=torch.long,
+                             device=self.device)
+            nxt, cache = self.decode_fn(self.params, cache,
+                                        nxt[:, None].long(), pos)
+            _record(self.stats, events, n_decode=B, n_prefill_tokens=0)
+            out.append(nxt)
+        self.stats.forwards += n_steps
+        self.stats.generated_tokens += B * n_steps
+        return torch.stack(out, dim=1)

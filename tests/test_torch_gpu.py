@@ -1,8 +1,9 @@
 """Tests of the port that need a Hopper card (marker ``gpu``): each CUDA
 kernel (paged attention, STREAM, ELL SpMV, GEMM, conv2d, strided gather,
-tail mask, Qsim gate, flash attention) against its
+tail mask, Qsim gate, flash attention, SSD scan) against its
 plain version on ragged shapes, with its launch counter checked, and the
-port's engine and train step on the card against the same on the CPU.
+port's engines (dense and ssm) and train step on the card against the
+same on the CPU.
 Without a card they skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -26,6 +27,9 @@ from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.qsim_gate import kernel as gate_kernel
 from repro_torch.kernels.qsim_gate import ops as gate_ops
 from repro_torch.kernels.spmv import kernel as spmv_kernel
+from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.spmv import ops as spmv_ops
 from repro_torch.kernels.stream import kernel as stream_kernel
 from repro_torch.kernels.stream import ops as stream_ops
@@ -35,7 +39,7 @@ from repro_torch.kernels.tailmask import kernel as tail_kernel
 from repro_torch.kernels.tailmask import ops as tail_ops
 from repro_torch.models.model import LM
 from repro_torch.quantum import gates, qsim
-from repro_torch.serve.engine import ContinuousBatchingEngine
+from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
 from repro_torch.train.parity import card_step_matches_cpu
 
 pytestmark = pytest.mark.gpu
@@ -297,6 +301,91 @@ def test_train_step_on_card_matches_cpu(card):
     assert launches == cfg.n_layers
     for k, want in got["cpu"].items():
         assert abs(got["cuda"][k] - want) <= 1e-4 * abs(want), (k, got)
+
+
+@pytest.mark.parametrize("b,S,h,P,N,chunk", [
+    (1, 1, 2, 16, 16, 16), (2, 200, 3, 16, 16, 16), (1, 200, 2, 32, 64, 64),
+    (2, 300, 2, 64, 128, 256), (1, 2048, 2, 64, 128, 256),
+    (2, 100, 1, 64, 32, 128), (1, 77, 2, 32, 128, 32)])
+def test_ssd_kernel_matches_plain(card, b, S, h, P, N, chunk):
+    """y and h_final of the kernel against ``ref.ssd_chunked`` on the same
+    card inputs (TF32 off): every P and N the kernel takes, chunks of 16
+    to 256, S shorter than, not a multiple of and a multiple of the chunk.
+    Both compute in fp32 and differ in summation order: 2e-3, the JAX
+    kernel test's tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(S + P + N)
+    f = np.float32
+    x = rng.standard_normal((b, S, h, P)).astype(f)
+    dt = (np.log1p(np.exp(rng.standard_normal((b, S, h)))) * 0.1).astype(f)
+    A = (-np.exp(rng.standard_normal(h))).astype(f)
+    B, C = ((rng.standard_normal((b, S, N)) * 0.5).astype(f)
+            for _ in range(2))
+    D = rng.standard_normal(h).astype(f)
+    args = [torch.from_numpy(a).to(card) for a in (x, dt, A, B, C, D)]
+    y, hf = _counted(ssd_kernel.ssd_scan_fwd,
+                     lambda: ssd_ops.ssd_chunked(*args, chunk=chunk))
+    want_y, want_h = ssd_ref.ssd_chunked(*args, chunk=chunk)
+    torch.testing.assert_close(y, want_y, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(hf, want_h, rtol=2e-3, atol=2e-3)
+
+
+def test_ssd_stream_layout_and_gradient_on_card(card):
+    """``ops.ssd_scan`` (one stream a row, A/D per stream) on the card
+    against the CPU; a call that needs a gradient raises on the card."""
+    rng = np.random.default_rng(0)
+    BH, S, P, N = 4, 96, 16, 32
+    f = np.float32
+    x = torch.from_numpy(rng.standard_normal((BH, S, P)).astype(f))
+    dt = torch.from_numpy((np.log1p(np.exp(rng.standard_normal(
+        (BH, S, 1)))) * 0.1).astype(f))
+    B, C = (torch.from_numpy((rng.standard_normal((BH, S, N)) * 0.5)
+                             .astype(f)) for _ in range(2))
+    A = torch.from_numpy((-np.exp(rng.standard_normal(BH))).astype(f))
+    D = torch.ones(BH)
+    args = (x, dt, B, C, A, D)
+    got = _counted(ssd_kernel.ssd_scan_fwd, lambda: ssd_ops.ssd_scan(
+        *[a.to(card) for a in args], chunk=32))
+    torch.testing.assert_close(got.cpu(), ssd_ops.ssd_scan(*args, chunk=32),
+                               rtol=2e-3, atol=2e-3)
+    with pytest.raises(NotImplementedError, match="SSD backward"):
+        ssd_ops.ssd_scan(x.to(card).requires_grad_(),
+                         *[a.to(card) for a in args[1:]], chunk=32)
+
+
+def test_ssm_engines_on_card_match_cpu(card):
+    """Reduced mamba2-780m in fp32: greedy tokens of the continuous and
+    the static engine on the card equal the CPU's (and each other's); the
+    static prefill launches the SSD kernel once a layer, the continuous
+    engine (recurrent prefill) never."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("mamba2-780m")
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
+    gens = [5, 4, 6]
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        model = LM(cfg, device=dev)
+        p = _to(params, dev)
+        before = ssd_kernel.ssd_scan_fwd.launches
+        eng = ContinuousBatchingEngine(model, p, n_slots=2, max_len=32,
+                                       page_size=8, prefill_chunk=4,
+                                       page_budget=4)
+        rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+        res = eng.run()
+        assert ssd_kernel.ssd_scan_fwd.launches == before
+        static = StaticBatchEngine(model, p, max_len=32, batch=1)
+        st = [static.generate(pr[None], g)[0].tolist()
+              for pr, g in zip(prompts, gens)]
+        launched = ssd_kernel.ssd_scan_fwd.launches - before
+        assert launched == (cfg.n_layers * len(prompts)
+                            if dev.type == "cuda" else 0)
+        cont = [res[r].tolist() for r in rids]
+        assert cont == st
+        outs.append(cont)
+    assert outs[0] == outs[1]
 
 
 def _to(tree, dev):

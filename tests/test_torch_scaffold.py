@@ -26,7 +26,9 @@ def test_import_leaves_jax_out():
             "repro_torch.kernels.flash_attention.ops, repro_torch.train, "
             "repro_torch.train.trainer, repro_torch.train.parity, "
             "repro_torch.launch.train, "
-            "repro_torch.checkpoint, repro_torch.data, repro_torch.optim; "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.optim, "
+            "repro_torch.kernels.ssd_scan.ops, repro_torch.models.mamba2, "
+            "repro_torch.models.quant, repro_torch.launch.serve; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
@@ -51,6 +53,20 @@ def test_no_reference_or_jax_imports():
            for m in _imports(f)
            if m.split(".")[0] in ("repro", "jax", "jaxlib")]
     assert len(files) > 15 and not bad, bad
+    # the scan is over the tree: the ssm slice's modules are in it
+    names = {str(f.relative_to(PORT)) for f in files[:-1]}
+    assert {"kernels/ssd_scan/ops.py", "kernels/ssd_scan/kernel.py",
+            "kernels/ssd_scan/ref.py", "models/mamba2.py", "models/quant.py",
+            "launch/serve.py", "configs/mamba2_780m.py"} <= names
+
+
+def test_import_scan_catches_a_reference_import(tmp_path):
+    """The AST scan sees an import of the reference however it is
+    spelled, as a new module of the port would carry it."""
+    f = tmp_path / "m.py"
+    f.write_text("import os\nfrom repro.models import mamba2\n"
+                 "def g():\n    import jax.numpy as jnp\n")
+    assert {m.split(".")[0] for m in _imports(f)} == {"os", "repro", "jax"}
 
 
 def test_reference_lint_is_clean_on_the_port():
