@@ -7,9 +7,10 @@ Phases (one line each; any failure exits nonzero and prints no result):
 
 1. device  — the card's name and power limit (nvidia-smi), capability
              (9, 0) required; there is no fallback to the CPU.
-2. build   — nvcc builds the ten kernel libraries from the checkout, all
+2. build   — nvcc builds the eleven kernel libraries from the checkout, all
              at once (paged attention, STREAM, SpMV, GEMM, conv2d, strided
-             gather, tail mask, Qsim gate, flash attention, SSD scan).
+             gather, tail mask, Qsim gate, flash attention, SSD scan, int8
+             GEMM).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
@@ -51,6 +52,20 @@ Phases (one line each; any failure exits nonzero and prints no result):
              layer (b 8, S 2048, 48 heads, P 64, N 128, chunk 256), where
              kernel and plain are timed (no PyTorch call computes the SSD,
              so no library time) and the bound is printed.
+   kernels-int8 — the weight-only int8 GEMM against its plain version:
+             tests/test_quant.py's shapes ((128, 256, 128), (256, 128, 384)),
+             ragged M 1, 7, 8 and 33 with K and N off every tile, both
+             layouts (q (K, N) and the tied unembed's (N, K) at N 49408),
+             fp32 x (within 2e-4, the JAX test's tolerance) and bf16 x (fp32
+             out within 2e-4; bf16 out, the fp32 sum rounded once, within
+             half a bf16 ulp plus that fp32 difference).  Timed at
+             granite-3-2b's decode (M 8: 2048 -> 8192, 8192 -> 2048, the
+             transposed 2048 -> 49408 unembed) and a prefill (M 4096,
+             2048 -> 8192), bf16 x: kernel, plain, library (bf16
+             torch.matmul of the same weights dequantized beforehand, a
+             call the port never makes) and bound
+             (int8 weights, x and y once at the memory rate, or the
+             operations at the bf16 peak, whichever is larger).
 5. parity  — the port on the card against the port on the CPU, reduced
              granite-3-2b in fp32 (TF32 off): greedy tokens identical; and
              one train step of reduced qwen3-1.7b with the flash kernel
@@ -59,7 +74,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              mix (a preemption, a mid-run admission): the continuous and
              the static engine's greedy tokens identical to each other and
              on the card and the CPU; the static prefills launch the SSD
-             kernel once a layer.
+             kernel once a layer.  Then weight-only int8: reduced
+             granite-3-2b (H 64) and mamba2-780m, quantized, fp32, on the
+             same mix: both engines' greedy tokens identical to each other
+             and on the card and the CPU; the int8 GEMM launched (7 or 6) x
+             n_layers + 1 times a forward on the card.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
@@ -78,6 +97,17 @@ Phases (one line each; any failure exits nonzero and prints no result):
              prefill, in bf16 and then in fp32 (the same weights before
              rounding): each layer's max relative error of h and whether
              the first greedy token agrees, reported only.
+6c. serve-int8 — the int8 serving path: full-width granite-3-2b, weights
+             drawn in bf16 from a seeded generator.  (a)
+             ``launch.serve.run(static=True)``: 8 prompts of 512 tokens, 32
+             new; first in bf16 (the dense prefill mode at full width, no
+             int8 launch), then with ``int8=True`` (the weights quantized,
+             the bf16 tree freed): the int8 GEMM launched 7 x 40 + 1 = 281
+             times a forward.  (b) the ContinuousBatchingEngine in int8 at
+             phase 6's request mix, 281 launches a forward.  Each prints
+             tokens/s, step p50 (and the static prefill ms) from CUDA
+             events, peak memory and both trees' bytes; (a) also the share
+             of int8 greedy tokens equal to the bf16 run's (reported only).
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -114,6 +144,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import time
 import warnings
 
 import numpy as np
@@ -150,12 +181,16 @@ from repro_torch.kernels.strided import kernel as strided_kernel  # noqa: E402
 from repro_torch.kernels.strided import ref as strided_ref  # noqa: E402
 from repro_torch.kernels.tailmask import kernel as tail_kernel  # noqa: E402
 from repro_torch.kernels.tailmask import ref as tail_ref  # noqa: E402
+from repro_torch.kernels.wq_gemm import kernel as wq_kernel  # noqa: E402
+from repro_torch.kernels.wq_gemm import ops as wq_ops  # noqa: E402
+from repro_torch.kernels.wq_gemm import ref as wq_ref  # noqa: E402
 from repro_torch.figures import fig2_strided, fig3_tail, fig9_qsim  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.data import SyntheticLMStream  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.models.quant import matmul_q, quantize_params  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.parity import card_step_matches_cpu  # noqa: E402
@@ -192,6 +227,8 @@ KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:32"),
     "ssd_scan": (ssd_kernel, (ssd_kernel.ssd_scan_fwd,),
                  "src/repro/kernels/ssd_scan/kernel.py:25"),
+    "wq_gemm": (wq_kernel, (wq_kernel.wq_gemm,),
+                "src/repro/kernels/wq_gemm/kernel.py:22"),
 }
 WRAPPERS = {name: k[1] for name, k in KERNELS.items()}
 # veceval at card sizes: every array past the 50 MB L2 or the work
@@ -220,6 +257,9 @@ TRAIN_CKPT = os.path.join(ROOT, "checkpoints", "chip_smoke_train")
 # the ssm serving path: full-width mamba2-780m
 SSM_ARCH = "mamba2-780m"
 SSM_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
+# the int8 serving path: full-width granite-3-2b, weight-only int8
+INT8_ARCH = "granite-3-2b"
+INT8_STATIC = dict(slots=8, prompt_len=512, gen_len=32)
 
 
 def reset_launches(names):
@@ -955,6 +995,150 @@ def phase_kernels_ssm(card, hw):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: the int8 serving path's GEMM vs plain
+# ---------------------------------------------------------------------------
+WQ_TOL = 2e-4       # fp32 out, rtol = atol: the JAX kernel test's tolerance
+
+
+def _wq_inputs(g, M, K, N, transposed, x_dtype):
+    """x (M, K) and a quantized (K, N) weight, q stored (N, K) if
+    ``transposed``; the weight at the model's initializer scale."""
+    dev = torch.device("cuda")
+    x = torch.randn((M, K), generator=g, device=dev).to(x_dtype)
+    q, s = wq_ref.quantize(torch.randn((K, N), generator=g, device=dev)
+                           * K ** -0.5)
+    return x, (q.T.contiguous() if transposed else q), s
+
+
+def _check_wq(what, x, q, s, transposed):
+    """The kernel against ref.wq_gemm on the same inputs, fp32 out within
+    WQ_TOL.  For bf16 x also the kernel's bf16 out, its fp32 sum rounded
+    once: within half a bf16 ulp of that sum, so within half an ulp plus
+    the fp32 difference (measured on these inputs) of the plain value."""
+    k32, p32 = (fn(x, q, s, out_dtype=torch.float32,
+                   q_transposed=transposed)
+                for fn in (wq_kernel.wq_gemm, wq_ref.wq_gemm))
+    err = check(f"{what} fp32 out", k32, p32, WQ_TOL, WQ_TOL)
+    if x.dtype == torch.float32:
+        return err
+    got = wq_kernel.wq_gemm(x, q, s, q_transposed=transposed).float()
+    half_ulp = torch.exp2(torch.floor(torch.log2(
+        got.abs().clamp_min(1e-30))) - 8)
+    check(f"{what} bf16 out", got, p32, 1.0, 0.0,
+          half_ulp + (k32 - p32).abs())
+    return err
+
+
+def _wq_timed(g, hw, card, what, M, K, N, transposed, err):
+    """Kernel, plain and library ms at one bf16 shape, and its bound."""
+    x, q, s = _wq_inputs(g, M, K, N, transposed, torch.bfloat16)
+    w = (q.float() * (s[:, None] if transposed else s)).to(torch.bfloat16)
+    library = ((lambda: torch.matmul(x, w.T)) if transposed
+               else (lambda: torch.matmul(x, w)))
+    # int8 weights, their scales, x and y, each moved once; 2 flops a MAC
+    nbytes = K * N + 4.0 * N + 2.0 * M * K + 2.0 * M * N
+    return timed_record(
+        f"wq_gemm {what} M{M} {K}->{N}{' q (N, K)' if transposed else ''} "
+        f"bf16", {
+            "kernel": lambda: wq_kernel.wq_gemm(x, q, s,
+                                                q_transposed=transposed),
+            "plain": lambda: wq_ref.wq_gemm(x, q, s,
+                                            q_transposed=transposed),
+            "library": library},
+        2.0 * M * N * K, nbytes, torch.bfloat16, hw, card, err,
+        "kernels-int8")
+
+
+def kernels_wq(g, hw, card):
+    """Checks at the JAX test's shapes, ragged shapes (both layouts, fp32
+    and bf16 x), granite-3-2b's own; then timed at granite's decode and
+    prefill shapes.  Returns the record of the decode 2048 -> 8192."""
+    cfg = get_config(INT8_ARCH)
+    d, ff, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
+    cases = [(128, 256, 128, False), (256, 128, 384, False)]
+    for M in (1, 7, 8, 33):
+        cases += [(M, 300, 1000, False), (M, 300, 1000, True),
+                  (M, 300, V, True), (M, d, ff, False), (M, ff, d, False),
+                  (M, d, V, True)]
+    # the tiled kernel (8 x 8 a thread past M 64) at the main path's own M:
+    # a static prefill's logits (M 4096 through the (V, d) table) and a
+    # continuous engine's mixed step (M 256), both layouts
+    cases += [(4096, d, ff, False), (4096, d, V, True),
+              (256, d, ff, False), (256, ff, d, False), (256, d, V, True)]
+    worst, n = 0.0, 0
+    for M, K, N, transposed in cases:
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x, q, s = _wq_inputs(g, M, K, N, transposed, x_dtype)
+            worst = max(worst, _check_wq(
+                f"wq_gemm M{M} K{K} N{N} transposed {transposed} {x_dtype}",
+                x, q, s, transposed))
+            n += 1
+    torch.cuda.empty_cache()
+    log("kernels-int8", f"wq_gemm: {n} cases ok (granite-3-2b's decode and "
+                        f"prefill shapes among them), max abs err {worst:.2e}")
+    recs = [_wq_timed(g, hw, card, "decode", 8, d, ff, False, worst),
+            _wq_timed(g, hw, card, "decode", 8, ff, d, False, worst),
+            _wq_timed(g, hw, card, "decode unembed", 8, d, V, True, worst),
+            _wq_timed(g, hw, card, "prefill", 4096, d, ff, False, worst)]
+    wq_host_cost(g, d, ff)
+    torch.cuda.empty_cache()
+    return recs[0]
+
+
+def _host_us(fn, n=200):
+    """Host microseconds a call: ``n`` calls issued with no sync between
+    them (fewer than the launch queue holds, so the host never waits on
+    the card), after a warm-up."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def wq_host_cost(g, d, ff):
+    """Host time a call of the int8 GEMM at granite's decode 2048 -> 8192
+    (M 8, bf16 x): the model's call (``matmul_q``), the entry (``ops``),
+    the binding (``kernel``: checks, output and partials allocated, ctypes
+    call), the bare ctypes launch with its arguments made beforehand, and
+    bf16 ``torch.matmul`` of the dequantized weights."""
+    x, q, s = _wq_inputs(g, 8, d, ff, False, torch.bfloat16)
+    w = (q.float() * s).to(torch.bfloat16)
+    pack = {"q": q, "scale": s}
+    index = x.device.index or 0
+    stream = torch.cuda.current_stream().cuda_stream
+    splits, rows = wq_kernel.k_split(8, ff, d, False,
+                                     wq_kernel._sm_count(index))
+    ws = torch.empty((splits, 8, ff), dtype=torch.float32, device=x.device)
+    counters = wq_kernel._ticket_counters(index, stream,
+                                          -(-ff // wq_kernel.KN_COLS))
+    y = torch.empty((8, ff), dtype=torch.bfloat16, device=x.device)
+    lib = wq_kernel.load_library()
+    args = (x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
+            ws.data_ptr(), counters.data_ptr(), 8, ff, d, 1, 1, 0, splits,
+            rows, 1, stream)
+    us = {"matmul_q": _host_us(lambda: matmul_q(x, pack)),
+          "ops.wq_gemm": _host_us(lambda: wq_ops.wq_gemm(x, q, s)),
+          "kernel.wq_gemm": _host_us(lambda: wq_kernel.wq_gemm(x, q, s)),
+          "bare launch": _host_us(lambda: lib.wq_gemm_launch(*args)),
+          "torch.matmul": _host_us(lambda: torch.matmul(x, w))}
+    if not torch.equal(y, wq_kernel.wq_gemm(x, q, s)):
+        raise SystemExit("wq_gemm: the bare launch differs from the binding's")
+    log("kernels-int8", "host us a call, wq_gemm decode M8 2048->8192 bf16 "
+                        "(200 calls, no sync between): " + ", ".join(
+                            f"{k} {v:.1f}" for k, v in us.items()))
+
+
+def phase_kernels_int8(card, hw):
+    g = torch.Generator(device="cuda").manual_seed(4)
+    return {"wq_gemm": kernels_wq(g, hw, card)}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: port on card vs port on CPU
 # ---------------------------------------------------------------------------
 def serve_tokens(cfg, params_cpu, device, prompts, gens):
@@ -999,15 +1183,17 @@ def phase_parity():
                   f"{launched}")
     parity_train_step()
     parity_ssm()
+    parity_int8()
 
 
-def ssm_tokens(cfg, params_cpu, device, prompts, gens):
+def engine_tokens(cfg, params_cpu, device, prompts, gens, wrapper):
     """Greedy tokens of the continuous engine (tests/test_serve_families.py's
     set-up: 2 slots, page 8, chunk 4, a 4-page budget) and of the static
-    engine, one request at a time; and the SSD launches of each."""
+    engine, one request at a time; the launches of ``wrapper``'s kernel in
+    each, and the forwards of both."""
     model = LM(cfg, device=device)
     params = _to(params_cpu, model.device)
-    before = ssd_kernel.ssd_scan_fwd.launches
+    before = wrapper.launches
     eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32,
                                    page_size=8, prefill_chunk=4,
                                    page_budget=4)
@@ -1016,16 +1202,16 @@ def ssm_tokens(cfg, params_cpu, device, prompts, gens):
     reqs = eng.requests()
     if not (sum(r.n_preemptions for r in reqs) >= 1
             and any(r.admit_step > 0 for r in reqs)):
-        raise SystemExit("ssm parity: the mix forced no preemption or no "
-                         "mid-run admission")
-    cont_launched = ssd_kernel.ssd_scan_fwd.launches - before
+        raise SystemExit(f"{cfg.arch_id} parity: the mix forced no "
+                         f"preemption or no mid-run admission")
+    cont_launched = wrapper.launches - before
     static = StaticBatchEngine(model, params, max_len=32, batch=1)
     st = [static.generate(p[None], g)[0].tolist()
           for p, g in zip(prompts, gens)]
-    static_launched = ssd_kernel.ssd_scan_fwd.launches - before \
-        - cont_launched
-    return [out[r].tolist() for r in rids], st, cont_launched, \
-        static_launched
+    static_launched = wrapper.launches - before - cont_launched
+    forwards = eng.stats.summary()["forwards"] + static.stats.forwards
+    return ([out[r].tolist() for r in rids], st, cont_launched,
+            static_launched, forwards)
 
 
 def parity_ssm():
@@ -1039,9 +1225,10 @@ def parity_ssm():
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
     gens = [5, 4, 6]
-    c_card, s_card, c_launch, s_launch = ssm_tokens(cfg, params, "cuda",
-                                                    prompts, gens)
-    c_cpu, s_cpu, _, _ = ssm_tokens(cfg, params, "cpu", prompts, gens)
+    c_card, s_card, c_launch, s_launch, _ = engine_tokens(
+        cfg, params, "cuda", prompts, gens, ssd_kernel.ssd_scan_fwd)
+    c_cpu, s_cpu, _, _, _ = engine_tokens(cfg, params, "cpu", prompts, gens,
+                                          ssd_kernel.ssd_scan_fwd)
     if not (c_card == s_card == c_cpu == s_cpu):
         raise SystemExit(f"ssm greedy tokens differ:\n continuous card "
                          f"{c_card}\n static card {s_card}\n continuous "
@@ -1057,6 +1244,41 @@ def parity_ssm():
                   f"{len(prompts)} requests (a preemption, a mid-run "
                   f"admission); SSD launches {s_launch} = {cfg.n_layers} x "
                   f"{len(prompts)} static prefills, 0 continuous")
+
+
+def parity_int8():
+    """Weight-only int8, fp32: reduced granite-3-2b (H 64) and mamba2-780m
+    quantized on the CPU; both engines agree token for token, on the card
+    and on the CPU; every forward on the card launches the int8 GEMM once
+    a q-pack matmul."""
+    for arch, per_layer in ((INT8_ARCH, 7), (SSM_ARCH, 6)):
+        cfg = (reduced_config(arch, head_dim=64) if arch == INT8_ARCH
+               else reduced_config(arch))
+        qparams = quantize_params(LM(cfg, device="cpu").init_params(
+            torch.Generator(device="cpu").manual_seed(0)))
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n)
+                   for n in (15, 15, 7)]
+        gens = [5, 4, 6]
+        c_card, s_card, c_launch, s_launch, fwd = engine_tokens(
+            cfg, qparams, "cuda", prompts, gens, wq_kernel.wq_gemm)
+        launched = c_launch + s_launch
+        c_cpu, s_cpu, _, _, _ = engine_tokens(cfg, qparams, "cpu", prompts,
+                                              gens, wq_kernel.wq_gemm)
+        if not (c_card == s_card == c_cpu == s_cpu):
+            raise SystemExit(f"{arch} int8 greedy tokens differ:\n "
+                             f"continuous card {c_card}\n static card "
+                             f"{s_card}\n continuous cpu {c_cpu}\n static "
+                             f"cpu {s_cpu}")
+        per_fwd = per_layer * cfg.n_layers + 1
+        if launched != per_fwd * fwd:
+            raise SystemExit(f"{arch} int8: {launched} wq_gemm launches, "
+                             f"expected {per_fwd} x {fwd} forwards")
+        log("parity", f"reduced {arch} int8 fp32 ({cfg.n_layers} layers): "
+                      f"{sum(map(len, c_card))} greedy tokens identical, "
+                      f"continuous = static, card = CPU, over "
+                      f"{len(prompts)} requests; wq_gemm launches "
+                      f"{launched} = {per_fwd} x {fwd} forwards")
 
 
 def parity_train_step():
@@ -1138,23 +1360,26 @@ def phase_serve(card, profile):
                  f"launches {launches} = {cfg.n_layers} x "
                  f"{st['forwards']} | peak {peak_gib:.2f} GiB | {card}")
     if profile:
-        profile_decode(model, params, eng, card)
+        profile_decode(model, params, card, "granite-3-2b bf16",
+                       eng._page_idx)
     return launches
 
 
-def profile_decode(model, params, eng, card):
-    """Device-busy share of pure batched decode forwards (8 rows, 288
-    tokens of context) under torch.profiler."""
+def profile_decode(model, params, card, what, page_idx=None):
+    """Kernels-busy share of pure batched decode forwards (8 rows, 288
+    tokens of context for the dense family; the ssm's state has no
+    length) under torch.profiler: kernel rows only, as in
+    ``profile_train_step``."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models.attention import PagedDecodeState
     cache = model.init_cache(8, 512)
-    cache["pos"].fill_(288)
     toks = torch.ones((8, 1), dtype=torch.long, device=model.device)
     pos = torch.full((8, 1), 288, dtype=torch.long, device=model.device)
-    paged = PagedDecodeState(eng._page_idx, 16)
+    paged = None if page_idx is None else PagedDecodeState(page_idx, 16)
 
     def step():
-        cache["pos"].fill_(288)
+        if "pos" in cache:
+            cache["pos"].fill_(288)
         model.forward(params, toks, pos, cache=cache, paged=paged)
 
     for _ in range(3):
@@ -1170,14 +1395,32 @@ def profile_decode(model, params, eng, card):
         end.record()
         end.synchronize()
     wall = start.elapsed_time(end) / 5
-    rows = [(e.key, _device_us(e) / 1e3 / 5, e.count // 5)
-            for e in prof.key_averages()]
-    busy = sum(r[1] for r in rows)
-    log("profile", f"decode forward (8 x 1, ctx 288): {wall:.3f} ms "
-                   f"between events, device busy {busy:.3f} ms "
-                   f"({100 * busy / wall:.1f}%) | {card}")
-    for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
-        log("profile", f"  {ms:.4f} ms/forward  x{n}  {key[:70]}")
+    kernels, _ = _kernel_rows(prof, 5)
+    busy = sum(r[1] for r in kernels)
+    log("profile", f"{what} decode forward (8 x 1): {wall:.3f} ms between "
+                   f"events, kernels busy {busy:.3f} ms "
+                   f"({100 * busy / wall:.1f}%), "
+                   f"{sum(r[2] for r in kernels)} kernel launches | {card}")
+    for key, ms, n in sorted(kernels, key=lambda r: -r[1])[:8]:
+        log("profile", f"  kernel {ms:.4f} ms/forward  x{n}  {key[:70]}")
+
+
+def _kernel_rows(prof, n):
+    """(kernels, ops) of a profile, per one of its n repeats: (key, device
+    ms, count).  Kernels are the device events; the ops and annotations
+    that launched them are kept apart, since their device time would
+    count the same kernels again."""
+    from torch.autograd import DeviceType
+    kernels, ops = [], []
+    for e in prof.key_averages():
+        if getattr(e, "is_user_annotation", False):
+            continue
+        row = (e.key, _device_us(e) / 1e3 / n, e.count // n)
+        if e.device_type == DeviceType.CUDA:
+            kernels.append(row)
+        elif row[1] > 0:
+            ops.append(row)
+    return kernels, ops
 
 
 # ---------------------------------------------------------------------------
@@ -1218,7 +1461,7 @@ def _recurrence_vs_kernel(cfg, prompt):
     return rel, first
 
 
-def phase_serve_ssm(card):
+def phase_serve_ssm(card, profile=False):
     """Full-width mamba2-780m in bf16: (a) the static engine through
     ``launch.serve.run`` (the SSD kernel prefills, once a layer); (b) the
     continuous engine (recurrent prefill, no SSD launch); (c) the
@@ -1292,6 +1535,8 @@ def phase_serve_ssm(card):
                      f"0 (recurrent prefill) | peak "
                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
                      f"| {card}")
+    if profile:
+        profile_decode(model, params, card, f"{SSM_ARCH} bf16")
     del eng, model, params
     torch.cuda.empty_cache()
 
@@ -1309,6 +1554,119 @@ def phase_serve_ssm(card):
                          f"({'agrees' if first[0] == first[1] else 'differs'})"
                          f"; phase wall {_since(t0):.1f} s | {card}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6c: serve granite-3-2b in weight-only int8 at full width
+# ---------------------------------------------------------------------------
+def _static_line(what, res, launches, per_fwd, card):
+    gb = res["init_param_bytes"] / 1e9
+    trees = (f"bf16 tree {gb:.3f} GB -> int8 tree "
+             f"{res['param_bytes'] / 1e9:.3f} GB (freed the bf16)"
+             if res["int8"] else f"bf16 tree {gb:.3f} GB")
+    log("serve-int8", f"(a) {what} {INT8_ARCH} full width, StaticBatchEngine "
+                      f"via launch.serve.run: {INT8_STATIC['slots']} x "
+                      f"{INT8_STATIC['prompt_len']} prompt tokens, "
+                      f"{res['generated_tokens']} tokens | prefill "
+                      f"{res['prefill_ms']:.3f} ms, decode step p50 "
+                      f"{res['step_ms_p50']:.3f} ms, "
+                      f"{res['tokens_per_s']:.1f} tok/s over "
+                      f"{res['run_ms']:.1f} ms | {trees} | wq_gemm launches "
+                      f"{launches} = {per_fwd} x {res['forwards']} forwards"
+                      f" | peak {res['peak_gib']:.2f} GiB | {card}")
+
+
+def phase_serve_int8(card, profile=False):
+    """Full-width granite-3-2b: (a) the static engine through
+    ``launch.serve.run``, bf16 (the dense prefill mode) and then int8;
+    (b) the continuous engine in int8 at phase 6's request mix.  Every
+    int8 forward launches the int8 GEMM 7 x 40 + 1 times, a bf16 forward
+    never.  Returns the int8 GEMM's launches of (a) and (b)."""
+    t0 = datetime.datetime.now()
+    cfg = get_config(INT8_ARCH)
+    per_fwd = 7 * cfg.n_layers + 1
+    runs, total = {}, 0
+    for int8 in (False, True):
+        torch.cuda.empty_cache()
+        wq_kernel.wq_gemm.launches = 0
+        res = launch_serve.run(INT8_ARCH, static=True, int8=int8,
+                               **INT8_STATIC)
+        launches = wq_kernel.wq_gemm.launches
+        _check_tokens("static int8" if int8 else "static bf16",
+                      res["tokens"], INT8_STATIC["gen_len"], cfg.padded_vocab)
+        if launches != (per_fwd * res["forwards"] if int8 else 0):
+            raise SystemExit(f"static int8={int8}: {launches} wq_gemm "
+                             f"launches, expected {per_fwd if int8 else 0} x "
+                             f"{res['forwards']} forwards")
+        _static_line("int8" if int8 else "bf16", res, launches,
+                     per_fwd if int8 else 0, card)
+        total += launches
+        runs[int8] = res
+    same = [np.mean(np.asarray(runs[True]["tokens"][r])
+                    == np.asarray(runs[False]["tokens"][r]))
+            for r in runs[False]["tokens"]]
+    first = np.mean([runs[True]["tokens"][r][0] == runs[False]["tokens"][r][0]
+                     for r in runs[False]["tokens"]])
+    log("serve-int8", f"(a) int8 greedy tokens equal to bf16's: "
+                      f"{100 * float(np.mean(same)):.1f}% of all, "
+                      f"{100 * float(first):.1f}% of first tokens (reported "
+                      f"only: random weights, greedy paths diverge after a "
+                      f"first difference)")
+    del runs
+    torch.cuda.empty_cache()
+
+    # (b) the continuous engine in int8, at phase 6's request mix
+    model = LM(cfg)
+    params = quantize_params(model.init_params(
+        torch.Generator(device=model.device).manual_seed(0)))
+    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
+                                   page_size=16, prefill_chunk=32)
+    rng = np.random.default_rng(0)
+    n_req, n_new = 16, 32
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               for n in rng.integers(32, 257, size=n_req)]
+    rids = [eng.submit(p, n_new) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wq_kernel.wq_gemm.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = eng.run()
+    end.record()
+    end.synchronize()
+    launches = wq_kernel.wq_gemm.launches
+    run_ms = start.elapsed_time(end)
+    if sorted(out) != sorted(rids):
+        raise SystemExit("continuous int8: not every request finished")
+    _check_tokens("continuous int8", out, n_new, cfg.padded_vocab)
+    st = eng.stats.summary()
+    if launches != per_fwd * st["forwards"] or launches == 0:
+        raise SystemExit(f"continuous int8: {launches} wq_gemm launches != "
+                         f"{per_fwd} x {st['forwards']} forwards")
+    decode_ms = sorted(s.device_ms() for s in eng.stats.steps
+                       if s.n_decode and not s.n_prefill_tokens)
+    p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
+    gen_tok = st["generated_tokens"]
+    log("serve-int8", f"(b) {INT8_ARCH} int8 full width, "
+                      f"ContinuousBatchingEngine: {n_req} requests "
+                      f"({sum(r.admit_step > 0 for r in eng.requests())} "
+                      f"admitted mid-run), {gen_tok} tokens in "
+                      f"{st['steps']} steps | {gen_tok / (run_ms / 1e3):.1f} "
+                      f"tok/s over {run_ms:.1f} ms | step p50 "
+                      f"{st['step_ms_p50']:.3f} ms, pure-decode step p50 "
+                      f"{p50:.3f} ms ({len(decode_ms)} steps) | wq_gemm "
+                      f"launches {launches} = {per_fwd} x {st['forwards']} "
+                      f"forwards | peak "
+                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
+                      f"| phase wall {_since(t0):.1f} s | {card}")
+    total += launches
+    if profile:
+        profile_decode(model, params, card, f"{INT8_ARCH} int8",
+                       eng._page_idx)
+    del eng, model, params
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1427,17 +1785,7 @@ def profile_train_step(cfg, B, S, card):
         end.record()
         end.synchronize()
     wall = start.elapsed_time(end)
-    # kernels (device events) apart from the ops and annotations that
-    # launched them, whose device time would count the same kernels again
-    from torch.autograd import DeviceType
-    kernels, ops = [], []
-    for e in prof.key_averages():
-        row = (e.key, _device_us(e) / 1e3, e.count)
-        if e.device_type == DeviceType.CUDA:
-            if not getattr(e, "is_user_annotation", False):
-                kernels.append(row)
-        elif row[1] > 0 and not getattr(e, "is_user_annotation", False):
-            ops.append(row)
+    kernels, ops = _kernel_rows(prof, 1)
     busy = sum(r[1] for r in kernels)
     log("profile", f"train step {TRAIN_ARCH} B{B} S{S}: {wall:.1f} ms "
                    f"between events, kernels busy {busy:.1f} ms "
@@ -1590,7 +1938,8 @@ def phase_paper(card, hw):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile pure decode forwards and train steps")
+                    help="also profile pure decode forwards (granite bf16 "
+                         "and int8, mamba2) and train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1612,10 +1961,12 @@ def main():
     records.update(phase_kernels_paper(card, hw))
     records.update(phase_kernels_train(card, hw))
     records.update(phase_kernels_ssm(card, hw))
+    records.update(phase_kernels_int8(card, hw))
     records["paged_partials"] = dict(max_abs_err=worst, **main_case)
     phase_parity()
     launches = {"paged_partials": phase_serve(card, args.profile)}
-    launches["ssd_scan"] = phase_serve_ssm(card)
+    launches["ssd_scan"] = phase_serve_ssm(card, args.profile)
+    launches["wq_gemm"] = phase_serve_int8(card, args.profile)
     launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))
     launches.update(phase_paper(card, hw))

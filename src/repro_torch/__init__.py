@@ -19,8 +19,11 @@ kernel (``kernels/qsim_gate``), the microbenchmark suite
 kernels (``kernels/{strided,tailmask}``), and the drivers of Figs 2, 3
 and 9 in ``figures``; and the train stack (``train``, ``optim``,
 ``data``, ``checkpoint``, ``launch.train``) with the flash-attention
-forward in a hand-written CUDA kernel (``kernels/flash_attention``).
-Entry
-points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
-CPU every kernel wrapper runs its plain PyTorch version.
+forward in a hand-written CUDA kernel (``kernels/flash_attention``);
+and the ssm family (``mamba2-780m``) with its SSD scan kernel
+(``kernels/ssd_scan``); and weight-only int8 serving (``models.quant``)
+whose every q-pack matmul runs the int8 GEMM kernel
+(``kernels/wq_gemm``).  Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
+PyTorch version.
 """

@@ -5,7 +5,9 @@ Data for step k is a pure function of (seed, step, arch): numpy Philox
 keyed on (seed, step), so the batches are bitwise those of the reference
 stream, and a run resumed from a checkpoint continues the stream
 exactly.  The batches come back as torch tensors on the stream's device.
-The vlm / audio extras (image embeddings, audio frames) are not ported.
+Every family gets the plain batches, as in the reference; the vlm /
+audio extras (image embeddings, audio frames) are not ported, and those
+families raise.
 """
 from __future__ import annotations
 
@@ -31,10 +33,10 @@ class SyntheticLMStream:
 
     def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
                  data_cfg: DataConfig = DataConfig(), device=None):
-        if cfg.family != "dense":
+        if cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port's stream has no "
-                f"vlm / audio extras")
+                f"vlm / audio extras yet (ROADMAP A6)")
         self.cfg = cfg
         self.batch = batch
         self.seq_len = seq_len

@@ -4,20 +4,26 @@
       --static --slots 8 --prompt-len 2048 --gen-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m \\
       --reduced --device cpu --slots 2 --requests 4 --prompt-len 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --int8 --static --slots 8 --prompt-len 512
 
 The counterpart of ``repro.launch.serve`` for the families the port
 serves (dense, ssm).  By default requests go through the
 ``ContinuousBatchingEngine``; ``--static`` selects the
 ``StaticBatchEngine`` baseline (one prefill forward over the batch, then
-a decode loop; the ssm family's prefill runs the SSD kernel).  Weights
-are random, drawn from a seeded generator; prompts come from a seeded
-numpy generator as in the reference.  Runs on ``cuda`` unless
+a decode loop; the dense family's prefill is causal attention over the
+prompts, the ssm family's the SSD kernel).  Weights are random, drawn
+from a seeded generator; prompts come from a seeded numpy generator as in
+the reference.  ``--int8`` quantizes the weights after init
+(``models.quant.quantize_params``, weight-only int8) and frees the
+unquantized tree before serving: every matmul of the served tree then
+runs the int8 GEMM kernel.  Runs on ``cuda`` unless
 ``--device`` names another device.  Times are device times from CUDA
 events; on the CPU none are reported.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``--int8``, ``--prefix-cache``, ``--mesh``, ``--sp-kv``,
-``--open-loop``, ``--speculative`` and ``--chunk-policy stall_free``.
+item: ``--prefix-cache``, ``--mesh``, ``--sp-kv``, ``--open-loop``,
+``--speculative`` and ``--chunk-policy stall_free``.
 """
 from __future__ import annotations
 
@@ -29,11 +35,11 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.models.model import LM
+from repro_torch.models.quant import param_bytes, quantize_params
 from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
 
 # option -> (the value that means "off", the ROADMAP item that ports it)
 NOT_PORTED = {
-    "int8": (False, "B5: weight-only int8 serving through wq_gemm"),
     "prefix_cache": (False, "A7: the prefix cache"),
     "mesh": (None, "A10: the device mesh"),
     "sp_kv": (False, "A10: the sequence-parallel KV cache"),
@@ -51,13 +57,16 @@ def _p50(ms):
 def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         slots: int = 4, requests: int = 0, prompt_len: int = 32,
         gen_len: int = 32, prefill_chunk: int = 8, page_size: int = 16,
-        temperature: float = 0.0, static: bool = False, device=None,
-        **options) -> Dict[str, Any]:
+        temperature: float = 0.0, static: bool = False, int8: bool = False,
+        device=None, **options) -> Dict[str, Any]:
     """Serve ``requests`` (default 2 x ``slots``; ``slots`` with
     ``static``) random prompts and return what the launcher prints: the
-    prompts and generated tokens, counts, and on the card the CUDA-event
-    times (``run_ms``, ``tokens_per_s``, ``prefill_ms`` for ``static``,
-    ``step_ms_p50``) and ``peak_gib``."""
+    prompts and generated tokens, counts, the bytes of the initialized
+    and of the served parameter tree (``init_param_bytes``,
+    ``param_bytes``: they differ with ``int8``), and on the card the
+    CUDA-event times (``run_ms``, ``tokens_per_s``, ``prefill_ms`` for
+    ``static``, ``step_ms_p50``) and ``peak_gib``, the peak device memory
+    of serving (after the quantization)."""
     for name, value in options.items():
         if name not in NOT_PORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
@@ -69,6 +78,9 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     model = LM(cfg, device=device)
     dev = model.device
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    init_bytes = param_bytes(params)
+    if int8:
+        params = quantize_params(params)     # the init tree is freed here
     rng = np.random.default_rng(1)
     on_card = dev.type == "cuda"
     if on_card:
@@ -105,8 +117,9 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     st = engine.stats.summary()
     res: Dict[str, Any] = dict(
         arch=arch, family=cfg.family, engine="static" if static else
-        "continuous", device=str(dev), requests=n_req, prompts=prompts,
-        tokens=tokens,
+        "continuous", int8=int8, device=str(dev), requests=n_req,
+        prompts=prompts, tokens=tokens, init_param_bytes=init_bytes,
+        param_bytes=param_bytes(params),
         generated_tokens=st["generated_tokens"], steps=st["steps"],
         forwards=st["forwards"], run_ms=None, tokens_per_s=None,
         prefill_ms=None, step_ms_p50=None, peak_gib=None)
@@ -128,9 +141,13 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
 def report(res: Dict[str, Any]) -> str:
     """The launcher's summary line."""
     first = next(iter(res["tokens"].values()))
-    line = (f"[serve] {res['arch']} ({res['family']}) {res['engine']} on "
-            f"{res['device']}: {res['requests']} request(s), "
-            f"{res['generated_tokens']} tokens in {res['steps']} steps")
+    line = (f"[serve] {res['arch']} ({res['family']}) {res['engine']}"
+            f"{' int8' if res['int8'] else ''} on {res['device']}: "
+            f"{res['requests']} request(s), {res['generated_tokens']} tokens "
+            f"in {res['steps']} steps | params "
+            f"{res['init_param_bytes'] / 1e9:.3f} GB")
+    if res["int8"]:
+        line += f" -> int8 {res['param_bytes'] / 1e9:.3f} GB"
     if res["run_ms"] is not None:
         line += (f" | {res['tokens_per_s']:.1f} tok/s over "
                  f"{res['run_ms']:.1f} ms, step p50 "
@@ -158,7 +175,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
-    ap.add_argument("--int8", action="store_true", help="not ported (B5)")
+    ap.add_argument("--int8", action="store_true",
+                    help="weight-only int8 (the int8 GEMM kernel)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="not ported (A7)")
     ap.add_argument("--mesh", default=None, help="not ported (A10)")

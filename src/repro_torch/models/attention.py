@@ -11,7 +11,9 @@ qk-norm, RoPE, the ragged ``n_valid`` KV write, and
 ``_paged_attention_with_cache``, which views the cache as a page pool
 and runs ``kernels/paged_attention``.  Where the reference enters a
 global ``paged_decode`` context, the port passes a ``PagedDecodeState``
-as an argument.
+as an argument.  Prefill half: ``attn_prefill``, causal attention over a
+prompt through ``chunked_attention`` that fills the cache's first S
+positions.
 """
 from __future__ import annotations
 
@@ -219,6 +221,29 @@ def attn_train(params, x, cfg, *, rope):
                                 softcap=cfg.attn_logit_softcap)
     else:
         raise ValueError(f"attention_impl {cfg.attention_impl!r}")
+    return _out_proj(params, out)
+
+
+# ---------------------------------------------------------------------------
+# prefill
+# ---------------------------------------------------------------------------
+def attn_prefill(params, x, cfg, *, rope, cache) -> torch.Tensor:
+    """Prefill: causal attention over the prompt, and its K/V written to
+    positions [0, S) of ``cache`` ({"k", "v"}: (B, S_cache, NKV, H),
+    updated **in place**).  The caller advances ``pos`` by S once for the
+    whole stack.  As in the reference, the attention is the jnp flash's
+    port (``chunked_attention``), not a kernel.  ``rope`` is the
+    forward's fp32 (cos, sin) pair."""
+    S = x.shape[1]
+    q = _project_q(params, x, cfg)
+    k, v = _project_kv(params, x, cfg)
+    if cfg.rope_theta > 0:
+        q = layers.apply_rope(q, *rope)
+        k = layers.apply_rope(k, *rope)
+    out = chunked_attention(q, k, v, causal=True,
+                            softcap=cfg.attn_logit_softcap)
+    cache["k"][:, :S].copy_(k)
+    cache["v"][:, :S].copy_(v)
     return _out_proj(params, out)
 
 

@@ -26,11 +26,15 @@ REMAT_MODES = ("none", "full")
 def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
                cache=None, write=None, paged=None):
     """One pre-norm decoder layer.  Train mode attends causally over the
-    whole sequence; decode mode writes this layer's ``cache`` ({"k",
-    "v"}) in place and attends through the paged kernel."""
+    whole sequence; prefill mode does too and writes the prompt's K/V to
+    the start of this layer's ``cache`` ({"k", "v"}) in place; decode
+    mode writes the step's K/V in place and attends through the paged
+    kernel."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "train":
         a = attention.attn_train(p["attn"], h, cfg, rope=rope)
+    elif mode == "prefill":
+        a = attention.attn_prefill(p["attn"], h, cfg, rope=rope, cache=cache)
     elif mode == "decode":
         a = attention.attn_decode(p["attn"], h, cfg, positions=positions,
                                   rope=rope, cache=cache, write=write,
@@ -92,9 +96,10 @@ def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
               remat: str = "none") -> torch.Tensor:
     """Run every layer over ``x``, by the config's family.
 
-    dense: decode mode's ``cache`` holds layer-stacked K/V (n_layers, B,
-    S_cache, NKV, H), indexed per layer as views.  ssm: ``cache`` holds
-    the layer-stacked recurrent state (``mamba2.init_state``); prefill
+    dense: prefill and decode modes' ``cache`` holds layer-stacked K/V
+    (n_layers, B, S_cache, NKV, H), indexed per layer as views.  ssm:
+    ``cache`` holds the layer-stacked recurrent state
+    (``mamba2.init_state``); prefill
     writes each layer's final state into it and decode (``n_valid``:
     ragged rows) updates it in place.  Train mode: ``remat`` in
     ``REMAT_MODES``."""

@@ -4,7 +4,10 @@ Counterparts of ``repro.models.layers``, with its casts kept: the RMS
 scale sums in fp32 and is cast to the compute dtype, RoPE angles are
 fp32 in the half-split layout, and dense weights are (d_in, d_out) so
 both packages compute ``x @ w``.  Parameters are nested dicts of tensors
-with the same keys as the JAX parameter tree.
+with the same keys as the JAX parameter tree.  An int8 serving pack
+(``models.quant``: ``{"q", "scale"}`` in place of a dense ``w``, or as an
+embedding ``table``) goes through the int8 GEMM in ``dense`` and the
+unembed, and is dequantized per gathered row in ``embed``.
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ from typing import Any, Dict
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models.quant import is_qpack, matmul_q
 
 Params = Dict[str, Any]
 
@@ -51,18 +56,27 @@ def rms_norm(x: torch.Tensor, params: Params,
 # linear, embeddings
 # ---------------------------------------------------------------------------
 def dense(x: torch.Tensor, params: Params) -> torch.Tensor:
+    if "w" not in params:               # int8 serving pack (models.quant)
+        return matmul_q(x, params)
     return x @ params["w"].to(x.dtype)
 
 
 def embed(tokens: torch.Tensor, params: Params,
           compute_dtype: torch.dtype) -> torch.Tensor:
-    """Row gather (the reference's one-hot matmul gives the same bits)."""
-    return params["table"].to(compute_dtype)[tokens]
+    """Row gather (the reference's one-hot matmul gives the same bits);
+    an int8 table gathers rows and scales each by its own scale."""
+    t = params["table"]
+    if is_qpack(t):
+        return (t["q"][tokens].to(compute_dtype)
+                * t["scale"][tokens][..., None].to(compute_dtype))
+    return t.to(compute_dtype)[tokens]
 
 
 def unembed(x: torch.Tensor, params: Params) -> torch.Tensor:
-    """Project back to (padded) vocab logits."""
-    return x @ params["table"].to(x.dtype).T
+    """Project back to (padded) vocab logits.  An int8 (V, d) table is read
+    in place as the transposed weight: its per-row scale is the
+    per-output-channel scale."""
+    return matmul_q(x, params["table"], transposed=True)
 
 
 # ---------------------------------------------------------------------------

@@ -9,10 +9,13 @@ layer stack is a list of per-layer dicts (dense: ``stack[i]`` holds
 leaves with a leading layer axis.  Weights are random, drawn from an
 explicit ``torch.Generator``.
 
-Modes: ``train`` (both families), ``decode`` (both: the dense cache's
-K/V through the paged kernel, the ssm's recurrent state), ``prefill``
-(ssm only: the SSD kernel over the prompt, leaving the final state in
-the cache; the dense prefill mode is ROADMAP A2).
+Modes: ``train``, ``prefill`` and ``decode``, for both families.
+Prefill runs the prompt through (dense) causal ``chunked_attention``,
+writing its K/V to the cache, or (ssm) the SSD kernel, leaving each
+layer's final state in the cache.  Decode runs the dense cache's K/V
+through the paged kernel, or the ssm's recurrent state.  A parameter tree
+from ``models.quant.quantize_params`` (int8 packs) runs every mode's
+matmuls through the int8 GEMM kernel.
 """
 from __future__ import annotations
 
@@ -131,10 +134,13 @@ class LM:
         rematerialised as ``cfg.remat`` says; returns (fp32 logits (B, S,
         V), None, aux) — aux is the zero auxiliary loss of both families.
 
-        ``mode="prefill"`` (ssm): the prompt through the chunked SSD
-        (the CUDA kernel on the card); each layer's final recurrent state
-        and conv tail are written into ``cache`` (from ``init_cache``) in
-        place.  Returns (fp32 logits, cache).
+        ``mode="prefill"``: the prompt from position 0 into a fresh
+        ``cache`` (from ``init_cache``), in place.  dense: causal
+        attention over the prompt; its K/V go to cache positions [0, S)
+        and ``cache["pos"]`` advances by S.  ssm: the chunked SSD (the
+        CUDA kernel on the card); each layer's final recurrent state and
+        conv tail are written into ``cache``.  Returns (fp32 logits,
+        cache).
 
         ``mode="decode"``: ``n_valid`` (B,) real tokens per row (``None``:
         all S).  dense: writes the step's K/V into ``cache`` in place,
@@ -150,24 +156,24 @@ class LM:
                 f"mode={mode!r}: the port runs train, prefill and decode "
                 f"modes")
         cfg = self.cfg
+        x = layers.embed(tokens, params["embed"], self.compute_dtype)
         if cfg.family == "ssm":
-            x = layers.embed(tokens, params["embed"], self.compute_dtype)
             x = blocks.run_stack(x, params["stack"], cfg, mode=mode,
                                  cache=cache, n_valid=n_valid)
             return self._logits(params, x), cache
+        rope = layers.rope_tables(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
         if mode == "prefill":
-            raise NotImplementedError(
-                "mode='prefill' for the dense family is not ported yet "
-                "(ROADMAP A2); the engine prefills in decode mode")
+            x = blocks.run_stack(x, params["stack"], cfg, mode="prefill",
+                                 rope=rope, cache=cache)
+            cache["pos"].add_(tokens.shape[1])
+            return self._logits(params, x), cache
         S_cache = cache["k"].shape[2]
         if paged is None:
             paged = attention.PagedDecodeState(page_idx=None,
                                                page_size=S_cache)
-        x = layers.embed(tokens, params["embed"], self.compute_dtype)
         write = attention.decode_write(cache["pos"], tokens.shape[1],
                                        S_cache, n_valid)
-        rope = layers.rope_tables(positions, cfg.resolved_head_dim,
-                                  cfg.rope_theta)
         x = blocks.run_stack(x, params["stack"], cfg, positions=positions,
                              rope=rope, cache=cache, write=write,
                              paged=paged)

@@ -16,8 +16,9 @@ and its recurrent prompt prefill runs token by token through the masked
 recurrence.
 
 ``StaticBatchEngine`` is the reference's run-to-completion baseline: one
-``mode="prefill"`` forward over the whole batch of prompts (for the ssm
-family, the SSD kernel), then a decode loop.  ``make_prefill_step`` /
+``mode="prefill"`` forward over the whole batch of prompts (dense: causal
+attention filling the K/V cache; ssm: the SSD kernel), then a decode
+loop.  ``make_prefill_step`` /
 ``make_serve_step`` are its two steps, as in the reference.
 
 Sampled tokens stay on the device between steps: ``prev_sampled``
@@ -383,11 +384,11 @@ class StaticBatchEngine:
 
     The reference's baseline, kept for correctness (temperature-0 parity
     with the continuous engine) and throughput comparison.  The prefill
-    is ``LM.forward(mode="prefill")``: for the ssm family the SSD kernel
-    over every prompt at once, one launch a layer; the dense family has
-    no prefill mode yet (ROADMAP A2).  ``stats.steps`` holds the prefill
-    as its first record and then one record a decode step, timed by CUDA
-    events on the card.
+    is ``LM.forward(mode="prefill")`` over every prompt at once: for the
+    dense family causal attention that fills each layer's K/V cache, for
+    the ssm family the SSD kernel, one launch a layer.  ``stats.steps``
+    holds the prefill as its first record and then one record a decode
+    step, timed by CUDA events on the card.
     """
 
     def __init__(self, model: LM, params, max_len: int, batch: int, *,

@@ -7,11 +7,13 @@ with every leaf converted to numpy — ``embed.table``, ``final_norm.scale``
 axis — and returns the port's parameters: the same dicts with the stack
 split into one dict per layer.  ``params_to_numpy`` is the inverse: it
 restacks the per-layer dicts into ``(L, ...)`` leaves.  Dense weights
-stay (d_in, d_out), so both packages compute ``x @ w``.  bfloat16 leaves
-are carried bit for bit: in, from numpy's ``bfloat16`` extension dtype
-or from raw 2-byte ``V2`` bits; out, as ``V2`` bits (``np.save`` writes
-them as the reference's checkpointer does), since numpy has no bfloat16
-of its own.
+stay (d_in, d_out), so both packages compute ``x @ w``.  A quantized tree
+(``models.quant``) crosses the same way: each q-pack's int8 ``q`` (L, K,
+N) and fp32 ``scale`` (L, N) split per layer and restack bit for bit.
+bfloat16 leaves are carried bit for bit: in, from numpy's ``bfloat16``
+extension dtype or from raw 2-byte ``V2`` bits; out, as ``V2`` bits
+(``np.save`` writes them as the reference's checkpointer does), since
+numpy has no bfloat16 of its own.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Tests of the port that need a Hopper card (marker ``gpu``): each CUDA
 kernel (paged attention, STREAM, ELL SpMV, GEMM, conv2d, strided gather,
-tail mask, Qsim gate, flash attention, SSD scan) against its
+tail mask, Qsim gate, flash attention, SSD scan, int8 GEMM) against its
 plain version on ragged shapes, with its launch counter checked, and the
-port's engines (dense and ssm) and train step on the card against the
-same on the CPU.
+port's engines (dense and ssm, bf16/fp32 and int8 weights) and train
+step on the card against the same on the CPU.
 Without a card they skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -37,7 +37,11 @@ from repro_torch.kernels.strided import kernel as strided_kernel
 from repro_torch.kernels.strided import ops as strided_ops
 from repro_torch.kernels.tailmask import kernel as tail_kernel
 from repro_torch.kernels.tailmask import ops as tail_ops
+from repro_torch.kernels.wq_gemm import kernel as wq_kernel
+from repro_torch.kernels.wq_gemm import ops as wq_ops
+from repro_torch.kernels.wq_gemm import ref as wq_ref
 from repro_torch.models.model import LM
+from repro_torch.models.quant import quantize_params
 from repro_torch.quantum import gates, qsim
 from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
 from repro_torch.train.parity import card_step_matches_cpu
@@ -381,6 +385,135 @@ def test_ssm_engines_on_card_match_cpu(card):
               for pr, g in zip(prompts, gens)]
         launched = ssd_kernel.ssd_scan_fwd.launches - before
         assert launched == (cfg.n_layers * len(prompts)
+                            if dev.type == "cuda" else 0)
+        cont = [res[r].tolist() for r in rids]
+        assert cont == st
+        outs.append(cont)
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 256, 128), (256, 128, 384),
+                                   (1, 37, 61), (7, 130, 9), (8, 1000, 776),
+                                   (8, 2048, 1000), (33, 300, 257)])
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("x_dtype,out_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+def test_wq_gemm_kernel_matches_plain(card, M, K, N, transposed, x_dtype,
+                                      out_dtype):
+    """Both layouts, the GEMV (M <= 8, with and without a K split) and the
+    tiled kernel, ragged M, K and N.  fp32 out within 2e-4 of the plain
+    version's (the JAX test's tolerance: fp32 sums in another order); bf16
+    out is the kernel's fp32 sum rounded once: within half a bf16 ulp of
+    it, and so of the plain fp32 value within that plus their fp32
+    difference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(M * N + K)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((K, N)).astype(np.float32))
+    q, s = wq_ref.quantize(w)
+    if transposed:
+        q = q.T.contiguous()
+    args = (x.to(card, x_dtype), q.to(card), s.to(card))
+    got = _counted(wq_kernel.wq_gemm, lambda: wq_ops.wq_gemm(
+        *args, out_dtype=out_dtype, q_transposed=transposed))
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    k32 = wq_ops.wq_gemm(*args, out_dtype=torch.float32,
+                         q_transposed=transposed)
+    p32 = wq_ref.wq_gemm(*args, out_dtype=torch.float32,
+                         q_transposed=transposed)
+    torch.testing.assert_close(k32, p32, rtol=2e-4, atol=2e-4)
+    got = got.float()
+    if out_dtype == torch.float32:
+        assert torch.equal(got, k32)
+    else:
+        half_ulp = torch.exp2(torch.floor(torch.log2(got.abs().clamp_min(
+            1e-30))) - 8)
+        assert bool(((got - p32).abs() <= half_ulp + (k32 - p32).abs())
+                    .all())
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_wq_gemm_kernel_unaligned_q_takes_the_byte_path(card, transposed):
+    """A q that starts off a 16-byte boundary: the kernel loads bytes
+    (no vector loads), with the same result."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(9)
+    M, K, N = 8, 512, 256
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    q, s = wq_ref.quantize(torch.from_numpy(
+        rng.standard_normal((K, N)).astype(np.float32)))
+    if transposed:
+        q = q.T.contiguous()
+    buf = torch.empty(q.numel() + 1, dtype=torch.int8, device=card)
+    qu = buf[1:].view(q.shape)
+    qu.copy_(q.to(card))
+    assert qu.data_ptr() % 4 and qu.is_contiguous()
+    args = (x.to(card), qu, s.to(card))
+    got = _counted(wq_kernel.wq_gemm, lambda: wq_ops.wq_gemm(
+        *args, q_transposed=transposed))
+    torch.testing.assert_close(got, wq_ref.wq_gemm(
+        *args, q_transposed=transposed), rtol=2e-4, atol=2e-4)
+
+
+def test_wq_gemm_k_splits_on_two_streams_keep_their_own_counters(card):
+    """K-split GEMVs in flight on two streams at once: each stream has its
+    own ticket counters, so every result equals the same call made alone
+    (the split sums in a fixed order, so equal bit for bit)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(11)
+    M, K, N = 8, 4096, 1024
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert wq_kernel.k_split(M, N, K, False, sms)[0] > 1
+    x = torch.from_numpy(rng.standard_normal((2, M, K)).astype(
+        np.float32)).to(card)
+    q, s = wq_ref.quantize(torch.from_numpy(
+        rng.standard_normal((K, N)).astype(np.float32)))
+    q, s = q.to(card), s.to(card)
+    want = [wq_ops.wq_gemm(x[i], q, s) for i in range(2)]
+    streams = [torch.cuda.Stream(card) for _ in range(2)]
+    torch.cuda.synchronize(card)
+    outs = [[], []]
+    for _ in range(20):
+        for i, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                outs[i].append(wq_ops.wq_gemm(x[i], q, s))
+    torch.cuda.synchronize(card)
+    for i in range(2):
+        assert all(torch.equal(out, want[i]) for out in outs[i])
+
+
+@pytest.mark.parametrize("arch,per_layer", [("granite-3-2b", 7),
+                                            ("mamba2-780m", 6)])
+def test_int8_engines_on_card_match_cpu(card, arch, per_layer):
+    """Quantized reduced models in fp32: greedy tokens of the continuous
+    and the static engine on the card equal the CPU's (and each
+    other's); every forward on the card launches the int8 GEMM once a
+    q-pack matmul: per_layer x n_layers + 1 (the unembed)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch, head_dim=64) if arch == "granite-3-2b" \
+        else reduced_config(arch)
+    params = quantize_params(LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
+    gens = [5, 4, 6]
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        model = LM(cfg, device=dev)
+        p = _to(params, dev)
+        before = wq_kernel.wq_gemm.launches
+        eng = ContinuousBatchingEngine(model, p, n_slots=2, max_len=32,
+                                       page_size=8, prefill_chunk=4,
+                                       page_budget=4)
+        rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+        res = eng.run()
+        static = StaticBatchEngine(model, p, max_len=32, batch=1)
+        st = [static.generate(pr[None], g)[0].tolist()
+              for pr, g in zip(prompts, gens)]
+        forwards = eng.stats.summary()["forwards"] + sum(gens)
+        launched = wq_kernel.wq_gemm.launches - before
+        assert launched == ((per_layer * cfg.n_layers + 1) * forwards
                             if dev.type == "cuda" else 0)
         cont = [res[r].tolist() for r in rids]
         assert cont == st

@@ -10,8 +10,8 @@ package on the CPU, fp32, with the same weights carried over by
 - both engines token for token against the JAX ``StaticBatchEngine`` on
   ``tests/test_serve_families.py``'s request mix (forced preemption,
   mid-run admission), the port's static engine included;
-- ``launch.serve.run`` on the CPU, static and continuous, and the
-  options it does not port yet.
+- ``launch.serve.run`` on the CPU, static and continuous, ``--int8``,
+  and the options it does not port yet.
 """
 import dataclasses
 
@@ -285,15 +285,23 @@ def test_prefix_cache_request_warns_and_runs_without_pool(ssm):
 
 
 def test_dense_prefill_and_qpacks_are_not_ported_yet():
+    """Both are ported now: the dense prefill mode gives the logits of the
+    decode mode over the same prompt, and ``matmul_q`` of an int8 q-pack
+    multiplies by the dequantized weight."""
     dense = LM(reduced_config("granite-3-2b"), device="cpu")
     params = dense.init_params(torch.Generator().manual_seed(0))
-    toks = torch.ones((1, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A2"):
-        dense.forward(params, toks, toks, mode="prefill",
-                      cache=dense.init_cache(1, 8))
-    with pytest.raises(NotImplementedError, match="B5"):
-        matmul_q(torch.ones((2, 4)), {"q": torch.ones((4, 3)),
-                                      "scale": torch.ones(3)})
+    toks = torch.arange(1, 5)[None]
+    pos = torch.arange(4)[None]
+    pre, cache = dense.forward(params, toks, pos, mode="prefill",
+                               cache=dense.init_cache(1, 8))
+    dec, _ = dense.forward(params, toks, pos, mode="decode",
+                           cache=dense.init_cache(1, 8))
+    torch.testing.assert_close(pre, dec, rtol=1e-4, atol=1e-4)
+    assert cache["pos"].tolist() == [4]
+    pack = {"q": torch.tensor([[1, -2, 3]] * 4, dtype=torch.int8),
+            "scale": torch.tensor([0.5, 1.0, 2.0])}
+    torch.testing.assert_close(matmul_q(torch.ones((2, 4)), pack),
+                               torch.tensor([[2.0, -8.0, 24.0]] * 2))
     torch.testing.assert_close(matmul_q(torch.ones((2, 4)),
                                         torch.ones((4, 3))),
                                torch.full((2, 3), 4.0))
@@ -314,8 +322,17 @@ def test_launch_serve_runs_on_the_cpu(static):
     assert "mamba2-780m (ssm)" in launch_serve.report(res)
 
 
+def test_launch_serve_int8_flag_runs():
+    """``--int8`` is ported: the launcher quantizes and serves."""
+    res = launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
+                             "--int8", "--slots", "2", "--requests", "2",
+                             "--prompt-len", "8", "--gen-len", "3"])
+    assert res["int8"] and res["param_bytes"] < res["init_param_bytes"]
+    assert all(len(t) == 3 for t in res["tokens"].values())
+
+
 @pytest.mark.parametrize("flag,item", [
-    ("--int8", "B5"), ("--prefix-cache", "A7"), ("--mesh=2", "A10"),
+    ("--prefix-cache", "A7"), ("--mesh=2", "A10"),
     ("--sp-kv", "A10"), ("--open-loop", "A7"), ("--speculative", "A7"),
     ("--chunk-policy=stall_free", "A7")])
 def test_launch_serve_refuses_what_is_not_ported(flag, item):

@@ -1,6 +1,7 @@
 """The port's train stack on the CPU against the JAX package, fp32, on
-reduced ``qwen3-1.7b`` and ``granite-3-2b`` with the same weights carried
-over by ``params_from_numpy`` and the same batches.
+reduced ``qwen3-1.7b`` and ``granite-3-2b`` (and ``mamba2-780m`` for the
+ssm family's stream, loss and gradients, and launcher) with the same
+weights carried over by ``params_from_numpy`` and the same batches.
 
 - ``LM.forward(mode="train")`` logits against the JAX ``LM.forward``
   under both ``attention_impl``s (the JAX ``pallas`` impl runs its Pallas
@@ -209,6 +210,47 @@ def test_stream_is_bitwise_the_jax_stream():
             assert p[k].dtype == getattr(torch, str(j[k].dtype))
             assert tuple(p[k].shape) == j[k].shape
             np.testing.assert_array_equal(p[k].numpy(), np.asarray(j[k]))
+
+
+def test_ssm_stream_is_bitwise_the_jax_stream():
+    """The stream serves the ssm family the reference's plain batches."""
+    cfg = reduced_config("mamba2-780m")
+    jb, pb = _batches(cfg, 3, batch=2, seq=33)
+    for j, p in zip(jb, pb):
+        assert sorted(j) == sorted(p)
+        for k in j:
+            np.testing.assert_array_equal(p[k].numpy(), np.asarray(j[k]))
+
+
+def test_ssm_loss_and_grads_match_jax():
+    """One reduced mamba2-780m batch: loss and every gradient of
+    ``make_loss_fn`` against ``jax.value_and_grad`` of the JAX loss (its
+    SSD the jnp ``_ssd_chunked``; the port's the plain version on the
+    CPU), fp32.  Loss rtol 1e-5; gradients rtol 1e-4, atol 1e-6, as for
+    the dense family."""
+    jmodel, jparams = _jax_model("mamba2-780m")
+    model, params = _port("mamba2-780m", jparams)
+    jb, pb = _batches(model.cfg, 1)
+    (jloss, _), jgrads = jax.value_and_grad(
+        jax_make_loss_fn(jmodel, z_loss=1e-4), has_aux=True)(jparams, jb[0])
+    (loss, _), grads = value_and_grad(
+        make_loss_fn(model, z_loss=1e-4))(params, pb[0])
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    want = _flat(jgrads)
+    got = _flat(params_to_numpy(grads))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        np.testing.assert_allclose(got[key], want[key], rtol=1e-4, atol=1e-6,
+                                   err_msg=key)
+
+
+def test_launcher_trains_mamba2_on_the_cpu(tmp_path):
+    out = launch_train.main(["--arch", "mamba2-780m", "--reduced",
+                             "--device", "cpu", "--steps", "2", "--batch",
+                             "2", "--seq", "32", "--ckpt-dir",
+                             str(tmp_path)])
+    losses_ = [r["loss"] for r in out["log"]]
+    assert len(losses_) == 2 and np.all(np.isfinite(losses_))
 
 
 def test_params_to_numpy_inverts_params_from_numpy():
