@@ -7,10 +7,10 @@ Phases (one line each; any failure exits nonzero and prints no result):
 
 1. device  — the card's name and power limit (nvidia-smi), capability
              (9, 0) required; there is no fallback to the CPU.
-2. build   — nvcc builds the eleven kernel libraries from the checkout, all
-             at once (paged attention, STREAM, SpMV, GEMM, conv2d, strided
-             gather, tail mask, Qsim gate, flash attention, SSD scan, int8
-             GEMM).
+2. build   — nvcc builds the twelve kernel libraries from the checkout,
+             all at once (paged attention, STREAM, SpMV (both idioms), GEMM,
+             conv2d, strided gather, tail mask, Qsim gate, flash attention,
+             flash decode, SSD scan, int8 GEMM).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
@@ -27,6 +27,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              At the card size each prints kernel, plain, library (a PyTorch
              call the port never makes: torch.add, cuSPARSE through a CSR
              tensor, torch.matmul, F.conv2d) and bound ms.  TF32 is off.
+             The one-hot SpMV: tests/test_kernels_fused.py's shapes, ragged
+             rows and nonzeros, columns at -1 and at C (they contribute 0);
+             timed at the JAX veceval size (2^14 rows x 16, C 2^14: 2^32
+             compare-selects) against cuSPARSE; the card size (2.8e14
+             compare-selects) is left out.
    kernels-paper — the strided-gather (both idioms), tail-mask (both
              idioms) and Qsim gate kernels against their plain versions:
              ragged rows (stride not dividing rows, remainders 0, 1, 7),
@@ -66,6 +71,18 @@ Phases (one line each; any failure exits nonzero and prints no result):
              call the port never makes) and bound
              (int8 weights, x and y once at the memory rate, or the
              operations at the bf16 peak, whichever is larger).
+   kernels-serve-dense — the dense-cache flash-decode kernel against its
+             plain version: H 32/64/128, G 1/2/4/8, kv_valid 0, 1, a tile
+             edge, ragged and the whole cache, Sq 1 and the per-query
+             lengths of a 32-column prefill row, softcap 0 and 30, fp32
+             (2e-4, the JAX test's) and bf16 (one bf16 ulp), the cache a
+             strided view in every other case; queries with no valid key
+             exactly 0.  Timed at qwen3-1.7b's static decode (B 8, S_cache
+             2088, kv_valid 2080, 16/8 heads, H 128), granite-3-2b's 6c
+             shape (B 8, 552, 520, 32/8, H 64) and qwen3's at 64 slots,
+             bf16: kernel, plain, library (F.scaled_dot_product_attention
+             with the valid-length mask on the dense cache laid out heads
+             first, a call the port never makes) and bound.
 5. parity  — the port on the card against the port on the CPU, reduced
              granite-3-2b in fp32 (TF32 off): greedy tokens identical; and
              one train step of reduced qwen3-1.7b with the flash kernel
@@ -78,7 +95,13 @@ Phases (one line each; any failure exits nonzero and prints no result):
              granite-3-2b (H 64) and mamba2-780m, quantized, fp32, on the
              same mix: both engines' greedy tokens identical to each other
              and on the card and the CPU; the int8 GEMM launched (7 or 6) x
-             n_layers + 1 times a forward on the card.
+             n_layers + 1 times a forward on the card.  Then the dense-cache
+             decode: reduced granite-3-2b and qwen3-1.7b (H 64), fp32, on the
+             same mix: the continuous engine with paged_kernel=False and
+             True and the static engine give identical greedy tokens, on the
+             card and the CPU; with False the flash-decode kernel launches
+             n_layers times a forward and the paged kernel never, with True
+             the reverse, and the static decode the flash-decode kernel.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
@@ -103,11 +126,25 @@ Phases (one line each; any failure exits nonzero and prints no result):
              new; first in bf16 (the dense prefill mode at full width, no
              int8 launch), then with ``int8=True`` (the weights quantized,
              the bf16 tree freed): the int8 GEMM launched 7 x 40 + 1 = 281
-             times a forward.  (b) the ContinuousBatchingEngine in int8 at
+             times a forward; both decode through the dense-cache
+             flash-decode kernel, 40 launches a decode forward, and never
+             the paged kernel.  (b) the ContinuousBatchingEngine in int8 at
              phase 6's request mix, 281 launches a forward.  Each prints
              tokens/s, step p50 (and the static prefill ms) from CUDA
              events, peak memory and both trees' bytes; (a) also the share
              of int8 greedy tokens equal to the bf16 run's (reported only).
+6d. serve-dense — the dense-cache decode: full-width qwen3-1.7b in bf16,
+             weights random from a seeded generator.  (a)
+             ``launch.serve.run(static=True)``: 8 prompts of 2048 tokens, 32
+             new; the flash-decode kernel launched 28 x 31 decode forwards,
+             none in the prefill, the paged kernel never.  (b) the
+             ContinuousBatchingEngine at phase 6's request mix with
+             paged_kernel=False (the flash-decode kernel only, 28 a
+             forward) and True (the paged kernel only).  Each prints
+             tokens/s, step p50 (and the static prefill ms) from CUDA
+             events and peak memory; (b) also the share of greedy tokens the
+             two runs share (reported only: in bf16 the kernels round
+             differently).
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -121,6 +158,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              apps at the default sizes and at the card sizes; scalar,
              torch.compile and kernel versions timed interleaved, held
              against each other, and each app's kernel launched.
+   Then the one-hot SpMV's path, ``kernels.spmv.ops.spmv_ell(idiom=
+             "onehot")`` at the JAX veceval size: one launch, held against
+             the take idiom.
 9. paper   — the paper layer's path: ``figures.fig9_qsim`` (Qsim, §6) at
              16 qubits depth 6 (the JAX size) and 28 qubits depth 2 (1 GiB
              a plane): nonvec, torch.compile'd interleaved and planar, and
@@ -172,6 +212,7 @@ from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.kernels.qsim_gate import kernel as gate_kernel  # noqa: E402
 from repro_torch.kernels.qsim_gate import ref as gate_ref  # noqa: E402
 from repro_torch.kernels.spmv import kernel as spmv_kernel  # noqa: E402
+from repro_torch.kernels.spmv import ops as spmv_ops  # noqa: E402
 from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
@@ -201,36 +242,49 @@ from repro_torch.serve.engine import (  # noqa: E402
     ContinuousBatchingEngine, StaticBatchEngine)
 
 TOL = 2e-3          # atol = rtol: bf16 inputs, fp32 math in both versions
-# each kernel: its ctypes binding (with its sources and build), its
+
+
+def _lib(module, wrappers, replaces):
+    """A kernel whose library is its module's ``load_library`` over
+    ``SOURCES``."""
+    return (module.load_library, module.SOURCES[0], wrappers, replaces)
+
+
+# each kernel: the loader that builds its library, its source, its
 # wrappers (which count their launches: one per idiom) and the TPU kernel
 # it replaces
 KERNELS = {
-    "paged_partials": (pa_kernel, (pa_kernel.paged_flash_decode,),
-                       "src/repro/kernels/paged_attention/kernel.py:40"),
-    "stream": (stream_kernel, (stream_kernel.stream_call,),
-               "src/repro/kernels/stream/kernel.py:30"),
-    "spmv_ell": (spmv_kernel, (spmv_kernel.spmv_ell,),
-                 "src/repro/kernels/spmv/kernel.py:24"),
-    "gemm": (gemm_kernel, (gemm_kernel.gemm,),
-             "src/repro/kernels/gemm/kernel.py:24"),
-    "conv2d_same": (conv_kernel, (conv_kernel.conv2d_same,),
-                    "src/repro/kernels/conv2d/kernel.py:21"),
-    "strided": (strided_kernel, (strided_kernel.strided_rowwise,
-                                 strided_kernel.overfetch_select),
-                "src/repro/kernels/strided/kernel.py:24"),
-    "tailmask": (tail_kernel, (tail_kernel.exact_tail,
-                               tail_kernel.masked_full),
-                 "src/repro/kernels/tailmask/kernel.py:33"),
-    "qsim_gate": (gate_kernel, (gate_kernel.apply_gate_planar,),
-                  "src/repro/kernels/qsim_gate/kernel.py:26"),
-    "flash_attention": (fa_kernel, (fa_kernel.flash_fwd,),
-                        "src/repro/kernels/flash_attention/kernel.py:32"),
-    "ssd_scan": (ssd_kernel, (ssd_kernel.ssd_scan_fwd,),
-                 "src/repro/kernels/ssd_scan/kernel.py:25"),
-    "wq_gemm": (wq_kernel, (wq_kernel.wq_gemm,),
-                "src/repro/kernels/wq_gemm/kernel.py:22"),
+    "paged_partials": _lib(pa_kernel, (pa_kernel.paged_flash_decode,),
+                           "src/repro/kernels/paged_attention/kernel.py:40"),
+    "stream": _lib(stream_kernel, (stream_kernel.stream_call,),
+                   "src/repro/kernels/stream/kernel.py:30"),
+    "spmv_ell": _lib(spmv_kernel, (spmv_kernel.spmv_ell,),
+                     "src/repro/kernels/spmv/kernel.py:24"),
+    "spmv_ell_onehot": _lib(spmv_kernel, (spmv_kernel.spmv_ell_onehot,),
+                            "src/repro/kernels/spmv/kernel.py:32"),
+    "gemm": _lib(gemm_kernel, (gemm_kernel.gemm,),
+                 "src/repro/kernels/gemm/kernel.py:24"),
+    "conv2d_same": _lib(conv_kernel, (conv_kernel.conv2d_same,),
+                        "src/repro/kernels/conv2d/kernel.py:21"),
+    "strided": _lib(strided_kernel, (strided_kernel.strided_rowwise,
+                                     strided_kernel.overfetch_select),
+                    "src/repro/kernels/strided/kernel.py:24"),
+    "tailmask": _lib(tail_kernel, (tail_kernel.exact_tail,
+                                   tail_kernel.masked_full),
+                     "src/repro/kernels/tailmask/kernel.py:33"),
+    "qsim_gate": _lib(gate_kernel, (gate_kernel.apply_gate_planar,),
+                      "src/repro/kernels/qsim_gate/kernel.py:26"),
+    "flash_attention": _lib(fa_kernel, (fa_kernel.flash_fwd,),
+                            "src/repro/kernels/flash_attention/kernel.py:32"),
+    "flash_decode": (fa_kernel.load_decode_library,
+                     fa_kernel.DECODE_SOURCES[0], (fa_kernel.flash_decode,),
+                     "src/repro/kernels/flash_attention/kernel.py:132"),
+    "ssd_scan": _lib(ssd_kernel, (ssd_kernel.ssd_scan_fwd,),
+                     "src/repro/kernels/ssd_scan/kernel.py:25"),
+    "wq_gemm": _lib(wq_kernel, (wq_kernel.wq_gemm,),
+                    "src/repro/kernels/wq_gemm/kernel.py:22"),
 }
-WRAPPERS = {name: k[1] for name, k in KERNELS.items()}
+WRAPPERS = {name: k[2] for name, k in KERNELS.items()}
 # veceval at card sizes: every array past the 50 MB L2 or the work
 # operation-bound (builders' own size arguments)
 CARD_SIZES = {
@@ -260,6 +314,9 @@ SSM_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
 # the int8 serving path: full-width granite-3-2b, weight-only int8
 INT8_ARCH = "granite-3-2b"
 INT8_STATIC = dict(slots=8, prompt_len=512, gen_len=32)
+# the dense-cache decode: full-width qwen3-1.7b at long prompts
+DENSE_ARCH = "qwen3-1.7b"
+DENSE_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
 
 
 def reset_launches(names):
@@ -319,12 +376,13 @@ def phase_device():
 def phase_build():
     """nvcc for each kernel source, all started together."""
     t0 = datetime.datetime.now()
-    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
-        for fut in [pool.submit(k[0].load_library)
-                    for k in KERNELS.values()]:
+    loaders = list(dict.fromkeys(k[0] for k in KERNELS.values()))
+    with concurrent.futures.ThreadPoolExecutor(len(loaders)) as pool:
+        for fut in [pool.submit(load) for load in loaders]:
             fut.result()
     secs = (datetime.datetime.now() - t0).total_seconds()
-    log("build", f"{', '.join(WRAPPERS)} built and loaded in {secs:.1f} s")
+    log("build", f"{len(loaders)} libraries ({', '.join(WRAPPERS)}) built "
+                 f"and loaded in {secs:.1f} s")
 
 
 # ---------------------------------------------------------------------------
@@ -555,6 +613,59 @@ def kernels_spmv(g, hw, card):
         card, worst)
 
 
+def kernels_spmv_onehot(g, hw, card):
+    """The one-hot idiom against its plain version: test_kernels_fused.py's
+    shapes, ragged rows and nonzeros, columns at -1 and at C (they
+    contribute 0, checked also against the take idiom over the in-range
+    nonzeros); rtol 1e-5 of the row's sum of |terms| (fp32 sums of up to
+    33 terms in another order).  Timed at the JAX veceval size (2^14 rows
+    x 16, C 2^14), where the idiom does 2^32 compare-selects; the card
+    size (2^22 x 16 against C 2^22, 2.8e14 of them) is left out."""
+    dev = torch.device("cuda")
+    worst = 0.0
+    for R, C, K in ((64, 256, 16), (128, 512, 8), (1000, 777, 13),
+                    (37, 50, 33), (9, 512, 1)):
+        vals, cols, x = _ell(R, C, K, g, dev)
+        cols[::5, 0] = -1
+        cols[2::5, -1] = C
+        got = spmv_kernel.spmv_ell_onehot(vals, cols, x)
+        inside = (cols >= 0) & (cols < C)
+        scale = (vals.abs() * inside).sum(-1, keepdim=True) * x.abs().max()
+        worst = max(worst, check(
+            f"spmv onehot {R}x{C} nnz {K}", got,
+            spmv_ref.spmv_ell_onehot(vals, cols, x), 1e-5, 0.0, scale))
+        check(f"spmv onehot {R}x{C} nnz {K} vs take over in-range columns",
+              got, spmv_ref.spmv_ell(vals * inside, cols.clamp(0, C - 1), x),
+              1e-5, 0.0, scale)
+    R = C = 1 << 14
+    K = 16
+    vals, cols, x = _ell(R, C, K, g, dev)
+    scale = (vals * x[cols]).abs().sum(-1, keepdim=True)
+    worst = max(worst, check(f"spmv onehot {R} nnz {K}",
+                             spmv_kernel.spmv_ell_onehot(vals, cols, x),
+                             spmv_ref.spmv_ell_onehot(vals, cols, x), 1e-5,
+                             0.0, scale))
+    log("kernels-veceval", f"spmv onehot: ok, max abs err {worst:.2e}; "
+                           f"{R * K * C:.3e} compare-selects at {R} x {K} "
+                           f"against C {C}")
+    cs, perm = cols.sort(dim=1)
+    with warnings.catch_warnings():                 # "beta" notices
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.arange(0, R * K + 1, K, dtype=torch.int32, device=dev),
+            cs.reshape(-1).contiguous(), vals.gather(1, perm).reshape(-1),
+            size=(R, C), check_invariants=False)
+    check("spmv onehot cuSPARSE yardstick", torch.mv(csr, x)[:, None],
+          spmv_ref.spmv_ell(vals, cols, x), 1e-5, 1e-5)
+    return timed_record(
+        f"spmv onehot rows=C=2^14 nnz 16 fp32 ({R * K * C} compare-selects)",
+        {"kernel": lambda: spmv_kernel.spmv_ell_onehot(vals, cols, x),
+         "plain": lambda: spmv_ref.spmv_ell_onehot(vals, cols, x),
+         "library": lambda: torch.mv(csr, x)},
+        2.0 * R * K, R * K * 8.0 + C * 4.0 + R * 4.0, torch.float32, hw,
+        card, worst)
+
+
 def kernels_gemm(g, hw, card):
     dev = torch.device("cuda")
     tol = {torch.float32: 1e-4, torch.float64: 1e-12}
@@ -635,6 +746,7 @@ def phase_kernels_veceval(card, hw):
     g = torch.Generator(device="cuda").manual_seed(0)
     return {"stream": kernels_stream(g, hw, card),
             "spmv_ell": kernels_spmv(g, hw, card),
+            "spmv_ell_onehot": kernels_spmv_onehot(g, hw, card),
             "gemm": kernels_gemm(g, hw, card),
             "conv2d_same": kernels_conv2d(g, hw, card)}
 
@@ -1139,6 +1251,123 @@ def phase_kernels_int8(card, hw):
 
 
 # ---------------------------------------------------------------------------
+# phase 4, continued: the dense-cache decode's flash-decode kernel vs plain
+# ---------------------------------------------------------------------------
+# (rtol, atol).  fp32: the JAX kernel test's 2e-4.  bf16: both compute in
+# fp32 and round once to bf16, at most one bf16 ulp apart (as the flash
+# forward's check).
+DECODE_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-4)}
+DECODE_S = 1040            # the check grid's cache: 32.5 tiles of 32 keys
+# rows: no valid key, one, a tile edge, ragged, the whole cache
+DECODE_VALID = (0, 1, 32, 1000, DECODE_S)
+# (what, B, S_cache, kv_valid, NQ, NKV, H): the static engine's decode at
+# phase 6d (qwen3-1.7b, 8 x 2048 prompt tokens + 32 new: the cache holds
+# 2088) and at phase 6c (granite-3-2b, 8 x 512 + 32: 552), bf16; then
+# qwen3's at 64 slots, whose 512 blocks fill the card (8 slots give 64
+# blocks on 132 SMs: what that costs)
+DECODE_TIMED = (("qwen3-1.7b static decode", 8, 2088, 2080, 16, 8, 128),
+                ("granite-3-2b 6c static decode", 8, 552, 520, 32, 8, 64),
+                ("qwen3-1.7b decode at 64 slots", 64, 2088, 2080, 16, 8,
+                 128))
+
+
+def _decode_lens(sq, dev):
+    """(rows, sq) valid lengths: a decode row (sq 1), or the sq columns of
+    a prefill row ending at the row's length (t <= position)."""
+    v = torch.tensor(DECODE_VALID, dtype=torch.int32)
+    lens = (v[:, None] - sq + 1 + torch.arange(sq)[None]).clamp(0, DECODE_S)
+    return lens.to(torch.int32).to(dev)
+
+
+def _decode_cases():
+    for H in (32, 64, 128):
+        for G in (1, 2, 4, 8):
+            for sq in (1, 32):
+                for softcap in (0.0, 30.0):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        yield H, G, sq, softcap, dtype
+
+
+def kernels_flash_decode(g, hw, card):
+    """The flash-decode kernel against ref.flash_decode on the same card
+    inputs, every case of ``_decode_cases`` over the DECODE_VALID rows, the
+    cache a strided view (every other row of a wider one) in every other
+    case; queries with no valid key exactly 0.  Then timed at the two
+    static decode shapes."""
+    dev = torch.device("cuda")
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    B, NKV = len(DECODE_VALID), 2
+    n = 0
+    for H, G, sq, softcap, dtype in _decode_cases():
+        q = torch.randn((B, sq, NKV * G, H), generator=g,
+                        device=dev).to(dtype)
+        wide = torch.randn((2 * B, DECODE_S, NKV, H), generator=g,
+                           device=dev).to(dtype)
+        k, v = (wide[::2], wide[1::2]) if n % 2 else (wide[:B], wide[B:])
+        lens = _decode_lens(sq, dev)
+        what = f"flash_decode H{H} G{G} Sq{sq} cap{softcap:g} {dtype}"
+        got = fa_kernel.flash_decode(q, k, v, lens, softcap=softcap)
+        want = fa_ref.flash_decode(q, k, v, lens, softcap=softcap)
+        rtol, atol = DECODE_TOL[dtype]
+        worst[dtype] = max(worst[dtype], check(what, got.float(),
+                                               want.float(), rtol, atol))
+        if not bool((got[lens == 0] == 0).all()):
+            raise SystemExit(f"{what}: a query with no valid key is not 0")
+        n += 1
+    log("kernels-serve-dense", f"flash_decode: {n} cases ok (H 32/64/128, "
+                               f"G 1/2/4/8, Sq 1 and a 32-column prefill "
+                               f"row, softcap 0/30, fp32/bf16; kv_valid "
+                               f"{list(DECODE_VALID)}), max abs err fp32 "
+                               f"{worst[torch.float32]:.2e}, bf16 "
+                               f"{worst[torch.bfloat16]:.2e}")
+    recs = []
+    for what, B, S, valid, NQ, NKV, H in DECODE_TIMED:
+        q, k, v = (torch.randn(shape, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for shape in ((B, 1, NQ, H), (B, S, NKV, H),
+                                 (B, S, NKV, H)))
+        lens = torch.full((B, 1), valid, dtype=torch.int32, device=dev)
+        want = fa_ref.flash_decode(q, k, v, lens)
+        err = check(f"{what} shape", fa_kernel.flash_decode(q, k, v, lens)
+                    .float(), want.float(), *DECODE_TOL[torch.bfloat16])
+        # SDPA over the dense cache laid out heads-first beforehand, with
+        # the valid-length mask (a call the port never makes)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        mask = (torch.arange(S, device=dev)[None, None, None, :]
+                < lens[:, None, :, None])
+
+        def library(qh=qh, kh=kh, vh=vh, mask=mask):
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+        check(f"{what} vs SDPA yardstick", library().transpose(1, 2).float(),
+              want.float(), 1e-2, 1e-2)
+        # the valid K/V once, q and out, the lengths; QK^T and PV
+        nbytes = 2.0 * B * valid * NKV * H * 2 + 2.0 * q.numel() * 2 \
+            + lens.numel() * 4
+        flops = 4.0 * B * valid * NQ * H
+        recs.append(timed_record(
+            f"flash_decode {what}: B{B} S_cache {S} kv_valid {valid} "
+            f"{NQ}/{NKV} heads H{H} bf16", {
+                "kernel": lambda q=q, k=k, v=v, lens=lens:
+                    fa_kernel.flash_decode(q, k, v, lens),
+                "plain": lambda q=q, k=k, v=v, lens=lens:
+                    fa_ref.flash_decode(q, k, v, lens),
+                "library": library},
+            flops, nbytes, torch.bfloat16, hw, card, err,
+            "kernels-serve-dense"))
+        del q, k, v, qh, kh, vh
+    torch.cuda.empty_cache()
+    rec = recs[0]                       # the JSON line: qwen3's shape
+    rec["max_abs_err"] = max(worst.values())
+    return rec
+
+
+def phase_kernels_serve_dense(card, hw):
+    g = torch.Generator(device="cuda").manual_seed(5)
+    return {"flash_decode": kernels_flash_decode(g, hw, card)}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: port on card vs port on CPU
 # ---------------------------------------------------------------------------
 def serve_tokens(cfg, params_cpu, device, prompts, gens):
@@ -1184,6 +1413,7 @@ def phase_parity():
     parity_train_step()
     parity_ssm()
     parity_int8()
+    parity_dense()
 
 
 def engine_tokens(cfg, params_cpu, device, prompts, gens, wrapper):
@@ -1279,6 +1509,78 @@ def parity_int8():
                       f"continuous = static, card = CPU, over "
                       f"{len(prompts)} requests; wq_gemm launches "
                       f"{launched} = {per_fwd} x {fwd} forwards")
+
+
+def parity_dense():
+    """Reduced granite-3-2b and qwen3-1.7b in fp32 at H 64 (a width both
+    decode kernels take) on tests/test_serve_families.py's mix: the
+    continuous engine with the paged kernel off and on, and the static
+    engine, give identical greedy tokens on the card and on the CPU.  On
+    the card, with it off the flash-decode kernel launches n_layers times
+    a forward and the paged kernel never; with it on, the reverse; the
+    static decode steps launch the flash-decode kernel only."""
+    pair = ("flash_decode", "paged_partials")
+    for arch in (INT8_ARCH, DENSE_ARCH):
+        cfg = reduced_config(arch, head_dim=64)
+        params = LM(cfg, device="cpu").init_params(
+            torch.Generator(device="cpu").manual_seed(0))
+        rng = np.random.default_rng(2)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n)
+                   for n in (15, 15, 7)]
+        gens = [5, 4, 6]
+        outs, counts = {}, []
+        for device in ("cuda", "cpu"):
+            model = LM(cfg, device=device)
+            p = _to(params, model.device)
+            for paged in (False, True):
+                reset_launches(pair)
+                eng = ContinuousBatchingEngine(
+                    model, p, n_slots=2, max_len=32, page_size=8,
+                    prefill_chunk=4, page_budget=4, paged_kernel=paged)
+                rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+                out = eng.run()
+                reqs = eng.requests()
+                if not (sum(r.n_preemptions for r in reqs) >= 1
+                        and any(r.admit_step > 0 for r in reqs)):
+                    raise SystemExit(f"{arch} dense parity: the mix forced "
+                                     f"no preemption or no mid-run "
+                                     f"admission")
+                per = cfg.n_layers * eng.stats.forwards
+                got = tuple(launches_of(n) for n in pair)
+                want = (((0, per) if paged else (per, 0))
+                        if device == "cuda" else (0, 0))
+                if got != want:
+                    raise SystemExit(f"{arch} paged_kernel={paged} on "
+                                     f"{device}: (flash_decode, "
+                                     f"paged_partials) launches {got}, "
+                                     f"expected {want}")
+                if device == "cuda":
+                    counts.append(f"paged_kernel={paged}: {got[0]} / "
+                                  f"{got[1]} over {eng.stats.forwards} "
+                                  f"forwards")
+                outs[device, paged] = [out[r].tolist() for r in rids]
+            reset_launches(pair)
+            static = StaticBatchEngine(model, p, max_len=32, batch=1)
+            outs[device, "static"] = [static.generate(pr[None], g)[0]
+                                      .tolist()
+                                      for pr, g in zip(prompts, gens)]
+            per = cfg.n_layers * sum(g - 1 for g in gens)
+            got = tuple(launches_of(n) for n in pair)
+            if got != ((per, 0) if device == "cuda" else (0, 0)):
+                raise SystemExit(f"{arch} static on {device}: (flash_decode,"
+                                 f" paged_partials) launches {got}")
+            if device == "cuda":
+                counts.append(f"static: {got[0]} / 0")
+        first = outs["cuda", False]
+        if not all(o == first for o in outs.values()):
+            raise SystemExit(f"{arch} dense-cache parity: greedy tokens "
+                             f"differ: {outs}")
+        log("parity", f"reduced {arch} fp32 (H 64, {cfg.n_layers} layers): "
+                      f"{sum(map(len, first))} greedy tokens identical, "
+                      f"continuous paged_kernel=False = True = static, card "
+                      f"= CPU, over {len(prompts)} requests (a preemption, "
+                      f"a mid-run admission); card launches (flash_decode / "
+                      f"paged_partials) {'; '.join(counts)}")
 
 
 def parity_train_step():
@@ -1588,10 +1890,21 @@ def phase_serve_int8(card, profile=False):
     runs, total = {}, 0
     for int8 in (False, True):
         torch.cuda.empty_cache()
-        wq_kernel.wq_gemm.launches = 0
+        reset_launches(("wq_gemm", "flash_decode", "paged_partials"))
         res = launch_serve.run(INT8_ARCH, static=True, int8=int8,
                                **INT8_STATIC)
         launches = wq_kernel.wq_gemm.launches
+        decode = (launches_of("flash_decode"), launches_of("paged_partials"))
+        if decode != (cfg.n_layers * (res["forwards"] - 1), 0):
+            raise SystemExit(f"static int8={int8}: (flash_decode, "
+                             f"paged_partials) launches {decode}, expected "
+                             f"{cfg.n_layers} x {res['forwards'] - 1} decode "
+                             f"forwards and 0")
+        log("serve-int8", f"(a) {'int8' if int8 else 'bf16'} static decode "
+                          f"through the dense-cache flash-decode kernel: "
+                          f"{decode[0]} launches = {cfg.n_layers} x "
+                          f"{res['forwards'] - 1} decode forwards, 0 "
+                          f"paged_partials")
         _check_tokens("static int8" if int8 else "static bf16",
                       res["tokens"], INT8_STATIC["gen_len"], cfg.padded_vocab)
         if launches != (per_fwd * res["forwards"] if int8 else 0):
@@ -1665,6 +1978,125 @@ def phase_serve_int8(card, profile=False):
         profile_decode(model, params, card, f"{INT8_ARCH} int8",
                        eng._page_idx)
     del eng, model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the dense-cache decode, full-width qwen3-1.7b
+# ---------------------------------------------------------------------------
+def phase_serve_dense(card, profile=False):
+    """Full-width qwen3-1.7b in bf16: (a) the static engine through
+    ``launch.serve.run`` (8 prompts of 2048 tokens, 32 new), its decode
+    through the flash-decode kernel, 28 launches a decode forward and none
+    in the prefill, the paged kernel never; (b) the continuous engine at
+    phase 6's request mix with the paged kernel off (the flash-decode
+    kernel only) and on (the paged kernel only), and the share of greedy
+    tokens the two runs share (reported only: in bf16 the two kernels
+    round differently).  Returns the flash-decode launches of (a) and of
+    (b) with the paged kernel off."""
+    t0 = datetime.datetime.now()
+    cfg = get_config(DENSE_ARCH)
+    pair = ("flash_decode", "paged_partials")
+    torch.cuda.empty_cache()
+    reset_launches(pair)
+    res = launch_serve.run(DENSE_ARCH, static=True, **DENSE_STATIC)
+    b3, b1 = (launches_of(n) for n in pair)
+    decode_fwd = res["forwards"] - 1
+    _check_tokens("static", res["tokens"], DENSE_STATIC["gen_len"],
+                  cfg.padded_vocab)
+    if b3 != cfg.n_layers * decode_fwd or b1:
+        raise SystemExit(f"static: (flash_decode, paged_partials) launches "
+                         f"({b3}, {b1}), expected {cfg.n_layers} x "
+                         f"{decode_fwd} decode forwards and 0")
+    B, S = DENSE_STATIC["slots"], DENSE_STATIC["prompt_len"]
+    log("serve-dense", f"(a) {DENSE_ARCH} bf16 full width, StaticBatchEngine "
+                       f"via launch.serve.run: {B} x {S} prompt tokens, "
+                       f"{res['generated_tokens']} tokens | prefill "
+                       f"{res['prefill_ms']:.3f} ms, decode step p50 "
+                       f"{res['step_ms_p50']:.3f} ms, "
+                       f"{res['tokens_per_s']:.1f} tok/s over "
+                       f"{res['run_ms']:.1f} ms | flash_decode launches {b3} "
+                       f"= {cfg.n_layers} x {decode_fwd} decode forwards (0 "
+                       f"in the prefill), paged_partials 0 | peak "
+                       f"{res['peak_gib']:.2f} GiB | {card}")
+    total = b3
+    del res
+    torch.cuda.empty_cache()
+
+    # (b) the continuous engine at phase 6's request mix, paged kernel off
+    # and on
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    n_req, n_new = 16, 32
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               for n in rng.integers(32, 257, size=n_req)]
+    toks = {}
+    for paged in (False, True):
+        eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
+                                       page_size=16, prefill_chunk=32,
+                                       paged_kernel=paged)
+        rids = [eng.submit(p, n_new) for p in prompts]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(pair)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = eng.run()
+        end.record()
+        end.synchronize()
+        got = tuple(launches_of(n) for n in pair)
+        run_ms = start.elapsed_time(end)
+        if sorted(out) != sorted(rids):
+            raise SystemExit(f"continuous paged_kernel={paged}: not every "
+                             f"request finished")
+        _check_tokens(f"continuous paged_kernel={paged}", out, n_new,
+                      cfg.padded_vocab)
+        st = eng.stats.summary()
+        per = cfg.n_layers * st["forwards"]
+        if got != ((0, per) if paged else (per, 0)):
+            raise SystemExit(f"continuous paged_kernel={paged}: "
+                             f"(flash_decode, paged_partials) launches "
+                             f"{got}, expected {cfg.n_layers} x "
+                             f"{st['forwards']} forwards of one of them")
+        decode_ms = sorted(s_.device_ms() for s_ in eng.stats.steps
+                           if s_.n_decode and not s_.n_prefill_tokens)
+        p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
+        gen_tok = st["generated_tokens"]
+        log("serve-dense", f"(b) {DENSE_ARCH} bf16 full width, "
+                           f"ContinuousBatchingEngine(paged_kernel={paged})"
+                           f": {n_req} requests "
+                           f"({sum(r.admit_step > 0 for r in eng.requests())}"
+                           f" admitted mid-run), {gen_tok} tokens in "
+                           f"{st['steps']} steps | "
+                           f"{gen_tok / (run_ms / 1e3):.1f} tok/s over "
+                           f"{run_ms:.1f} ms | step p50 "
+                           f"{st['step_ms_p50']:.3f} ms, pure-decode step "
+                           f"p50 {p50:.3f} ms ({len(decode_ms)} steps) | "
+                           f"flash_decode / paged_partials launches "
+                           f"{got[0]} / {got[1]} = {cfg.n_layers} x "
+                           f"{st['forwards']} forwards | peak "
+                           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                           f" GiB | {card}")
+        if not paged:
+            total += got[0]
+        toks[paged] = [np.asarray(out[r]) for r in rids]
+        del eng
+        torch.cuda.empty_cache()
+    same = np.mean([np.mean(a == b) for a, b in zip(toks[False],
+                                                    toks[True])])
+    first = np.mean([a[0] == b[0] for a, b in zip(toks[False], toks[True])])
+    log("serve-dense", f"(b) greedy tokens equal between paged_kernel=False "
+                       f"and True: {100 * float(same):.1f}% of all, "
+                       f"{100 * float(first):.1f}% of first tokens (reported "
+                       f"only: bf16, the two kernels round differently); "
+                       f"phase wall {_since(t0):.1f} s | {card}")
+    if profile:
+        profile_decode(model, params, card, f"{DENSE_ARCH} bf16 dense-cache")
+    del model, params
     torch.cuda.empty_cache()
     return total
 
@@ -1830,7 +2262,34 @@ def phase_veceval(card, hw):
             _log_app(label, app_name, rows, card)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         log("veceval", f"{label} sizes: peak {peak:.2f} GiB | {card}")
-    return {name: launches_of(name) for name in names}
+    launches = {name: launches_of(name) for name in names}
+    launches["spmv_ell_onehot"] = spmv_onehot_path(card)
+    return launches
+
+
+def spmv_onehot_path(card):
+    """The one-hot idiom's path, the JAX package's own entry point
+    ``kernels.spmv.ops.spmv_ell(idiom="onehot")`` (veceval's spmv app
+    takes the gather, as the reference's does), at the JAX veceval size:
+    one launch, held against the take idiom on the same matrix (1e-5 of
+    the row's sum of |terms|).  Returns the launches."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    R = C = 1 << 14
+    vals, cols, x = _ell(R, C, 16, g, dev)
+    reset_launches(("spmv_ell_onehot",))
+    y = spmv_ops.spmv_ell(vals, cols, x, idiom="onehot")
+    launches = launches_of("spmv_ell_onehot")
+    scale = (vals * x[cols]).abs().sum(-1, keepdim=True)
+    err = check("spmv_ell(idiom='onehot') vs idiom='take'", y,
+                spmv_ops.spmv_ell(vals, cols, x, idiom="take"), 1e-5, 0.0,
+                scale)
+    if launches != 1:
+        raise SystemExit(f"spmv_ell(idiom='onehot'): {launches} launches")
+    log("veceval", f"spmv_ell(idiom='onehot') at {R} x 16 against C {C}: "
+                   f"one-hot kernel launches {launches}, max abs err vs the "
+                   f"take idiom {err:.2e} | {card}")
+    return launches
 
 
 def _log_app(label, app_name, rows, card):
@@ -1939,7 +2398,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile pure decode forwards (granite bf16 "
-                         "and int8, mamba2) and train steps")
+                         "and int8, mamba2, qwen3 dense-cache) and train "
+                         "steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1962,19 +2422,21 @@ def main():
     records.update(phase_kernels_train(card, hw))
     records.update(phase_kernels_ssm(card, hw))
     records.update(phase_kernels_int8(card, hw))
+    records.update(phase_kernels_serve_dense(card, hw))
     records["paged_partials"] = dict(max_abs_err=worst, **main_case)
     phase_parity()
     launches = {"paged_partials": phase_serve(card, args.profile)}
     launches["ssd_scan"] = phase_serve_ssm(card, args.profile)
     launches["wq_gemm"] = phase_serve_int8(card, args.profile)
+    launches["flash_decode"] = phase_serve_dense(card, args.profile)
     launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))
     launches.update(phase_paper(card, hw))
     record = {"kernels": [dict(
         name=name, route="cuda",
-        source=os.path.relpath(module.SOURCES[0], ROOT), replaces=replaces,
+        source=os.path.relpath(source, ROOT), replaces=replaces,
         launches=launches[name], **records[name])
-        for name, (module, _, replaces) in KERNELS.items()]}
+        for name, (_, source, _, replaces) in KERNELS.items()]}
     print(json.dumps(record))
     print(card)
     print(json.dumps({"ok": True, "device": {

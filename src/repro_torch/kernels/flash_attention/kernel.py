@@ -1,13 +1,18 @@
-"""ctypes binding of the CUDA flash-attention forward (csrc/flash_attention.cu).
+"""ctypes bindings of the CUDA flash-attention forward
+(csrc/flash_attention.cu) and of the dense-cache flash-decode
+(csrc/flash_decode.cu), each its own library.
 
 ``flash_fwd`` is the counterpart of the TPU kernel's launcher
 (``repro.kernels.flash_attention.kernel.flash_attention_fwd``) over the
 grouped layout: q (BN, R, H), k/v (BN, Skv, H) in, ``out`` (q's dtype)
-and the per-row log-sum-exp ``lse`` (fp32) out.  It checks device,
-dtype, shape and contiguity, allocates the outputs with ``torch.empty``,
+and the per-row log-sum-exp ``lse`` (fp32) out.  ``flash_decode`` is the
+counterpart of ``repro.kernels.flash_attention.kernel.flash_decode``:
+queries (B, Sq, NQ, H) against a K/V cache (B, S_cache, NKV, H) read in
+place by its strides, one valid length a query.  Each checks device,
+dtype, shape and layout, allocates its outputs with ``torch.empty``,
 launches on the current stream without synchronising, and raises if the
-launch returns a CUDA error.  ``flash_fwd.launches`` counts the kernel
-launches made through it.
+launch returns a CUDA error; ``flash_fwd.launches`` and
+``flash_decode.launches`` count the kernel launches made through them.
 """
 from __future__ import annotations
 
@@ -20,6 +25,7 @@ import torch
 from repro_torch.kernels import common
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu",)
+DECODE_SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_decode.cu",)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_BN = 65535                     # the grid's y dimension
@@ -31,6 +37,18 @@ def load_library() -> ctypes.CDLL:
     lib = common.build_library("flash_attention", SOURCES)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     common.bind(lib, "flash_fwd_launch", *[p] * 5, *[i] * 7, f, f)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_decode_library() -> ctypes.CDLL:
+    """Build (at first use) and load the flash-decode library, once a
+    process."""
+    lib = common.build_library("flash_decode", DECODE_SOURCES)
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+        ctypes.c_float
+    common.bind(lib, "flash_decode_launch", *[p] * 5, *[i] * 7, *[ll] * 4,
+                f, f)
     return lib
 
 
@@ -73,3 +91,67 @@ def flash_fwd(q, k, v, *, causal: bool = True, softcap: float = 0.0,
 
 
 flash_fwd.launches = 0
+
+
+def _cache_strides(name, t, B, NKV, H, like):
+    """(batch, token) strides in elements of a (B, S_cache, NKV, H) cache
+    view whose last two dimensions are contiguous; the kernel reads it as
+    16-byte vectors."""
+    if t.device != like.device or t.dtype != like.dtype:
+        raise ValueError(f"{name}: {t.dtype} on {t.device}, expected "
+                         f"{like.dtype} on {like.device}")
+    if t.dim() != 4 or t.shape[0] != B or tuple(t.shape[2:]) != (NKV, H):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"({B}, S, {NKV}, {H})")
+    sb, st, sn, sh = t.stride()
+    vec = 16 // t.element_size()
+    if (sh, sn) != (1, H) or sb % vec or st % vec or t.data_ptr() % 16:
+        raise ValueError(f"{name}: strides {t.stride()} (heads and head "
+                         f"dims must be contiguous; batch and token strides "
+                         f"multiples of 16 bytes, the base 16-byte aligned)")
+    return sb, st
+
+
+def flash_decode(q, k, v, lens, *, softcap: float = 0.0):
+    """q: (B, Sq, NQ, H) contiguous; k/v: (B, S_cache, NKV, H) caches, any
+    batch and token strides (a layer's view of a stacked cache, a row of
+    a slotted one); lens: (B, Sq) int32, query c of row b attending to
+    the keys ``t < lens[b, c]`` (clamped to [0, S_cache]); q, k, v fp32 or
+    all bf16, on a Hopper card.
+
+    Returns (B, Sq, NQ, H) in q.dtype; a query with no valid key is 0."""
+    dev = q.device
+    common.require_hopper(dev)
+    if q.dim() != 4:
+        raise ValueError(f"q must be (B, Sq, NQ, H), got {tuple(q.shape)}")
+    B, Sq, NQ, H = q.shape
+    S, NKV = k.shape[1], k.shape[2]
+    if H not in HEAD_DIMS:
+        raise ValueError(f"head_dim {H}: the kernel takes {HEAD_DIMS}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"dtype {q.dtype} not in {list(_DTYPES)}")
+    if NKV == 0 or NQ % NKV or NKV > _MAX_BN or \
+            -(-Sq * (NQ // NKV) // 8) > _MAX_BN:
+        raise ValueError(f"{NQ} query heads over {NKV} KV heads, Sq {Sq}: "
+                         f"not a grid the kernel takes")
+    common.check_operand("q", q, q.dtype, dev)
+    k_sb, k_st = _cache_strides("k", k, B, NKV, H, q)
+    v_sb, v_st = _cache_strides("v", v, B, NKV, H, q)
+    if v.shape[1] != S:
+        raise ValueError(f"v holds {v.shape[1]} tokens, k {S}")
+    common.check_operand("lens", lens, torch.int32, dev, (B, Sq))
+    out = torch.empty((B, Sq, NQ, H), dtype=q.dtype, device=dev)
+    if B == 0 or Sq == 0:
+        return out
+    lib = load_decode_library()
+    err = lib.flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        out.data_ptr(), B, Sq, NKV, NQ // NKV, H, _DTYPES[q.dtype], S,
+        k_sb, k_st, v_sb, v_st, float(H ** -0.5), float(softcap),
+        common.stream_of(q))
+    common.check_launch(lib, "flash_decode_launch", err)
+    flash_decode.launches += 1
+    return out
+
+
+flash_decode.launches = 0

@@ -1,4 +1,5 @@
-"""Flash-attention entry: grouping, device dispatch, and the gradient.
+"""Flash-attention entries: grouping, device dispatch, and the gradient;
+and the dense-cache decode.
 
 ``flash_attention`` has the signature and layouts of
 ``repro.kernels.flash_attention.ops.flash_attention``: q (B, Sq, NQ, H),
@@ -15,6 +16,15 @@ computes the same function): the forward saves ``(q, k, v, out, lse)``
 and the backward recomputes the probabilities one KV chunk at a time from
 ``lse``, so its memory stays flat in the sequence length.  The port's
 ``reference`` attention uses the same backward.
+
+``flash_decode`` has the signature of
+``repro.kernels.flash_attention.ops.flash_decode`` (no ``block_kv`` or
+``interpret``: the CUDA kernel picks its own tiles): one query token
+against a whole K/V cache with a valid length a row.  It also takes a
+length a query, (B, Sq), which is how the model's dense-cache decode
+runs a prefill chunk through it.  A CPU tensor runs the plain version
+(``ref.flash_decode``), a CUDA tensor the kernel (``kernel.flash_decode``)
+or raises.
 """
 from __future__ import annotations
 
@@ -136,3 +146,15 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
     qg, kg, vg, dims = _group(q, k, v)
     out = FlashAttention.apply(qg, kg, vg, causal, float(softcap), dims[3])
     return _ungroup(out, dims)
+
+
+def flash_decode(q, k, v, kv_valid, *, softcap: float = 0.0):
+    """q: (B, Sq, NQ, H) (Sq 1 in the JAX op); k/v cache: (B, S, NKV, H);
+    kv_valid: (B,) or (B, Sq) valid lengths.  Returns (B, Sq, NQ, H) in
+    q's dtype; a query with no valid key is all zero."""
+    if q.device.type == "cpu":
+        return ref.flash_decode(q, k, v, kv_valid, softcap=softcap)
+    B, Sq = q.shape[:2]
+    lens = kv_valid.to(torch.int32).reshape(B, -1).expand(B, Sq)
+    return K.flash_decode(q.contiguous(), k, v, lens.contiguous(),
+                          softcap=float(softcap))

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the flash-attention forward: the CPU path and
-the on-card oracle of the CUDA kernel.
+"""Plain PyTorch versions of the flash-attention forward and of the
+dense-cache decode: the CPU paths and the on-card oracles of the CUDA
+kernels.
 
 ``flash_fwd`` computes exactly what the kernel computes over the grouped
 layout of ``ops._group``: q (BN, R, H) with row ``r`` the query column
@@ -9,6 +10,13 @@ softcap)`` applied before the mask.  It takes a full masked softmax in
 fp32 (the kernel's online softmax is the same function) and returns
 ``out`` in q's dtype and the per-row log-sum-exp ``lse`` in fp32, the
 residual the backward recomputes the probabilities from.
+
+``flash_decode`` is the twin of the TPU decode kernel (``_decode_kernel``)
+in the layout of its JAX op: queries (B, Sq, NQ, H) against a whole K/V
+cache (B, S, NKV, H), GQA by grouping the G = NQ / NKV query heads of a
+KV head.  A query attends to the keys ``t < kv_valid``; scores, softmax
+and P.V are fp32, and a query with no valid key comes out all zero, as
+the kernel's ``acc / max(l, 1e-30)`` gives.
 """
 from __future__ import annotations
 
@@ -38,3 +46,24 @@ def flash_fwd(q, k, v, *, causal: bool = True, softcap: float = 0.0,
     out = torch.einsum("brk,bkh->brh", p, v.float()) / l
     lse = (m + torch.log(l)).squeeze(-1)
     return out.to(q.dtype), lse
+
+
+def flash_decode(q, k, v, kv_valid, *, softcap: float = 0.0):
+    """q: (B, Sq, NQ, H); k/v: (B, S, NKV, H); kv_valid: (B,) (every
+    query of row b attends to keys ``t < kv_valid[b]``) or (B, Sq) (query
+    c to ``t < kv_valid[b, c]``).  Returns (B, Sq, NQ, H) in q's dtype."""
+    B, Sq, NQ, H = q.shape
+    S, NKV = k.shape[1], k.shape[2]
+    G = NQ // NKV
+    lens = kv_valid.reshape(B, -1).expand(B, Sq)
+    qg = q.float().reshape(B, Sq, NKV, G, H)
+    s = torch.einsum("bcngh,btnh->bcngt", qg, k.float()) * (H ** -0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    mask = (torch.arange(S, device=q.device)[None, None]
+            < lens[..., None])[:, :, None, None]          # (B, Sq, 1, 1, S)
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
+    l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    out = torch.einsum("bcngt,btnh->bcngh", p, v.float()) / l
+    return out.reshape(B, Sq, NQ, H).to(q.dtype)

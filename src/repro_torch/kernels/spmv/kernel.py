@@ -1,11 +1,13 @@
-"""ctypes binding of the CUDA ELL SpMV kernel (csrc/spmv.cu).
+"""ctypes bindings of the CUDA ELL SpMV kernels (csrc/spmv.cu).
 
 ``spmv_ell`` is the counterpart of the TPU launcher
-(``repro.kernels.spmv.kernel.spmv_ell`` with ``idiom="take"``).  It
-checks device, dtype, shape and contiguity, allocates the output with
-``torch.empty``, launches on the current stream without synchronising,
-and raises if the launch returns a CUDA error.  ``spmv_ell.launches``
-counts the kernel launches made through it.
+(``repro.kernels.spmv.kernel.spmv_ell``) with ``idiom="take"``,
+``spmv_ell_onehot`` with ``idiom="onehot"``.  Each checks device, dtype,
+shape and contiguity, allocates the output with ``torch.empty``,
+launches on the current stream without synchronising, and raises if the
+launch returns a CUDA error.  ``spmv_ell.launches`` and
+``spmv_ell_onehot.launches`` count the kernel launches made through
+them.
 """
 from __future__ import annotations
 
@@ -26,7 +28,20 @@ def load_library() -> ctypes.CDLL:
     lib = common.build_library("spmv", SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
     common.bind(lib, "spmv_ell_launch", p, p, p, p, i, i, i, i)
+    common.bind(lib, "spmv_onehot_launch", p, p, p, p, i, i, i)
     return lib
+
+
+def _operands(vals, cols, x):
+    dev = vals.device
+    common.require_hopper(dev)
+    if vals.dim() != 2 or x.dim() != 1:
+        raise ValueError(f"vals must be (R, K) and x (C,), got "
+                         f"{tuple(vals.shape)} and {tuple(x.shape)}")
+    common.check_operand("vals", vals, torch.float32, dev)
+    common.check_operand("cols", cols, torch.int32, dev, vals.shape)
+    common.check_operand("x", x, torch.float32, dev)
+    return torch.empty((vals.shape[0], 1), dtype=torch.float32, device=dev)
 
 
 def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
@@ -34,17 +49,9 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
     """vals (R, K) fp32, cols (R, K) int32, x (C,) fp32, contiguous on a
     Hopper card.  Returns y (R, 1) fp32.  ``block_multiplier`` in {1, 2,
     4, 8} is the rows each lane group walks."""
-    dev = vals.device
-    common.require_hopper(dev)
     common.check_multiplier(block_multiplier)
-    if vals.dim() != 2 or x.dim() != 1:
-        raise ValueError(f"vals must be (R, K) and x (C,), got "
-                         f"{tuple(vals.shape)} and {tuple(x.shape)}")
+    y = _operands(vals, cols, x)
     R, Kn = vals.shape
-    common.check_operand("vals", vals, torch.float32, dev)
-    common.check_operand("cols", cols, torch.int32, dev, vals.shape)
-    common.check_operand("x", x, torch.float32, dev)
-    y = torch.empty((R, 1), dtype=torch.float32, device=dev)
     if R == 0:
         return y
     lib = load_library()
@@ -57,3 +64,25 @@ def spmv_ell(vals: torch.Tensor, cols: torch.Tensor, x: torch.Tensor, *,
 
 
 spmv_ell.launches = 0
+
+
+def spmv_ell_onehot(vals: torch.Tensor, cols: torch.Tensor,
+                    x: torch.Tensor) -> torch.Tensor:
+    """The one-hot idiom: vals (R, K) fp32, cols (R, K) int32, x (C,)
+    fp32, contiguous on a Hopper card.  Returns y (R, 1) fp32; a column
+    outside [0, C) contributes 0.  Every nonzero is compared with every
+    column of x (R * K * C compare-selects)."""
+    y = _operands(vals, cols, x)
+    R, Kn = vals.shape
+    if R == 0:
+        return y
+    lib = load_library()
+    err = lib.spmv_onehot_launch(vals.data_ptr(), cols.data_ptr(),
+                                 x.data_ptr(), y.data_ptr(), R, Kn,
+                                 x.shape[0], common.stream_of(vals))
+    common.check_launch(lib, "spmv_onehot_launch", err)
+    spmv_ell_onehot.launches += 1
+    return y
+
+
+spmv_ell_onehot.launches = 0

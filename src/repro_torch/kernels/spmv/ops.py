@@ -1,9 +1,14 @@
 """ELL SpMV entry (counterpart of ``repro.kernels.spmv.ops.spmv_ell``).
 
-A CPU tensor runs the plain version (``ref.spmv_ell``); a CUDA tensor
-launches the CUDA kernel (``kernel.spmv_ell``) or raises — there is no
-fallback.  Only the gather idiom is ported: ``idiom="onehot"`` (the TPU's
-one-hot contraction, ``_spmv_onehot_kernel``) waits in ROADMAP B8.
+Two idioms, as in the JAX package: ``"take"`` (the gather: ``x[cols]``)
+and ``"onehot"`` (the TPU's one-hot contraction: every nonzero compared
+with every column of x, so a column outside [0, C) contributes 0).  A
+CPU tensor runs the idiom's plain version (``ref.spmv_ell``,
+``ref.spmv_ell_onehot``); a CUDA tensor launches its CUDA kernel
+(``kernel.spmv_ell``, ``kernel.spmv_ell_onehot``) or raises — there is
+no fallback.  ``block_multiplier`` is checked for both and sets the
+take kernel's rows a lane group walks; the one-hot kernel has no such
+knob.  Any other idiom raises ``ValueError``.
 """
 from __future__ import annotations
 
@@ -18,12 +23,12 @@ def spmv_ell(vals, cols, x, *, idiom="take", block_multiplier=1
              ) -> torch.Tensor:
     """vals/cols: (R, K) ELL data; x: (C,).  Returns y: (R, 1)."""
     check_multiplier(block_multiplier)
-    if idiom == "onehot":
-        raise NotImplementedError(
-            "spmv idiom 'onehot' (the TPU's _spmv_onehot_kernel) is not "
-            "ported yet: ROADMAP B8")
-    if idiom != "take":
+    if idiom not in ("take", "onehot"):
         raise ValueError(idiom)
-    if vals.device.type == "cpu":
+    cpu = vals.device.type == "cpu"
+    if idiom == "onehot":
+        return (ref.spmv_ell_onehot(vals, cols, x) if cpu
+                else K.spmv_ell_onehot(vals, cols, x))
+    if cpu:
         return ref.spmv_ell(vals, cols, x)
     return K.spmv_ell(vals, cols, x, block_multiplier=block_multiplier)

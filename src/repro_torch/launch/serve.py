@@ -6,13 +6,16 @@
       --reduced --device cpu --slots 2 --requests 4 --prompt-len 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --int8 --static --slots 8 --prompt-len 512
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --static --slots 8 --prompt-len 2048
 
 The counterpart of ``repro.launch.serve`` for the families the port
 serves (dense, ssm).  By default requests go through the
 ``ContinuousBatchingEngine``; ``--static`` selects the
 ``StaticBatchEngine`` baseline (one prefill forward over the batch, then
 a decode loop; the dense family's prefill is causal attention over the
-prompts, the ssm family's the SSD kernel).  Weights are random, drawn
+prompts and its decode the dense-cache flash-decode kernel, the ssm
+family's prefill the SSD kernel).  Weights are random, drawn
 from a seeded generator; prompts come from a seeded numpy generator as in
 the reference.  ``--int8`` quantizes the weights after init
 (``models.quant.quantize_params``, weight-only int8) and frees the

@@ -1,5 +1,5 @@
 """GQA attention: train-mode causal attention, and decode-mode steps
-against a paged KV cache.
+against the KV cache, paged or dense.
 
 Counterpart of ``repro.models.attention``.  Train half: ``attn_train``
 dispatches on ``cfg.attention_impl`` as the reference does —
@@ -7,13 +7,16 @@ dispatches on ``cfg.attention_impl`` as the reference does —
 an online softmax over KV chunks with its own memory-flat backward, the
 comparison point), ``pallas`` the hand-written CUDA flash kernel
 (``kernels/flash_attention``).  Decode half: projections with optional
-qk-norm, RoPE, the ragged ``n_valid`` KV write, and
-``_paged_attention_with_cache``, which views the cache as a page pool
-and runs ``kernels/paged_attention``.  Where the reference enters a
-global ``paged_decode`` context, the port passes a ``PagedDecodeState``
-as an argument.  Prefill half: ``attn_prefill``, causal attention over a
-prompt through ``chunked_attention`` that fills the cache's first S
-positions.
+qk-norm, RoPE, the ragged ``n_valid`` KV write, and then one of the
+reference's two decode attentions: ``_paged_attention_with_cache``, which
+views the cache as a page pool and runs ``kernels/paged_attention``, or
+the dense-cache ``_full_attention_with_cache``, which on the card is one
+launch of the flash-decode kernel (``kernels/flash_attention``) over the
+cache in place.  Where the reference enters a global ``paged_decode``
+context, the port passes a ``PagedDecodeState`` as an argument; ``None``
+(no context) selects the dense-cache path, as in the reference.  Prefill
+half: ``attn_prefill``, causal attention over a prompt through
+``chunked_attention`` that fills the cache's first S positions.
 """
 from __future__ import annotations
 
@@ -261,10 +264,11 @@ def _write_kv(cache_t: torch.Tensor, new: torch.Tensor,
 
 
 def attn_decode(params, x, cfg, *, positions, rope, cache, write: DecodeWrite,
-                paged: PagedDecodeState) -> torch.Tensor:
+                paged: Optional[PagedDecodeState] = None) -> torch.Tensor:
     """Decode-mode attention: write this step's K/V into ``cache``
     ({"k", "v"}: (B, S_cache, NKV, H), updated **in place**), then attend
-    over it through the paged kernel.
+    over it: through the paged kernel under ``paged`` (a page map of the
+    cache's pool view), else through the dense-cache attention.
 
     The ragged ``n_valid`` contract of the reference: columns at or past
     a row's ``n_valid`` are not written and the valid length is
@@ -278,10 +282,59 @@ def attn_decode(params, x, cfg, *, positions, rope, cache, write: DecodeWrite,
         k = layers.apply_rope(k, *rope)
     _write_kv(cache["k"], k, write)
     _write_kv(cache["v"], v, write)
-    out = _paged_attention_with_cache(
-        q, cache["k"], cache["v"], paged, positions=positions,
-        kv_valid_len=write.kv_valid, softcap=cfg.attn_logit_softcap)
+    if paged is not None:
+        out = _paged_attention_with_cache(
+            q, cache["k"], cache["v"], paged, positions=positions,
+            kv_valid_len=write.kv_valid, softcap=cfg.attn_logit_softcap)
+    else:
+        out = _full_attention_with_cache(
+            q, cache["k"], cache["v"], positions=positions,
+            kv_valid_len=write.kv_valid, softcap=cfg.attn_logit_softcap)
     return _out_proj(params, out)
+
+
+def query_lens(positions, kv_valid_len, S_cache: int) -> torch.Tensor:
+    """(B, Sq) int32 valid length of each query: the reference's mask
+    ``t <= positions[b, c] && t < kv_valid_len[b]`` is ``t <
+    min(positions[b, c] + 1, kv_valid_len[b])``, clamped to [0,
+    S_cache]."""
+    lens = torch.minimum(positions + 1, kv_valid_len[:, None].to(
+        positions.dtype))
+    return lens.clamp(0, S_cache).to(torch.int32)
+
+
+def _full_attention_with_cache(q, k, v, *, positions, kv_valid_len, softcap):
+    """Dense-cache attention: q (B, Sq, NQ, H) against the whole cache
+    k/v (B, S_cache, NKV, H) under the reference's mask.
+
+    On the CPU, the reference's jnp code as it is: K/V heads repeated to
+    the query heads, fp32 scores, a full softmax, ``p`` rounded to the
+    cache's dtype before P.V (a query with no valid key gets the uniform
+    mean of v).  On the card, one launch of the flash-decode kernel over
+    the cache in place, with a valid length a query (``query_lens``): fp32
+    ``p``, and zeros for a query with no valid key.  The two agree on
+    every query with a valid key, which is every query whose output a
+    caller commits."""
+    if q.device.type != "cpu":
+        return fa_ops.flash_decode(
+            q, k, v, query_lens(positions, kv_valid_len, k.shape[1]),
+            softcap=softcap)
+    B, Sq, NQ, H = q.shape
+    Skv, NKV = k.shape[1], k.shape[2]
+    G = NQ // NKV
+    kT = k.repeat_interleave(G, dim=2).transpose(1, 2)      # (B,NQ,Skv,H)
+    vT = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    qT = q.transpose(1, 2).float()
+    s = torch.einsum("bnqh,bnkh->bnqk", qT, kT.float()) * (H ** -0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    kv_pos = torch.arange(Skv, device=q.device)[None, None, None, :]
+    mask = kv_pos <= positions[:, None, :, None]
+    mask &= kv_pos < kv_valid_len[:, None, None, None]
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bnqk,bnkh->bnqh", p.to(v.dtype).float(), vT.float())
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _paged_attention_with_cache(q, k, v, ps: PagedDecodeState, *, positions,

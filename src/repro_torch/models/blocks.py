@@ -29,7 +29,7 @@ def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
     whole sequence; prefill mode does too and writes the prompt's K/V to
     the start of this layer's ``cache`` ({"k", "v"}) in place; decode
     mode writes the step's K/V in place and attends through the paged
-    kernel."""
+    kernel under ``paged``, else over the dense cache."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "train":
         a = attention.attn_train(p["attn"], h, cfg, rope=rope)

@@ -12,8 +12,10 @@ explicit ``torch.Generator``.
 Modes: ``train``, ``prefill`` and ``decode``, for both families.
 Prefill runs the prompt through (dense) causal ``chunked_attention``,
 writing its K/V to the cache, or (ssm) the SSD kernel, leaving each
-layer's final state in the cache.  Decode runs the dense cache's K/V
-through the paged kernel, or the ssm's recurrent state.  A parameter tree
+layer's final state in the cache.  Decode attends over the dense
+family's K/V cache through the paged kernel under a page map, else
+through the dense-cache flash-decode kernel; the ssm advances its
+recurrent state.  A parameter tree
 from ``models.quant.quantize_params`` (int8 packs) runs every mode's
 matmuls through the int8 GEMM kernel.
 """
@@ -145,8 +147,10 @@ class LM:
         ``mode="decode"``: ``n_valid`` (B,) real tokens per row (``None``:
         all S).  dense: writes the step's K/V into ``cache`` in place,
         advances ``cache["pos"]`` by ``n_valid``; ``paged`` names the page
-        map of the cache's pool view (``None``: the row-local identity
-        map with one page per row).  ssm: advances the recurrent state in
+        map of the cache's pool view and attends through the paged
+        kernel; ``None`` attends over the cache as it is (the reference's
+        ``_full_attention_with_cache``, outside any ``paged_decode``
+        context).  ssm: advances the recurrent state in
         place through rows' valid columns only; ``positions`` and
         ``paged`` are not read.  Returns (fp32 logits, cache)."""
         if mode == "train":
@@ -169,9 +173,6 @@ class LM:
             cache["pos"].add_(tokens.shape[1])
             return self._logits(params, x), cache
         S_cache = cache["k"].shape[2]
-        if paged is None:
-            paged = attention.PagedDecodeState(page_idx=None,
-                                               page_size=S_cache)
         write = attention.decode_write(cache["pos"], tokens.shape[1],
                                        S_cache, n_valid)
         x = blocks.run_stack(x, params["stack"], cfg, positions=positions,

@@ -11,14 +11,17 @@ adapter says what the state is.  For a family that attends through the
 paged cache (dense), the decode step walks the cache's pool view with
 the engine's identity page map (``PagedKVCache.page_index_array``,
 uploaded once) and a prefill row uses the row-local identity map
-(``page_idx=None``); a family without attention (ssm) gets no page map,
-and its recurrent prompt prefill runs token by token through the masked
-recurrence.
+(``page_idx=None``); with ``paged_kernel=False`` (the reference's
+bitwise-parity baseline) there is no page map, and both attend over the
+dense cache (the flash-decode kernel on the card).  A family without
+attention (ssm) gets no page map, and its recurrent prompt prefill runs
+token by token through the masked recurrence.
 
 ``StaticBatchEngine`` is the reference's run-to-completion baseline: one
 ``mode="prefill"`` forward over the whole batch of prompts (dense: causal
 attention filling the K/V cache; ssm: the SSD kernel), then a decode
-loop.  ``make_prefill_step`` /
+loop, which enters no paged context: the dense family decodes through
+the dense-cache attention.  ``make_prefill_step`` /
 ``make_serve_step`` are its two steps, as in the reference.
 
 Sampled tokens stay on the device between steps: ``prev_sampled``
@@ -173,7 +176,8 @@ class ContinuousBatchingEngine:
     def __init__(self, model: LM, params, *, n_slots: int, max_len: int,
                  page_size: int = 16, prefill_chunk: int = 8,
                  page_budget: Optional[int] = None,
-                 eos_id: Optional[int] = None, seed: int = 0, **kwargs):
+                 eos_id: Optional[int] = None, seed: int = 0,
+                 paged_kernel: Optional[bool] = None, **kwargs):
         if kwargs.get("prefix_cache") and \
                 not model.decode_state.prefix_cachable:
             warnings.warn(
@@ -198,9 +202,14 @@ class ContinuousBatchingEngine:
             slot_aux_tokens=model.decode_state.context_tokens(model.cfg))
         self.sched = Scheduler(self.kv, prefill_chunk=prefill_chunk,
                                eos_id=eos_id)
-        # identity page map of the decode step's pool view (families that
-        # attend through the paged cache only)
-        self._paged = model.decode_state.paged
+        # the paged flash-decode is on by default; paged_kernel=False
+        # attends over the dense cache instead (the reference's
+        # bitwise-parity baseline).  The identity page map of the decode
+        # step's pool view exists for families that attend through the
+        # paged cache, with the paged kernel on.
+        self.paged_kernel = (bool(paged_kernel) if paged_kernel is not None
+                             else True)
+        self._paged = model.decode_state.paged and self.paged_kernel
         self._page_idx = (torch.as_tensor(self.kv.page_index_array(),
                                           device=self.device)
                           if self._paged else None)
@@ -386,7 +395,9 @@ class StaticBatchEngine:
     with the continuous engine) and throughput comparison.  The prefill
     is ``LM.forward(mode="prefill")`` over every prompt at once: for the
     dense family causal attention that fills each layer's K/V cache, for
-    the ssm family the SSD kernel, one launch a layer.  ``stats.steps``
+    the ssm family the SSD kernel, one launch a layer.  The decode steps
+    run in no paged context: the dense family attends over the cache
+    through the flash-decode kernel, one launch a layer.  ``stats.steps``
     holds the prefill as its first record and then one record a decode
     step, timed by CUDA events on the card.
     """

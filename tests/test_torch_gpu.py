@@ -1,9 +1,10 @@
 """Tests of the port that need a Hopper card (marker ``gpu``): each CUDA
-kernel (paged attention, STREAM, ELL SpMV, GEMM, conv2d, strided gather,
-tail mask, Qsim gate, flash attention, SSD scan, int8 GEMM) against its
-plain version on ragged shapes, with its launch counter checked, and the
-port's engines (dense and ssm, bf16/fp32 and int8 weights) and train
-step on the card against the same on the CPU.
+kernel (paged attention, STREAM, ELL SpMV in both idioms, GEMM, conv2d,
+strided gather, tail mask, Qsim gate, flash attention, dense-cache flash
+decode, SSD scan, int8 GEMM) against its plain version on ragged shapes,
+with its launch counter checked, and the port's engines (dense and ssm,
+bf16/fp32 and int8 weights, the paged kernel on and off) and train step
+on the card against the same on the CPU.
 Without a card they skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -20,6 +21,7 @@ from repro_torch.kernels.conv2d import kernel as conv_kernel
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.gemm import kernel as gemm_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
@@ -31,6 +33,7 @@ from repro_torch.kernels.ssd_scan import kernel as ssd_kernel
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.kernels.spmv import ops as spmv_ops
+from repro_torch.kernels.spmv import ref as spmv_ref
 from repro_torch.kernels.stream import kernel as stream_kernel
 from repro_torch.kernels.stream import ops as stream_ops
 from repro_torch.kernels.strided import kernel as strided_kernel
@@ -291,6 +294,101 @@ def test_flash_kernel_matches_plain(card, S, G, H, dtype, causal, softcap):
     torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
                                atol=1e-4)
     torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("H,G,Sq,dtype,softcap", [
+    (32, 1, 1, torch.float32, 0.0), (64, 4, 1, torch.bfloat16, 0.0),
+    (128, 2, 1, torch.bfloat16, 30.0), (128, 8, 1, torch.float32, 0.0),
+    (64, 2, 32, torch.float32, 30.0), (128, 2, 32, torch.bfloat16, 0.0)])
+def test_flash_decode_kernel_matches_plain(card, H, G, Sq, dtype, softcap):
+    """Rows with valid length 0, 1, a tile edge (32), ragged and the whole
+    cache, each with its own query lengths (a prefill row's ramp for Sq
+    32), over a cache read through a strided view (every other row of a
+    wider cache).  fp32 within 2e-4 (the JAX test's tolerance); bf16
+    within one bf16 ulp (rtol 8e-3, atol 1e-4); a query with no valid key
+    exactly 0."""
+    rng = np.random.default_rng(H + G + Sq)
+    B, S, NKV = 5, 200, 2
+    q = torch.from_numpy(rng.standard_normal((B, Sq, NKV * G, H)).astype(
+        np.float32)).to(card, dtype)
+    wide = torch.from_numpy(rng.standard_normal((2 * B, S, NKV, H)).astype(
+        np.float32)).to(card, dtype)
+    k, v = wide[::2], wide[1::2]                  # batch stride 2 rows
+    valid = torch.tensor([0, 1, 32, 77, S], dtype=torch.int32)
+    lens = (valid[:, None] - Sq + 1 + torch.arange(Sq)[None]).clamp(0, S)
+    lens = lens.to(torch.int32).to(card)
+    got = _counted(fa_kernel.flash_decode, lambda: fa_ops.flash_decode(
+        q, k, v, lens, softcap=softcap))
+    want = fa_ref.flash_decode(q, k, v, lens, softcap=softcap)
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (8e-3, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert bool((got[lens == 0] == 0).all())
+
+
+@pytest.mark.parametrize("R,C,K", [(64, 256, 16), (100, 77, 13),
+                                   (1000, 3000, 33), (9, 512, 1)])
+def test_spmv_onehot_kernel_matches_plain(card, R, C, K):
+    """The one-hot kernel against its plain version, columns at -1 and C
+    among the nonzeros (they contribute 0): fp32 roundoff of the row sum
+    (rtol 1e-5 of the sum of |terms|)."""
+    vals, cols = spmv_ref.random_ell(R + C + K, R, C, K)
+    cols[::5, 0] = -1
+    cols[2::5, -1] = C
+    x = np.random.default_rng(1).standard_normal(C).astype(np.float32)
+    tv, tc, tx = (torch.from_numpy(a).to(card) for a in (vals, cols, x))
+    got = _counted(spmv_kernel.spmv_ell_onehot, lambda: spmv_ops.spmv_ell(
+        tv, tc, tx, idiom="onehot"))
+    want = spmv_ops.spmv_ell(*(torch.from_numpy(a) for a in (vals, cols, x)),
+                             idiom="onehot")
+    scale = np.abs(vals).sum(-1, keepdims=True) * np.abs(x).max()
+    assert np.all(np.abs(got.cpu().numpy() - want.numpy())
+                  <= 1e-5 * scale + 1e-6)
+
+
+def test_dense_cache_engines_on_card_match_cpu(card):
+    """Reduced qwen3-1.7b in fp32 (TF32 off), head_dim 64 (the paged
+    kernel's width) on tests/test_serve_families.py's mix: greedy tokens
+    of the continuous engine with the paged kernel off and on, and of the
+    static engine, equal on the card and on the CPU and to each other.
+    With it off the flash-decode kernel launches once a layer a forward
+    and the paged kernel never; with it on, the reverse."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("qwen3-1.7b", head_dim=64)
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
+    gens = [5, 4, 6]
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        model = LM(cfg, device=dev)
+        p = _to(params, dev)
+        for paged in (False, True):
+            before = (fa_kernel.flash_decode.launches,
+                      pa_kernel.paged_flash_decode.launches)
+            eng = ContinuousBatchingEngine(model, p, n_slots=2, max_len=32,
+                                           page_size=8, prefill_chunk=4,
+                                           page_budget=4, paged_kernel=paged)
+            rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+            res = eng.run()
+            launched = (fa_kernel.flash_decode.launches - before[0],
+                        pa_kernel.paged_flash_decode.launches - before[1])
+            per = cfg.n_layers * eng.stats.forwards
+            if dev.type == "cuda":
+                assert launched == ((0, per) if paged else (per, 0))
+            else:
+                assert launched == (0, 0)
+            outs[dev.type, paged] = [res[r].tolist() for r in rids]
+        before = fa_kernel.flash_decode.launches
+        static = StaticBatchEngine(model, p, max_len=32, batch=1)
+        outs[dev.type, "static"] = [static.generate(pr[None], g)[0].tolist()
+                                    for pr, g in zip(prompts, gens)]
+        assert fa_kernel.flash_decode.launches - before == (
+            cfg.n_layers * sum(g - 1 for g in gens)
+            if dev.type == "cuda" else 0)
+    first = outs["cuda", False]
+    assert all(o == first for o in outs.values()), outs
 
 
 def test_train_step_on_card_matches_cpu(card):

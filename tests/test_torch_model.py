@@ -140,9 +140,10 @@ def test_dense_engines_match_jax_static_token_for_token(arch):
     np.testing.assert_array_equal(batch[1].numpy(), want[1][:4])
 
 
-def test_paged_map_matches_default_map():
-    """The engine's identity page map (page 8) and the default one-page
-    map give the same logits: the page walk is layout only."""
+def test_paged_map_matches_dense_cache_path():
+    """The engine's identity page map (page 8) and the dense-cache path
+    (``paged=None``) give the same logits: the page walk is layout
+    only."""
     from repro_torch.models.attention import PagedDecodeState
     _, _, model, params = _models("granite-3-2b")
     B, S, L = 2, 4, 32
