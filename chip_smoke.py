@@ -30,8 +30,10 @@ Phases (one line each; any failure exits nonzero and prints no result):
              The one-hot SpMV: tests/test_kernels_fused.py's shapes, ragged
              rows and nonzeros, columns at -1 and at C (they contribute 0);
              timed at the JAX veceval size (2^14 rows x 16, C 2^14: 2^32
-             compare-selects) against cuSPARSE; the card size (2.8e14
-             compare-selects) is left out.
+             compare-selects) against cuSPARSE, with its compare-selects a
+             second and the idiom's issue bound (one issue slot each, 128 a
+             clock an SM, at the card's highest SM clock) beside the bytes
+             bound; the card size (2.8e14 compare-selects) is left out.
    kernels-paper — the strided-gather (both idioms), tail-mask (both
              idioms) and Qsim gate kernels against their plain versions:
              ragged rows (stride not dividing rows, remainders 0, 1, 7),
@@ -59,18 +61,23 @@ Phases (one line each; any failure exits nonzero and prints no result):
              so no library time) and the bound is printed.
    kernels-int8 — the weight-only int8 GEMM against its plain version:
              tests/test_quant.py's shapes ((128, 256, 128), (256, 128, 384)),
-             ragged M 1, 7, 8 and 33 with K and N off every tile, both
-             layouts (q (K, N) and the tied unembed's (N, K) at N 49408),
-             fp32 x (within 2e-4, the JAX test's tolerance) and bf16 x (fp32
-             out within 2e-4; bf16 out, the fp32 sum rounded once, within
-             half a bf16 ulp plus that fp32 difference).  Timed at
-             granite-3-2b's decode (M 8: 2048 -> 8192, 8192 -> 2048, the
-             transposed 2048 -> 49408 unembed) and a prefill (M 4096,
-             2048 -> 8192), bf16 x: kernel, plain, library (bf16
-             torch.matmul of the same weights dequantized beforehand, a
-             call the port never makes) and bound
-             (int8 weights, x and y once at the memory rate, or the
-             operations at the bf16 peak, whichever is larger).
+             ragged M 1, 7, 8, 9, 16, 33, 64, 65 and 256 with K and N off
+             every tile (byte loads and 16-byte loads), both layouts (q (K,
+             N) and the tied unembed's (N, K) at N 49408), fp32 x (within
+             2e-4, the JAX test's tolerance) and bf16 x (fp32 out within
+             2e-4; bf16 out, the fp32 sum rounded once, within half a bf16
+             ulp plus that fp32 difference).  Timed at granite-3-2b's decode
+             (M 8: 2048 -> 8192, 8192 -> 2048, the transposed 2048 -> 49408
+             unembed), the continuous engine's mixed step (M 256, 2048 ->
+             8192) and a static prefill (M 4096: 2048 -> 8192 and the
+             logits through the (V, d) table), and the GEMV at four times
+             the decode's bytes (8192 -> 8192: its streaming rate and fixed
+             cost), bf16 x: kernel, plain,
+             library (bf16 torch.matmul of the same weights dequantized
+             beforehand, a call the port never makes) and bound (int8
+             weights, x and y once at the memory rate, or the operations at
+             the bf16 peak, whichever is larger); then the host time of a
+             decode call.
    kernels-serve-dense — the dense-cache flash-decode kernel against its
              plain version: H 32/64/128, G 1/2/4/8, kv_valid 0, 1, a tile
              edge, ragged and the whole cache, Sq 1 and the per-query
@@ -657,13 +664,28 @@ def kernels_spmv_onehot(g, hw, card):
             size=(R, C), check_invariants=False)
     check("spmv onehot cuSPARSE yardstick", torch.mv(csr, x)[:, None],
           spmv_ref.spmv_ell(vals, cols, x), 1e-5, 1e-5)
-    return timed_record(
+    rec = timed_record(
         f"spmv onehot rows=C=2^14 nnz 16 fp32 ({R * K * C} compare-selects)",
         {"kernel": lambda: spmv_kernel.spmv_ell_onehot(vals, cols, x),
          "plain": lambda: spmv_ref.spmv_ell_onehot(vals, cols, x),
          "library": lambda: torch.mv(csr, x)},
         2.0 * R * K, R * K * 8.0 + C * 4.0 + R * 4.0, torch.float32, hw,
         card, worst)
+    # the idiom's own bound: one issue slot a compare-select, 128 slots a
+    # clock an SM, at the card's highest SM clock
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    issue_ms = R * K * C / (128.0 * sms * mhz * 1e6) * 1e3
+    log("kernels-veceval",
+        f"spmv onehot: {R * K * C / (rec['ms'] * 1e-3) / 1e12:.2f} T "
+        f"compare-selects/s; issue bound {issue_ms:.4f} ms (one slot each, "
+        f"128 a clock, {sms} SMs, {mhz:.0f} MHz), bytes bound "
+        f"{rec['bound_ms']:.4f} ms; kernel {rec['ms'] / issue_ms:.2f}x the "
+        f"issue bound | {card}")
+    return rec
 
 
 def kernels_gemm(g, hw, card):
@@ -1141,24 +1163,62 @@ def _check_wq(what, x, q, s, transposed):
     return err
 
 
-def _wq_timed(g, hw, card, what, M, K, N, transposed, err):
-    """Kernel, plain and library ms at one bf16 shape, and its bound."""
-    x, q, s = _wq_inputs(g, M, K, N, transposed, torch.bfloat16)
-    w = (q.float() * (s[:, None] if transposed else s)).to(torch.bfloat16)
+def wq_long_k_error(g):
+    """Sums at granite's longest K (8192) with unit-scale weights, where
+    the order of an fp32 sum shows: each path's max |error| against the
+    fp64 product beside fp32 ``torch.matmul``'s (the plain version) and,
+    for bf16 x, the library's tensor-core product with fp32 out
+    (``torch.mm``'s ``out_dtype``) of the same int8 weights.  M 8: the
+    GEMV; M 65 x N 1024: wgmma's (64, 64) tile, its sums promoted; M 4096
+    x N 2048 (the prefill's down projection): the (128, 256) tile, not
+    promoted."""
+    dev = torch.device("cuda")
+    parts = []
+    for M, N in ((8, 1024), (65, 1024), (4096, 2048)):
+        for x_dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn((M, 8192), generator=g, device=dev).to(x_dtype)
+            q, s = wq_ref.quantize(torch.randn((8192, N), generator=g,
+                                               device=dev))
+            exact = (x.double() @ q.double()) * s.double()
+            err = {"kernel": wq_kernel.wq_gemm(x, q, s,
+                                               out_dtype=torch.float32),
+                   "fp32 matmul": wq_ref.wq_gemm(x, q, s,
+                                                 out_dtype=torch.float32)}
+            if x_dtype == torch.bfloat16:
+                try:
+                    err["bf16 mm"] = torch.mm(
+                        x, q.to(x_dtype), out_dtype=torch.float32) * s
+                except (TypeError, RuntimeError):
+                    err["bf16 mm"] = None
+            errs = ", ".join(
+                f"{k} " + ("—" if v is None else
+                           f"{float((v.double() - exact).abs().max()):.2e}")
+                for k, v in err.items())
+            parts.append(f"M{M} N{N} {str(x_dtype)[6:]} x: {errs}")
+    log("kernels-int8", "wq_gemm K 8192, unit-scale weights, max |err| vs "
+                        "fp64: " + "; ".join(parts))
+
+
+def _wq_timed(g, hw, card, what, M, K, N, transposed, err,
+              x_dtype=torch.bfloat16):
+    """Kernel, plain and library (``torch.matmul`` of the dequantized
+    weight in x's type) ms at one shape, and its bound."""
+    x, q, s = _wq_inputs(g, M, K, N, transposed, x_dtype)
+    w = (q.float() * (s[:, None] if transposed else s)).to(x_dtype)
     library = ((lambda: torch.matmul(x, w.T)) if transposed
                else (lambda: torch.matmul(x, w)))
     # int8 weights, their scales, x and y, each moved once; 2 flops a MAC
-    nbytes = K * N + 4.0 * N + 2.0 * M * K + 2.0 * M * N
+    size = x.element_size()
+    nbytes = K * N + 4.0 * N + size * (M * K + M * N)
     return timed_record(
         f"wq_gemm {what} M{M} {K}->{N}{' q (N, K)' if transposed else ''} "
-        f"bf16", {
+        f"{'bf16' if x_dtype == torch.bfloat16 else 'fp32'}", {
             "kernel": lambda: wq_kernel.wq_gemm(x, q, s,
                                                 q_transposed=transposed),
             "plain": lambda: wq_ref.wq_gemm(x, q, s,
                                             q_transposed=transposed),
             "library": library},
-        2.0 * M * N * K, nbytes, torch.bfloat16, hw, card, err,
-        "kernels-int8")
+        2.0 * M * N * K, nbytes, x_dtype, hw, card, err, "kernels-int8")
 
 
 def kernels_wq(g, hw, card):
@@ -1168,13 +1228,17 @@ def kernels_wq(g, hw, card):
     cfg = get_config(INT8_ARCH)
     d, ff, V = cfg.d_model, cfg.d_ff, cfg.padded_vocab
     cases = [(128, 256, 128, False), (256, 128, 384, False)]
-    for M in (1, 7, 8, 33):
+    # ragged M on both sides of every tile edge; K and N off every tile:
+    # 300 and 1000 take the byte loads, 2000 and 1008 the 16-byte ones
+    for M in (1, 7, 8, 9, 16, 33, 64, 65, 256):
         cases += [(M, 300, 1000, False), (M, 300, 1000, True),
-                  (M, 300, V, True), (M, d, ff, False), (M, ff, d, False),
+                  (M, 2000, 1008, False), (M, 2000, 1008, True)]
+    for M in (1, 7, 8, 33):
+        cases += [(M, 300, V, True), (M, d, ff, False), (M, ff, d, False),
                   (M, d, V, True)]
-    # the tiled kernel (8 x 8 a thread past M 64) at the main path's own M:
-    # a static prefill's logits (M 4096 through the (V, d) table) and a
-    # continuous engine's mixed step (M 256), both layouts
+    # the main path's own M past the GEMV: a static prefill's logits (M 4096
+    # through the (V, d) table) and a continuous engine's mixed step (M
+    # 256), both layouts
     cases += [(4096, d, ff, False), (4096, d, V, True),
               (256, d, ff, False), (256, ff, d, False), (256, d, V, True)]
     worst, n = 0.0, 0
@@ -1188,13 +1252,40 @@ def kernels_wq(g, hw, card):
     torch.cuda.empty_cache()
     log("kernels-int8", f"wq_gemm: {n} cases ok (granite-3-2b's decode and "
                         f"prefill shapes among them), max abs err {worst:.2e}")
+    wq_long_k_error(g)
     recs = [_wq_timed(g, hw, card, "decode", 8, d, ff, False, worst),
             _wq_timed(g, hw, card, "decode", 8, ff, d, False, worst),
             _wq_timed(g, hw, card, "decode unembed", 8, d, V, True, worst),
-            _wq_timed(g, hw, card, "prefill", 4096, d, ff, False, worst)]
+            _wq_timed(g, hw, card, "mixed step", 256, d, ff, False, worst),
+            _wq_timed(g, hw, card, "prefill", 4096, d, ff, False, worst),
+            _wq_timed(g, hw, card, "prefill logits", 4096, d, V, True,
+                      worst)]
+    # fp32 x, the reduced configurations' and the parity checks' path, at
+    # the decode shapes
+    for K, N in ((d, ff), (ff, d)):
+        _wq_timed(g, hw, card, "decode", 8, K, N, False, worst, torch.float32)
+    wq_gemv_fixed_cost(g, hw, card, d, ff, recs[0], worst)
     wq_host_cost(g, d, ff)
     torch.cuda.empty_cache()
     return recs[0]
+
+
+def wq_gemv_fixed_cost(g, hw, card, d, ff, rec, worst):
+    """The GEMV at four times the bytes (8192 -> 8192): the difference from
+    ``rec`` (2048 -> 8192) is its streaming rate, the rest a fixed cost a
+    call.  The same call at K 128 (one ring stage, 1 MB) reads that cost's
+    floor: launch, the first tile's latency and the store."""
+    big = _wq_timed(g, hw, card, "decode 4x bytes", 8, ff, ff, False, worst)
+    floor = _wq_timed(g, hw, card, "decode floor", 8, 128, ff, False, worst)
+    rate = (ff * ff - d * ff) / ((big["ms"] - rec["ms"]) * 1e-3) / 1e12
+    fixed = rec["ms"] - d * ff / (rate * 1e12) * 1e3
+    log("kernels-int8", f"wq_gemm GEMV: {rate:.2f} TB/s between {d}->{ff} "
+                        f"and {ff}->{ff}, so {fixed:.4f} ms of the "
+                        f"{d}->{ff} call is not streaming; a call at K 128 "
+                        f"takes {floor['ms']:.4f} ms | {card}")
+
+
+HOST_ROUNDS = 7
 
 
 def _host_us(fn, n=200):
@@ -1215,34 +1306,36 @@ def _host_us(fn, n=200):
 def wq_host_cost(g, d, ff):
     """Host time a call of the int8 GEMM at granite's decode 2048 -> 8192
     (M 8, bf16 x): the model's call (``matmul_q``), the entry (``ops``),
-    the binding (``kernel``: checks, output and partials allocated, ctypes
+    the binding (``kernel``: checks, output allocated, cached plan, ctypes
     call), the bare ctypes launch with its arguments made beforehand, and
     bf16 ``torch.matmul`` of the dequantized weights."""
     x, q, s = _wq_inputs(g, 8, d, ff, False, torch.bfloat16)
     w = (q.float() * s).to(torch.bfloat16)
     pack = {"q": q, "scale": s}
-    index = x.device.index or 0
-    stream = torch.cuda.current_stream().cuda_stream
-    splits, rows = wq_kernel.k_split(8, ff, d, False,
-                                     wq_kernel._sm_count(index))
-    ws = torch.empty((splits, 8, ff), dtype=torch.float32, device=x.device)
-    counters = wq_kernel._ticket_counters(index, stream,
-                                          -(-ff // wq_kernel.KN_COLS))
+    call = wq_kernel._call(x.shape, q.shape, s.shape, x.dtype, q.dtype,
+                           s.dtype, x.dtype, False, x.device, q.device,
+                           s.device)
     y = torch.empty((8, ff), dtype=torch.bfloat16, device=x.device)
     lib = wq_kernel.load_library()
     args = (x.data_ptr(), q.data_ptr(), s.data_ptr(), y.data_ptr(),
-            ws.data_ptr(), counters.data_ptr(), 8, ff, d, 1, 1, 0, splits,
-            rows, 1, stream)
-    us = {"matmul_q": _host_us(lambda: matmul_q(x, pack)),
-          "ops.wq_gemm": _host_us(lambda: wq_ops.wq_gemm(x, q, s)),
-          "kernel.wq_gemm": _host_us(lambda: wq_kernel.wq_gemm(x, q, s)),
-          "bare launch": _host_us(lambda: lib.wq_gemm_launch(*args)),
-          "torch.matmul": _host_us(lambda: torch.matmul(x, w))}
+            call.plan_vec, torch.cuda.current_stream().cuda_stream)
+    fns = {"matmul_q": lambda: matmul_q(x, pack),
+           "ops.wq_gemm": lambda: wq_ops.wq_gemm(x, q, s),
+           "kernel.wq_gemm": lambda: wq_kernel.wq_gemm(x, q, s),
+           "bare launch": lambda: lib.wq_gemm_launch(*args),
+           "torch.matmul": lambda: torch.matmul(x, w)}
+    us = {k: [] for k in fns}
+    for _ in range(HOST_ROUNDS):                # interleaved: the host drifts
+        for k, fn in fns.items():
+            us[k].append(_host_us(fn))
     if not torch.equal(y, wq_kernel.wq_gemm(x, q, s)):
         raise SystemExit("wq_gemm: the bare launch differs from the binding's")
-    log("kernels-int8", "host us a call, wq_gemm decode M8 2048->8192 bf16 "
-                        "(200 calls, no sync between): " + ", ".join(
-                            f"{k} {v:.1f}" for k, v in us.items()))
+    log("kernels-int8", f"host us a call, wq_gemm decode M8 2048->8192 bf16 "
+                        f"(200 calls, no sync between; median of "
+                        f"{HOST_ROUNDS} rounds, min-max): " + ", ".join(
+                            f"{k} {statistics.median(v):.1f} "
+                            f"({min(v):.1f}-{max(v):.1f})"
+                            for k, v in us.items()))
 
 
 def phase_kernels_int8(card, hw):

@@ -42,26 +42,31 @@ def resolve_device(device=None) -> torch.device:
     return torch.device("cuda" if device is None else device)
 
 
-def require_hopper(device: torch.device) -> None:
-    """Raise unless ``device`` is a CUDA device of capability (9, 0)."""
+def require_hopper(device: torch.device) -> int:
+    """Raise unless ``device`` is a CUDA device of capability (9, 0);
+    return its index.  The capability is read once a device a process: a
+    wrapper on the decode path is called thousands of times a second."""
     if device.type != "cuda":
         raise RuntimeError(
             f"the CUDA kernel needs tensors on a CUDA device, got {device}")
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA tensor given but no CUDA device is present")
-    index = torch.cuda.current_device() if device.index is None \
-        else device.index
-    cap = _capability(index)
+    index = device.index
+    if index is None:                     # "cuda": the current device
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA tensor given but no CUDA device is present")
+        index = torch.cuda.current_device()
+    return _hopper(index)
+
+
+@functools.lru_cache(maxsize=None)
+def _hopper(index: int) -> int:
+    cap = torch.cuda.get_device_capability(index)
     if cap != REQUIRED_CAPABILITY:
         raise RuntimeError(
             f"kernel built for sm_90a needs capability "
             f"{REQUIRED_CAPABILITY}, {torch.cuda.get_device_name(index)} "
             f"has {cap}")
-
-
-@functools.lru_cache(maxsize=None)
-def _capability(index: int) -> Tuple[int, int]:
-    return torch.cuda.get_device_capability(index)
+    return index
 
 
 def _nvcc() -> str:
@@ -123,8 +128,9 @@ def check_launch(lib: ctypes.CDLL, what: str, err: int) -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """The current CUDA stream on ``t``'s device, as ctypes takes it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current CUDA stream on ``t``'s device, as ctypes takes it
+    (read without building a ``torch.cuda.Stream``)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def check_operand(name: str, t: torch.Tensor, dtype, device,

@@ -20,6 +20,26 @@ import torch
 from repro_torch.kernels import common
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "spmv.cu",)
+ONEHOT_PER_LANE = 4       # nonzeros a lane holds in a pass (K > 4)
+ONEHOT_MAX_LANES = 32     # lanes of a row
+ONEHOT_X_CHUNK = 16384    # x floats staged in shared memory at a time
+
+
+def onehot_plan(K: int, C: int):
+    """(lanes, per_lane, passes, chunk) of the one-hot kernel: a row's K
+    nonzeros go to ``lanes`` lanes (a power of two) holding ``per_lane``
+    each a pass, four where K > 4 (so one broadcast of x feeds sixteen
+    compare-selects a lane), in ``passes`` passes; x is staged ``chunk``
+    floats at a time (C rounded up to 4, at most ``ONEHOT_X_CHUNK``)."""
+    if K <= ONEHOT_PER_LANE:
+        lanes, per_lane = 1, 1 << max(K - 1, 0).bit_length()
+    else:
+        lanes = min(1 << (-(-K // ONEHOT_PER_LANE) - 1).bit_length(),
+                    ONEHOT_MAX_LANES)
+        per_lane = ONEHOT_PER_LANE
+    passes = -(-K // (lanes * per_lane))
+    chunk = min(max(-(-C // 4) * 4, 4), ONEHOT_X_CHUNK)
+    return lanes, per_lane, passes, chunk
 
 
 @functools.lru_cache(maxsize=None)
@@ -28,7 +48,7 @@ def load_library() -> ctypes.CDLL:
     lib = common.build_library("spmv", SOURCES)
     p, i = ctypes.c_void_p, ctypes.c_int
     common.bind(lib, "spmv_ell_launch", p, p, p, p, i, i, i, i)
-    common.bind(lib, "spmv_onehot_launch", p, p, p, p, i, i, i)
+    common.bind(lib, "spmv_onehot_launch", p, p, p, p, *[i] * 7)
     return lib
 
 
@@ -76,10 +96,11 @@ def spmv_ell_onehot(vals: torch.Tensor, cols: torch.Tensor,
     R, Kn = vals.shape
     if R == 0:
         return y
+    C = x.shape[0]
     lib = load_library()
     err = lib.spmv_onehot_launch(vals.data_ptr(), cols.data_ptr(),
-                                 x.data_ptr(), y.data_ptr(), R, Kn,
-                                 x.shape[0], common.stream_of(vals))
+                                 x.data_ptr(), y.data_ptr(), R, Kn, C,
+                                 *onehot_plan(Kn, C), common.stream_of(vals))
     common.check_launch(lib, "spmv_onehot_launch", err)
     spmv_ell_onehot.launches += 1
     return y

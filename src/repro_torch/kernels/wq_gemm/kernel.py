@@ -4,35 +4,79 @@
 (``repro.kernels.wq_gemm.kernel.wq_gemm``): x (M, K) fp32 or bf16, q int8
 (K, N) — or (N, K) with ``q_transposed`` — and scale (N,) fp32 in; y (M,
 N) out, in x's type or fp32.  It checks device, dtype, shape and
-contiguity, allocates the output (and, for a K split, the fp32 partials)
-with ``torch.empty``, launches on the current stream without
-synchronising, and raises if the launch returns a CUDA error.
-``wq_gemm.launches`` counts the kernel launches made through it.
+contiguity, allocates the output with ``torch.empty``, launches on the
+current stream without synchronising, and raises if the launch returns a
+CUDA error.  ``plan`` picks the kernel and its grid from x's dtype, M, N
+and K; the binding checks and plans each call signature once, so a decode
+call costs little host time.  ``wq_gemm.launches`` counts the kernel
+launches made through it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import common
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "wq_gemm.cu",)
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-SMALL_M = 8           # rows up to which the GEMV kernels run
-KN_COLS = 64          # columns a GEMV block of the (K, N) layout owns
-KN_TILE = 256         # a K split is a whole number of these rows
-_counters = {}        # (device, stream) -> the K split's ticket counters
+SMALL_M = 8           # rows up to which the GEMV runs
+# paths of wq_gemm_launch
+FP32_TILED, GEMV, WGMMA = 0, 1, 2
+TILED_TILES = ((64, 64), (128, 128))        # (BM, BN): 4 x 4, 8 x 8 a thread
+WGMMA_TILES = ((128, 256), (64, 128), (64, 64))
+GEMV_BN = 64          # output columns a GEMV block
+GEMV_BK = 128         # k a GEMV stage: a K split is a whole number of these
+MAX_SPLITS = 8        # a K split is one thread-block cluster (portable size)
+# flags of wq_gemm_launch
+OUT_BF16, TRANSPOSED, VEC, X_FP32 = 1, 2, 4, 8
+
+
+class Plan(NamedTuple):
+    """The kernel (``path``, ``tile``: an index into the path's tiles) and
+    its grid: ``blocks`` = (along N, along M or the K split), ``splits``
+    ranges of ``k_per_split`` rows of K."""
+    path: int
+    tile: int
+    splits: int
+    k_per_split: int
+    blocks: tuple
+
+
+def plan(M: int, N: int, K: int, x_bf16: bool, sms: int) -> Plan:
+    """Up to ``SMALL_M`` rows, either x type: the GEMV (tensor cores for
+    bf16 x, CUDA cores for fp32), its K split (at most ``MAX_SPLITS``
+    ranges, each a whole number of ``GEMV_BK``) only as far as it takes to
+    give each SM about one block.  Above: fp32 x the CUDA-core tiled
+    kernel (TF32 would break fp32 parity); bf16 x wgmma, with the largest
+    tile whose grid fills the card (the smallest where none does)."""
+    if M <= SMALL_M:
+        strips = -(-N // GEMV_BN)
+        stages = max(-(-K // GEMV_BK), 1)
+        want = min(max(round(sms / strips), 1), MAX_SPLITS, stages)
+        per = -(-stages // want)
+        splits = -(-stages // per)
+        return Plan(GEMV, 0, splits, per * GEMV_BK, (strips, splits))
+    if not x_bf16:
+        tile = 0 if M <= 64 else 1
+        bm, bn = TILED_TILES[tile]
+        return Plan(FP32_TILED, tile, 1, K, (-(-N // bn), -(-M // bm)))
+    for tile, (bm, bn) in enumerate(WGMMA_TILES):
+        blocks = (-(-N // bn), -(-M // bm))
+        if blocks[0] * blocks[1] >= sms:
+            break
+    return Plan(WGMMA, tile, 1, K, blocks)
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, once a process."""
     lib = common.build_library("wq_gemm", SOURCES)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    common.bind(lib, "wq_gemm_launch", *[p] * 6, *[i] * 9)
+    p = ctypes.c_void_p
+    common.bind(lib, "wq_gemm_launch", p, p, p, p, p)
     return lib
 
 
@@ -41,76 +85,87 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def k_split(M: int, N: int, K: int, transposed: bool, sms: int):
-    """(splits, rows a split) of the (K, N) GEMV: as many blocks as two a
-    SM hold (one wave), each split a whole number of ``KN_TILE`` rows."""
-    if M > SMALL_M or transposed or K <= KN_TILE:
-        return 1, max(K, 1)
-    strips = -(-N // KN_COLS)
-    want = min(max(2 * sms // strips, 1), -(-K // KN_TILE))
-    rows = -(-K // want)
-    rows = -(-rows // KN_TILE) * KN_TILE
-    return -(-K // rows), rows
+class _Call(NamedTuple):
+    """What one call signature needs, checked once: the output's shape,
+    the launch plans (8 ints each, without and with 16-byte loads),
+    whether 16-byte loads are possible at all, and the launcher."""
+    y_shape: tuple
+    plan: object
+    plan_vec: object
+    vec_rows: bool
+    launch: object
 
 
-def _ticket_counters(index: int, stream: int, n: int) -> torch.Tensor:
-    """Zeroed int32 counters, one a column strip, for the K splits launched
-    on one stream: a launch leaves them zero again, and launches on one
-    stream run in order, so they never share a counter.  Each stream has
-    its own."""
-    buf = _counters.get((index, stream))
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32,
-                          device=torch.device("cuda", index))
-        _counters[(index, stream)] = buf
-    return buf
+_calls = {}           # call signature -> _Call
+MAX_CALLS = 4096      # signatures kept; past it the table starts again
+
+
+def _call(x_shape, q_shape, s_shape, x_dtype, q_dtype, s_dtype, out_dtype,
+          q_transposed, dev, q_dev, s_dev) -> _Call:
+    """Check one call signature (device, dtypes, shapes) and plan it."""
+    index = common.require_hopper(dev)
+    if x_dtype is not torch.bfloat16 and x_dtype is not torch.float32:
+        raise ValueError(f"wq_gemm kernel takes x in bf16 or fp32, got "
+                         f"{x_dtype}")
+    if out_dtype is not x_dtype and out_dtype is not torch.float32:
+        raise ValueError(f"wq_gemm kernel writes x's type or fp32, not "
+                         f"{out_dtype} from {x_dtype}")
+    if len(x_shape) != 2 or len(q_shape) != 2:
+        raise ValueError(f"wq_gemm: x {tuple(x_shape)} and q "
+                         f"{tuple(q_shape)} must be 2-d")
+    M, K = x_shape
+    N, Kq = q_shape if q_transposed else q_shape[::-1]
+    if (Kq != K or q_dtype is not torch.int8
+            or s_dtype is not torch.float32 or tuple(s_shape) != (N,)
+            or q_dev != dev or s_dev != dev):
+        raise ValueError(
+            f"wq_gemm: x {tuple(x_shape)} {x_dtype} on {dev} takes q int8 "
+            f"{(N, K) if q_transposed else (K, N)} and scale fp32 ({N},) on "
+            f"the same device, got q {q_dtype} {tuple(q_shape)} on {q_dev}, "
+            f"scale {s_dtype} {tuple(s_shape)} on {s_dev}")
+    x_bf16 = x_dtype is torch.bfloat16
+    p = plan(M, N, K, x_bf16, _sm_count(index))
+    flags = ((OUT_BF16 if out_dtype is torch.bfloat16 else 0)
+             | (TRANSPOSED if q_transposed else 0)
+             | (0 if x_bf16 else X_FP32))
+    ints = (M, N, K, p.path, p.tile, flags, p.splits, p.k_per_split)
+    vec_ints = ints[:5] + (flags | VEC,) + ints[6:]
+    # 16-byte chunks of x's and q's rows; the tiled kernel loads elements
+    vec_rows = (p.path != FP32_TILED and K % (8 if x_bf16 else 4) == 0
+                and (K if q_transposed else N) % 16 == 0)
+    return _Call((M, N), (ctypes.c_int * 8)(*ints),
+                 (ctypes.c_int * 8)(*vec_ints), vec_rows,
+                 load_library().wq_gemm_launch)
 
 
 def wq_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
             out_dtype=None, q_transposed: bool = False) -> torch.Tensor:
     """x (M, K) fp32 or bf16; q int8 (K, N), or (N, K) with
     ``q_transposed``; scale (N,) fp32; all contiguous on a Hopper card.
-    Returns y (M, N) in ``out_dtype``: x's type (the default) or fp32."""
-    dev = x.device
-    common.require_hopper(dev)
-    if x.dtype not in DTYPES:
-        raise ValueError(f"wq_gemm kernel takes x in {list(DTYPES)}, got "
-                         f"{x.dtype}")
+    Returns y (M, N) in ``out_dtype``: x's type (the default) or fp32.
+    16-byte loads where the rows allow them and both bases lie on a
+    16-byte boundary."""
     out_dtype = out_dtype or x.dtype
-    if out_dtype not in (x.dtype, torch.float32):
-        raise ValueError(f"wq_gemm kernel writes x's type or fp32, not "
-                         f"{out_dtype} from {x.dtype}")
-    if x.dim() != 2 or q.dim() != 2:
-        raise ValueError(f"wq_gemm: x {tuple(x.shape)} and q "
-                         f"{tuple(q.shape)} must be 2-d")
-    M, K = x.shape
-    N = q.shape[0] if q_transposed else q.shape[1]
-    common.check_operand("x", x, x.dtype, dev)
-    common.check_operand("q", q, torch.int8, dev,
-                         (N, K) if q_transposed else (K, N))
-    common.check_operand("scale", scale, torch.float32, dev, (N,))
-    y = torch.empty((M, N), dtype=out_dtype, device=dev)
-    if M == 0 or N == 0:
+    key = (x.shape, q.shape, scale.shape, x.dtype, q.dtype, scale.dtype,
+           out_dtype, q_transposed, x.device, q.device, scale.device)
+    call = _calls.get(key)
+    if call is None:
+        if len(_calls) >= MAX_CALLS:
+            _calls.clear()
+        call = _calls[key] = _call(*key)
+    if not (x.is_contiguous() and q.is_contiguous()
+            and scale.is_contiguous()):
+        raise ValueError("wq_gemm: x, q and scale must be contiguous")
+    y = x.new_empty(call.y_shape, dtype=out_dtype)
+    if y.numel() == 0:
         return y
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    splits, rows = k_split(M, N, K, q_transposed, _sm_count(index))
-    stream = common.stream_of(x)
-    ws = counters = None
-    if splits > 1:
-        ws = torch.empty((splits, M, N), dtype=torch.float32, device=dev)
-        counters = _ticket_counters(index, stream, -(-N // KN_COLS))
-    # 4-byte loads along K (q (N, K)), 8-byte loads along N (q (K, N))
-    width = 4 if q_transposed else 8
-    vec = int((K if q_transposed else N) % width == 0
-              and q.data_ptr() % width == 0)
-    lib = load_library()
-    err = lib.wq_gemm_launch(
-        x.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(),
-        M, N, K, DTYPES[x.dtype], DTYPES[out_dtype], int(q_transposed),
-        splits, rows, vec, stream)
-    common.check_launch(lib, "wq_gemm_launch", err)
+    xp, qp = x.data_ptr(), q.data_ptr()
+    err = call.launch(
+        xp, qp, scale.data_ptr(), y.data_ptr(),
+        call.plan_vec if call.vec_rows and not (xp | qp) & 15 else call.plan,
+        common.stream_of(x))
+    if err:
+        common.check_launch(load_library(), "wq_gemm_launch", err)
     wq_gemm.launches += 1
     return y
 

@@ -326,12 +326,17 @@ def test_flash_decode_kernel_matches_plain(card, H, G, Sq, dtype, softcap):
     assert bool((got[lens == 0] == 0).all())
 
 
-@pytest.mark.parametrize("R,C,K", [(64, 256, 16), (100, 77, 13),
-                                   (1000, 3000, 33), (9, 512, 1)])
+@pytest.mark.parametrize("R,C,K", [
+    (64, 256, 16), (100, 77, 13), (1000, 3000, 33), (9, 512, 1),
+    (50, 2049, 2), (70, 5000, 7), (17, 100, 8), (20, 1, 9), (300, 4097, 24),
+    (40, 16385, 32), (33, 20000, 17), (5, 33000, 16)])
 def test_spmv_onehot_kernel_matches_plain(card, R, C, K):
     """The one-hot kernel against its plain version, columns at -1 and C
     among the nonzeros (they contribute 0): fp32 roundoff of the row sum
-    (rtol 1e-5 of the sum of |terms|)."""
+    (rtol 1e-5 of the sum of |terms|).  K from 1 to 33 (every lane and
+    nonzeros-a-lane choice of ``kernel.onehot_plan``, several passes); C
+    off the 2048-column compare window and the 16384-float staged chunk,
+    and past one chunk."""
     vals, cols = spmv_ref.random_ell(R + C + K, R, C, K)
     cols[::5, 0] = -1
     cols[2::5, -1] = C
@@ -490,21 +495,31 @@ def test_ssm_engines_on_card_match_cpu(card):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("M,K,N", [(128, 256, 128), (256, 128, 384),
-                                   (1, 37, 61), (7, 130, 9), (8, 1000, 776),
-                                   (8, 2048, 1000), (33, 300, 257)])
+@pytest.mark.parametrize("M,K,N", [
+    (128, 256, 128), (256, 128, 384), (1, 37, 61), (7, 130, 9),
+    (8, 1000, 776), (8, 2048, 1000), (33, 300, 257), (8, 128, 4096),
+    (3, 256, 17008), (8, 2000, 1008), (9, 2000, 1008), (33, 2000, 1008),
+    (65, 2000, 1008), (256, 2000, 1008), (65, 300, 257), (300, 2048, 520),
+    (16, 32, 48), (8, 8192, 1024), (65, 8192, 1024)])
 @pytest.mark.parametrize("transposed", [False, True])
 @pytest.mark.parametrize("x_dtype,out_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.bfloat16, torch.float32)])
 def test_wq_gemm_kernel_matches_plain(card, M, K, N, transposed, x_dtype,
                                       out_dtype):
-    """Both layouts, the GEMV (M <= 8, with and without a K split) and the
-    tiled kernel, ragged M, K and N.  fp32 out within 2e-4 of the plain
-    version's (the JAX test's tolerance: fp32 sums in another order); bf16
-    out is the kernel's fp32 sum rounded once: within half a bf16 ulp of
-    it, and so of the plain fp32 value within that plus their fp32
-    difference."""
+    """Both layouts and every path of ``kernel.plan``: the GEMV (M <= 8,
+    with a K split: (8, 2048, 1000); without: (8, 128, 4096), (3, 256,
+    17008)) on the tensor cores for bf16 x and the CUDA cores for fp32;
+    past it wgmma for bf16 x (M 9, 16, 33, 65, 256, 300: every tile) and
+    the tiled kernel for fp32, ragged
+    M, K and N, 16-byte loads (K 2000, N 1008: off every tile; K 32, N
+    48: smaller than a TMA box) and byte loads; K 8192 with unit-scale
+    weights, the longest sums (the GEMV, wgmma's promoted (64, 64) tile
+    and the tiled kernel).  fp32 out within 2e-4 of the plain
+    version's (the JAX test's tolerance: fp32 sums in another order);
+    bf16 out is the kernel's fp32
+    sum rounded once: within half a bf16 ulp of it, and so of the plain
+    fp32 value within that plus their fp32 difference."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(M * N + K)
     x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
@@ -531,14 +546,42 @@ def test_wq_gemm_kernel_matches_plain(card, M, K, N, transposed, x_dtype,
                     .all())
 
 
+@pytest.mark.parametrize("M,K,N", [(8, 8192, 2048), (8, 2048, 8192),
+                                   (1, 8192, 2048), (65, 8192, 2048)])
 @pytest.mark.parametrize("transposed", [False, True])
-def test_wq_gemm_kernel_unaligned_q_takes_the_byte_path(card, transposed):
+def test_wq_gemm_kernel_fp32_x_at_model_scale(card, M, K, N, transposed):
+    """fp32 x (the reduced configurations' and the parity checks' path) at
+    granite-3-2b's own K and N, decode rows and past the GEMV's M, weights
+    at the model's initializer scale (K^-1/2, as chip_smoke.py draws them):
+    within 2e-4 of the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(M + K + N)
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    q, s = wq_ref.quantize(torch.from_numpy(
+        (rng.standard_normal((K, N)) * K ** -0.5).astype(np.float32)))
+    if transposed:
+        q = q.T.contiguous()
+    args = (x.to(card), q.to(card), s.to(card))
+    got = _counted(wq_kernel.wq_gemm, lambda: wq_ops.wq_gemm(
+        *args, q_transposed=transposed))
+    assert got.dtype == torch.float32 and got.shape == (M, N)
+    torch.testing.assert_close(got, wq_ref.wq_gemm(
+        *args, q_transposed=transposed), rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+@pytest.mark.parametrize("M,x_dtype", [(8, torch.float32),
+                                       (8, torch.bfloat16),
+                                       (65, torch.bfloat16)])
+def test_wq_gemm_kernel_unaligned_q_takes_the_byte_path(card, transposed, M,
+                                                        x_dtype):
     """A q that starts off a 16-byte boundary: the kernel loads bytes
-    (no vector loads), with the same result."""
+    (no vector loads), with the same result, on each path."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(9)
-    M, K, N = 8, 512, 256
-    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32))
+    K, N = 512, 256
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(
+        x_dtype)
     q, s = wq_ref.quantize(torch.from_numpy(
         rng.standard_normal((K, N)).astype(np.float32)))
     if transposed:
@@ -549,22 +592,25 @@ def test_wq_gemm_kernel_unaligned_q_takes_the_byte_path(card, transposed):
     assert qu.data_ptr() % 4 and qu.is_contiguous()
     args = (x.to(card), qu, s.to(card))
     got = _counted(wq_kernel.wq_gemm, lambda: wq_ops.wq_gemm(
-        *args, q_transposed=transposed))
+        *args, out_dtype=torch.float32, q_transposed=transposed))
     torch.testing.assert_close(got, wq_ref.wq_gemm(
-        *args, q_transposed=transposed), rtol=2e-4, atol=2e-4)
+        *args, out_dtype=torch.float32, q_transposed=transposed),
+        rtol=2e-4, atol=2e-4)
 
 
-def test_wq_gemm_k_splits_on_two_streams_keep_their_own_counters(card):
-    """K-split GEMVs in flight on two streams at once: each stream has its
-    own ticket counters, so every result equals the same call made alone
-    (the split sums in a fixed order, so equal bit for bit)."""
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+def test_wq_gemv_k_split_gives_the_same_bits_on_two_streams(card, x_dtype):
+    """K-split GEMVs in flight on two streams at once: the split's blocks
+    sum in rank order inside their cluster, so every result equals the
+    same call made alone, bit for bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(11)
     M, K, N = 8, 4096, 1024
     sms = torch.cuda.get_device_properties(card).multi_processor_count
-    assert wq_kernel.k_split(M, N, K, False, sms)[0] > 1
+    assert wq_kernel.plan(M, N, K, x_dtype == torch.bfloat16,
+                          sms).splits > 1
     x = torch.from_numpy(rng.standard_normal((2, M, K)).astype(
-        np.float32)).to(card)
+        np.float32)).to(card, x_dtype)
     q, s = wq_ref.quantize(torch.from_numpy(
         rng.standard_normal((K, N)).astype(np.float32)))
     q, s = q.to(card), s.to(card)

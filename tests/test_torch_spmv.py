@@ -127,3 +127,21 @@ def test_onehot_kernel_wrapper_refuses_cpu_tensors():
         pt_kernel.spmv_ell_onehot(torch.from_numpy(vals),
                                   torch.from_numpy(idx), torch.ones(32))
     assert pt_kernel.spmv_ell_onehot.launches == before
+
+
+@pytest.mark.parametrize("K", [0, 1, 2, 3, 5, 8, 9, 16, 17, 33, 100, 257])
+@pytest.mark.parametrize("C", [1, 77, 20000])
+def test_onehot_plan_covers_k_and_c(K, C):
+    """The one-hot kernel's plan: a power-of-two count of lanes a row (at
+    most 32), four nonzeros a lane where K > 4 (one broadcast of x feeds
+    sixteen compare-selects), enough passes for every nonzero, and x staged
+    in chunks of a multiple of 4 floats, at most 16384 (64 KB), the whole
+    of C where it fits."""
+    lanes, per_lane, passes, chunk = pt_kernel.onehot_plan(K, C)
+    assert lanes in (1, 2, 4, 8, 16, 32) and per_lane in (1, 2, 4)
+    assert per_lane == pt_kernel.ONEHOT_PER_LANE or lanes == 1
+    assert lanes * per_lane * passes >= K
+    assert K == 0 or lanes * per_lane * (passes - 1) < K or passes == 1
+    assert chunk % 4 == 0 and 4 <= chunk <= pt_kernel.ONEHOT_X_CHUNK
+    assert chunk >= C or chunk == pt_kernel.ONEHOT_X_CHUNK
+

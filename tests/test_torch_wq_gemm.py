@@ -13,7 +13,9 @@ CPU against the JAX package, with the same inputs made by numpy.
 - The transposed layout (``q_transposed``: the tied unembed's (V, d)
   table read in place) against the reference ``layers.unembed`` of a
   quantized table.
-- The kernel's K-split plan and its argument checks, which run here.
+- The kernel's launch plan (which kernel each dtype and M takes; the
+  GEMV's K split and wgmma's tiles cover M, N and K) and its argument
+  checks, which run here.
 """
 import numpy as np
 import pytest
@@ -136,27 +138,60 @@ def test_transposed_layout_is_the_reference_unembed(M, K, N):
                                atol=1e-6)
 
 
+@pytest.mark.parametrize("M,x_bf16,path", [
+    (1, True, wq_kernel.GEMV), (8, True, wq_kernel.GEMV),
+    (9, True, wq_kernel.WGMMA), (256, True, wq_kernel.WGMMA),
+    (4096, True, wq_kernel.WGMMA), (1, False, wq_kernel.GEMV),
+    (8, False, wq_kernel.GEMV), (9, False, wq_kernel.FP32_TILED),
+    (4096, False, wq_kernel.FP32_TILED)])
+@pytest.mark.parametrize("N,K", [(8192, 2048), (1000, 300)])
+def test_plan_picks_the_path_by_dtype_and_m(M, x_bf16, path, N, K):
+    """The GEMV up to 8 rows for either x type; above, wgmma for bf16 x
+    and the CUDA-core tiled kernel for fp32 x (TF32 would break fp32
+    parity)."""
+    p = wq_kernel.plan(M, N, K, x_bf16, 132)
+    assert p.path == path
+    assert p.splits == 1 or path == wq_kernel.GEMV
+
+
 @pytest.mark.parametrize("M,N,K", [(8, 8192, 2048), (8, 2048, 8192),
                                    (1, 64, 4096), (8, 49408, 2048),
-                                   (4, 200, 100), (33, 8192, 2048)])
-def test_k_split_plan_covers_k(M, N, K):
-    """The (K, N) GEMV's split: every row of K in exactly one split, each
-    split a whole number of tiles, at most two blocks an SM in all and at
-    least one where K allows it; one split (the whole of K) for the other
-    kernels."""
-    for transposed in (False, True):
-        splits, rows = wq_kernel.k_split(M, N, K, transposed, 132)
-        if transposed or M > wq_kernel.SMALL_M:
-            assert (splits, rows) == (1, K)
-            continue
-        assert rows % wq_kernel.KN_TILE == 0 or splits == 1
-        assert (splits - 1) * rows < K <= splits * rows
-        strips = -(-N // wq_kernel.KN_COLS)
-        assert splits == 1 or strips * splits <= 2 * 132
-        if splits < -(-K // wq_kernel.KN_TILE):
-            assert strips * splits >= 132 or splits == 1
-    assert wq_kernel.k_split(8, 8192, 2048, False, 132) == (2, 1024)
-    assert wq_kernel.k_split(8, 2048, 8192, False, 132) == (8, 1024)
+                                   (4, 200, 100), (8, 512, 2048),
+                                   (3, 1000, 0)])
+@pytest.mark.parametrize("x_bf16", [True, False])
+def test_gemv_k_split_covers_k(M, N, K, x_bf16):
+    """The GEMV's K split, the same for either x type: every row of K in
+    exactly one split, each split a whole number of stages, at most a
+    portable cluster of splits, and a split only where the column strips
+    leave the card's 132 SMs short."""
+    p = wq_kernel.plan(M, N, K, x_bf16, 132)
+    assert p.path == wq_kernel.GEMV
+    strips = -(-N // wq_kernel.GEMV_BN)
+    assert p.blocks == (strips, p.splits)
+    assert p.k_per_split % wq_kernel.GEMV_BK == 0
+    assert 1 <= p.splits <= wq_kernel.MAX_SPLITS
+    assert (p.splits - 1) * p.k_per_split < max(K, 1) <= \
+        p.splits * p.k_per_split
+    if strips >= 132:
+        assert p.splits == 1
+    assert wq_kernel.plan(8, 8192, 2048, True, 132).splits == 1
+    assert wq_kernel.plan(8, 2048, 8192, True, 132).splits == 4
+
+
+@pytest.mark.parametrize("M,N", [(9, 1000), (33, 8192), (65, 2048),
+                                 (256, 8192), (4096, 8192), (4096, 49408),
+                                 (300, 520)])
+def test_wgmma_tiles_cover_m_and_n(M, N):
+    """wgmma's grid covers M and N with its tile, and the tile is the
+    largest whose grid fills the card (the smallest where none does)."""
+    p = wq_kernel.plan(M, N, 2048, True, 132)
+    bm, bn = wq_kernel.WGMMA_TILES[p.tile]
+    assert p.blocks == (-(-N // bn), -(-M // bm))
+    assert p.blocks[0] * bn >= N and p.blocks[1] * bm >= M
+    fills = [(-(-N // n)) * (-(-M // m)) >= 132
+             for m, n in wq_kernel.WGMMA_TILES]
+    assert p.tile == (fills.index(True) if any(fills)
+                      else len(fills) - 1)
 
 
 def test_entry_checks_and_the_kernel_refuses_the_cpu():
