@@ -11,6 +11,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              all at once (paged attention, STREAM, SpMV (both idioms), GEMM,
              conv2d, strided gather, tail mask, Qsim gate, flash attention,
              flash decode, SSD scan, int8 GEMM).
+   sass    — cuobjdump's counts of the matrix instructions in the flash
+             attention (HMMA or HGMMA required) and GEMM (DMMA required)
+             libraries.
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
@@ -27,6 +30,8 @@ Phases (one line each; any failure exits nonzero and prints no result):
              At the card size each prints kernel, plain, library (a PyTorch
              call the port never makes: torch.add, cuSPARSE through a CSR
              tensor, torch.matmul, F.conv2d) and bound ms.  TF32 is off.
+             The GEMM at every block multiplier in both dtypes (ragged,
+             512^3 and 4096^3 checked; 4096^3 timed: Fig 7 on the card).
              The one-hot SpMV: tests/test_kernels_fused.py's shapes, ragged
              rows and nonzeros, columns at -1 and at C (they contribute 0);
              timed at the JAX veceval size (2^14 rows x 16, C 2^14: 2^32
@@ -47,11 +52,13 @@ Phases (one line each; any failure exits nonzero and prints no result):
              causal, at batch 8 x seq 128 and batch 1 x seq 4096), then
              S 1, 63, 200 and 4096, G 1, 2 and 8, H 64 and 128 (and 32 at
              the short lengths), softcap 0 and 30, causal and full, fp32
-             and bf16; out and lse both checked (bf16 out within one bf16
-             ulp of the value: rtol 8e-3, atol 1e-4).  Timed at qwen3-1.7b's
-             training shape (B 1, S 4096, 16/8 heads, H 128, bf16, causal)
-             against F.scaled_dot_product_attention(is_causal=True,
-             enable_gqa=True), a yardstick the port never calls.
+             and bf16; out and lse both checked (ref.FLASH_TOL: bf16 out
+             within one bf16 ulp of the value, rtol 8e-3, atol 1e-4).  At
+             both train shapes (16/8 heads, H 128, bf16, causal): two
+             launches give the same bits, and kernel, plain and
+             F.scaled_dot_product_attention(is_causal=True,
+             enable_gqa=True) (a yardstick the port never calls) are
+             timed; the JSON line carries B 1 x S 4096.
    kernels-ssm — the SSD chunked-scan kernel against ref.ssd_chunked: y and
              h_final within 2e-3 (the JAX kernel test's tolerance) for every
              P (16, 32, 64), N (16 to 128) and chunk (16 to 256) it takes,
@@ -160,7 +167,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              then 2 steps at batch 1 x seq 4096 without checkpoints.  Per
              step: CUDA-event ms, tokens/s, loss, flash launches (2 x 28 per
              step: the checkpointed forward runs again in the backward);
-             peak memory; the loss finite and lower at the end.
+             peak memory; the loss finite and lower at the end, steps 0
+             and 5 within 2e-3 of the CUDA-core forward's, every loss
+             printed in full for a bitwise comparison between runs.
 8. veceval — the proxy-app path: ``repro_torch.core.veceval`` over its six
              apps at the default sizes and at the card sizes; scalar,
              torch.compile and kernel versions timed interleaved, held
@@ -183,10 +192,12 @@ name and power limit); the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import datetime
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -207,7 +218,8 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core import microbench, veceval  # noqa: E402
 from repro_torch.core.costmodel import hw_for  # noqa: E402
-from repro_torch.kernels.common import REQUIRED_CAPABILITY  # noqa: E402
+from repro_torch.kernels.common import (  # noqa: E402
+    REQUIRED_CAPABILITY, cuda_tool, library_path)
 from repro_torch.kernels.conv2d import kernel as conv_kernel  # noqa: E402
 from repro_torch.kernels.conv2d import ref as conv_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -315,6 +327,11 @@ TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_SHAPES = ((8, 128), (1, 4096))    # (batch, seq): the JAX launcher's
 # defaults, then qwen3's long context
 TRAIN_CKPT = os.path.join(ROOT, "checkpoints", "chip_smoke_train")
+# the loss at steps 0 and 5 of B8 x S128 with the forward on the CUDA cores
+# (fp32 FMAs), which every run repeated bit for bit; the tensor-core forward
+# sums in another order and must stay within TRAIN_LOSS_RTOL of it
+TRAIN_LOSS_BEFORE = (12.5657, 11.3390)
+TRAIN_LOSS_RTOL = 2e-3
 # the ssm serving path: full-width mamba2-780m
 SSM_ARCH = "mamba2-780m"
 SSM_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
@@ -390,6 +407,29 @@ def phase_build():
     secs = (datetime.datetime.now() - t0).total_seconds()
     log("build", f"{len(loaders)} libraries ({', '.join(WRAPPERS)}) built "
                  f"and loaded in {secs:.1f} s")
+
+
+# the matrix instructions a library's SASS must hold: (library name, its
+# sources, the opcodes any of which must appear)
+SASS_REQUIRED = (("flash_attention", fa_kernel.SOURCES, ("HMMA", "HGMMA")),
+                 ("gemm", gemm_kernel.SOURCES, ("DMMA",)))
+
+
+def phase_sass():
+    """Counts of the matrix instructions (HMMA, HGMMA, DMMA) in the SASS of
+    the flash-attention and GEMM libraries, by cuobjdump; exits unless
+    each holds its tensor-core opcode."""
+    for name, sources, need in SASS_REQUIRED:
+        sass = subprocess.run(
+            [cuda_tool("cuobjdump"), "-sass",
+             str(library_path(name, sources))],
+            capture_output=True, text=True, check=True).stdout
+        counts = collections.Counter(
+            re.findall(r"\b((?:HMMA|HGMMA|DMMA)[.\w]*)", sass))
+        log("sass", f"{name}: " + (", ".join(
+            f"{op} x{n}" for op, n in sorted(counts.items())) or "none"))
+        if not any(op.split(".")[0] in need for op in counts):
+            raise SystemExit(f"{name}: no {' or '.join(need)} in the SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -689,6 +729,9 @@ def kernels_spmv_onehot(g, hw, card):
 
 
 def kernels_gemm(g, hw, card):
+    """Every block multiplier in both dtypes against ref.gemm (ragged M, N
+    and K, then 512^3 and 4096^3), each timed at 4096^3 (Fig 7's LMUL axis
+    on the card).  Returns the record of fp32 m2, veceval's sgemm."""
     dev = torch.device("cuda")
     tol = {torch.float32: 1e-4, torch.float64: 1e-12}
     worst = 0.0
@@ -706,19 +749,26 @@ def kernels_gemm(g, hw, card):
         for n in (512, 4096):                       # default, card
             a = torch.rand((n, n), generator=g, device=dev, dtype=dtype)
             b = torch.rand((n, n), generator=g, device=dev, dtype=dtype)
-            worst = max(worst, check(
-                f"gemm {n}^3 {dtype}", gemm_kernel.gemm(a, b,
-                                                        block_multiplier=2),
-                gemm_ref.gemm(a, b), tol[dtype], tol[dtype]))
-        recs[dtype] = timed_record(
-            f"gemm 4096^3 m2 {dtype}", {
-                "kernel": lambda: gemm_kernel.gemm(a, b, block_multiplier=2),
-                "plain": lambda: gemm_ref.gemm(a, b),
-                "library": lambda: torch.matmul(a, b)},
-            2.0 * n ** 3, 3.0 * n * n * a.element_size(), dtype, hw, card,
-            None)
+            want = gemm_ref.gemm(a, b)
+            for m in (1, 2, 4, 8):
+                worst = max(worst, check(
+                    f"gemm {n}^3 {dtype} m{m}",
+                    gemm_kernel.gemm(a, b, block_multiplier=m), want,
+                    tol[dtype], tol[dtype]))
+        for m in (1, 2, 4, 8):
+            plan = gemm_kernel.plan(n, n, n, dtype, m)
+            recs[dtype, m] = timed_record(
+                f"gemm 4096^3 m{m} {dtype} ({plan.path}, tile "
+                f"{plan.tile[0]}x{plan.tile[1]})", {
+                    "kernel": lambda: gemm_kernel.gemm(a, b,
+                                                       block_multiplier=m),
+                    "plain": lambda: gemm_ref.gemm(a, b),
+                    "library": lambda: torch.matmul(a, b)},
+                2.0 * n ** 3, 3.0 * n * n * a.element_size(), dtype, hw,
+                card, None)
+        del a, b, want
     log("kernels-veceval", f"gemm: ok, max abs err {worst:.2e}")
-    rec = recs[torch.float32]                       # the JSON line: sgemm
+    rec = recs[torch.float32, 2]                    # the JSON line: sgemm
     rec["max_abs_err"] = worst
     return rec
 
@@ -940,12 +990,6 @@ def phase_kernels_paper(card, hw):
 # ---------------------------------------------------------------------------
 # phase 4, continued: the train path's flash-attention kernel vs plain
 # ---------------------------------------------------------------------------
-# out: (rtol, atol).  fp32: the sums in another order.  bf16: both versions
-# compute in fp32 and round once to bf16, so they are at most one bf16 ulp
-# apart, which is 2^-7 = 7.8e-3 of the value at most.  lse: 1e-4, 1e-4.
-FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
-
-
 def _flash_cases():
     """(BN, S, G, H, softcap, causal, dtype).  First the two shapes the
     train phase gives the kernel (qwen3-1.7b, bf16, causal: BN = batch x
@@ -970,8 +1014,10 @@ def _flash_cases():
 
 def kernels_flash(g, hw, card):
     """The flash forward against ref.flash_fwd on the same card inputs:
-    out within FLASH_TOL of its dtype, lse within 1e-4.  Then timed at
-    qwen3-1.7b's training shape."""
+    out within FLASH_TOL of its dtype, lse within LSE_TOL.  Then, at both
+    of the train phase's shapes (qwen3-1.7b, 16/8 heads, H 128, bf16,
+    causal): the same bits from two launches, and kernel, plain and SDPA
+    timed.  Returns the record of the long-context shape (B1 x S4096)."""
     dev = torch.device("cuda")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     n = 0
@@ -985,10 +1031,10 @@ def kernels_flash(g, hw, card):
                                        softcap=softcap, sq_real=S)
         w_out, w_lse = fa_ref.flash_fwd(q, k, v, causal=causal,
                                         softcap=softcap, sq_real=S)
-        rtol, atol = FLASH_TOL[dtype]
+        rtol, atol = fa_ref.FLASH_TOL[dtype]
         worst[dtype] = max(worst[dtype], check(
             f"{what} out", out.float(), w_out.float(), rtol, atol))
-        check(f"{what} lse", lse, w_lse, 1e-4, 1e-4)
+        check(f"{what} lse", lse, w_lse, *fa_ref.LSE_TOL)
         n += 1
         del q, k, v, out, lse, w_out, w_lse
     torch.cuda.empty_cache()
@@ -997,40 +1043,54 @@ def kernels_flash(g, hw, card):
                          f"out fp32 {worst[torch.float32]:.2e}, bf16 "
                          f"{worst[torch.bfloat16]:.2e}")
     cfg = get_config(TRAIN_ARCH)
-    B, S, NQ, NKV, H = 1, 4096, cfg.n_heads, cfg.n_kv_heads, \
-        cfg.resolved_head_dim
+    NQ, NKV, H = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     G = NQ // NKV
-    q = torch.randn((B, NQ, S, H), generator=g, device=dev,
-                    dtype=torch.bfloat16)
-    k = torch.randn((B, NKV, S, H), generator=g, device=dev,
-                    dtype=torch.bfloat16)
-    v = torch.randn((B, NKV, S, H), generator=g, device=dev,
-                    dtype=torch.bfloat16)
-    # the grouped layout of ops._group: (B*NKV, G*S, H), no K/V copy
-    qg = q.reshape(B * NKV, G * S, H)
-    kg, vg = k.reshape(B * NKV, S, H), v.reshape(B * NKV, S, H)
-    out, _ = fa_kernel.flash_fwd(qg, kg, vg, causal=True, sq_real=S)
-    lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                         enable_gqa=True)
-    # SDPA rounds the probabilities to bf16 before P.V: a looser yardstick
-    err = check("flash qwen3 shape vs SDPA yardstick",
-                out.view(B, NQ, S, H).float(), lib.float(), 1e-2, 1e-2)
-    log("kernels-train", f"qwen3 training shape: kernel vs SDPA max abs err "
-                         f"{err:.2e}")
-    # causal pairs (the diagonal included); QK^T and PV, 2 flops a MAC
-    flops = 2.0 * B * NQ * H * S * (S + 1)
-    nbytes = 2.0 * (qg.numel() + kg.numel() + vg.numel() + qg.numel()) \
-        + 4.0 * qg.shape[0] * qg.shape[1]
-    return timed_record(
-        f"flash_attention B{B} S{S} {NQ}/{NKV} heads H{H} bf16 causal", {
-            "kernel": lambda: fa_kernel.flash_fwd(qg, kg, vg, causal=True,
+    for B, S in TRAIN_SHAPES:
+        q = torch.randn((B, NQ, S, H), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        k = torch.randn((B, NKV, S, H), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn((B, NKV, S, H), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        # the grouped layout of ops._group: (B*NKV, G*S, H), no K/V copy
+        qg = q.reshape(B * NKV, G * S, H)
+        kg, vg = k.reshape(B * NKV, S, H), v.reshape(B * NKV, S, H)
+        out, lse = fa_kernel.flash_fwd(qg, kg, vg, causal=True, sq_real=S)
+        again = fa_kernel.flash_fwd(qg, kg, vg, causal=True, sq_real=S)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, again[0]) and torch.equal(lse, again[1])):
+            raise SystemExit(f"flash B{B} S{S}: two launches on the same "
+                             f"inputs gave different bits")
+        lib = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                             enable_gqa=True)
+        # SDPA rounds the probabilities to bf16 before P.V: a looser
+        # yardstick
+        err = check(f"flash qwen3 B{B} S{S} vs SDPA yardstick",
+                    out.view(B, NQ, S, H).float(), lib.float(), 1e-2, 1e-2)
+        # causal pairs (the diagonal included); QK^T and PV, 2 flops a MAC
+        flops = 2.0 * B * NQ * H * S * (S + 1)
+        nbytes = 2.0 * (qg.numel() + kg.numel() + vg.numel() + qg.numel()) \
+            + 4.0 * qg.shape[0] * qg.shape[1]
+        rec = timed_record(
+            f"flash_attention B{B} S{S} {NQ}/{NKV} heads H{H} bf16 causal", {
+                "kernel": lambda: fa_kernel.flash_fwd(qg, kg, vg, causal=True,
+                                                      sq_real=S),
+                "plain": lambda: fa_ref.flash_fwd(qg, kg, vg, causal=True,
                                                   sq_real=S),
-            "plain": lambda: fa_ref.flash_fwd(qg, kg, vg, causal=True,
-                                              sq_real=S),
-            "library": lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True)},
-        flops, nbytes, torch.bfloat16, hw, card,
-        max(worst.values()), "kernels-train")
+                "library": lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)},
+            flops, nbytes, torch.bfloat16, hw, card,
+            max(worst.values()), "kernels-train")
+        # the tensor-core path does P.V twice (p_hi and p_lo)
+        split_ms = hw.bound_s(1.5 * flops, nbytes, torch.bfloat16)[0] * 1e3
+        vs_sdpa = rec["ms"] / rec["library_ms"]
+        log("kernels-train", f"  B{B} S{S}: same bits twice; vs SDPA max abs "
+                             f"err {err:.2e}; kernel {vs_sdpa:.2f}x SDPA; "
+                             f"bound with the split's second P.V "
+                             f"{split_ms:.4f} ms")
+        del q, k, v, qg, kg, vg, out, lse, again, lib
+        torch.cuda.empty_cache()
+    return rec
 
 
 def phase_kernels_train(card, hw):
@@ -2250,6 +2310,7 @@ def phase_train(card, profile=False):
                  f"leaves in {len(manifest['leaves'])} files restored "
                  f"bitwise; phase wall {_since(t0):.1f} s so far")
     loss0 = first["log"][0]["loss"]
+    first_log = first["log"]
     del first, restored, saved, back
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -2259,6 +2320,15 @@ def phase_train(card, profile=False):
     loss1 = resumed["log"][-1]["loss"]
     if steps != [3, 4, 5] or not loss1 < loss0:
         raise SystemExit(f"resumed at steps {steps}; loss {loss0} -> {loss1}")
+    drift = max(abs(x / ref - 1) for x, ref in zip((loss0, loss1),
+                                                    TRAIN_LOSS_BEFORE))
+    if drift > TRAIN_LOSS_RTOL:
+        raise SystemExit(f"loss {loss0} -> {loss1}, {drift:.2e} from the "
+                         f"CUDA-core forward's {TRAIN_LOSS_BEFORE}")
+    log("train", f"losses of steps 0-2 and 3-5 (for a bitwise comparison "
+                 f"between runs): {[repr(r['loss']) for r in first_log]} "
+                 f"{[repr(r['loss']) for r in resumed['log']]}; steps 0 "
+                 f"and 5 {drift:.2e} from the CUDA-core forward's")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     ms = [r["seconds"] * 1e3 for r in resumed["log"]]
     log("train", f"{TRAIN_ARCH} bf16 full width, B{B} S{S}: loss {loss0:.4f} "
@@ -2500,6 +2570,7 @@ def main():
         return 1
     card = phase_device()
     phase_build()
+    phase_sass()
     hw = hw_for(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

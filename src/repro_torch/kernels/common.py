@@ -69,14 +69,16 @@ def _hopper(index: int) -> int:
     return index
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc")
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): on PATH or under
+    CUDA_HOME."""
+    path = shutil.which(name)
     if path:
         return path
     from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
-        return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME)")
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", name)):
+        return os.path.join(CUDA_HOME, "bin", name)
+    raise RuntimeError(f"{name} not found (on PATH or under CUDA_HOME)")
 
 
 def library_path(name: str, sources: Sequence[pathlib.Path]) -> pathlib.Path:
@@ -95,7 +97,7 @@ def build_library(name: str, sources: Sequence[pathlib.Path]) -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode:
             os.unlink(tmp)

@@ -13,12 +13,16 @@ dtype, shape and layout, allocates its outputs with ``torch.empty``,
 launches on the current stream without synchronising, and raises if the
 launch returns a CUDA error; ``flash_fwd.launches`` and
 ``flash_decode.launches`` count the kernel launches made through them.
+``fwd_plan`` is the host's copy of what the forward launches: its path
+(bf16 on the tensor cores, fp32 on the CUDA cores), tiles, grid and the
+KV tiles each query tile visits.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+from typing import NamedTuple
 
 import torch
 
@@ -28,7 +32,66 @@ SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_attention.cu",)
 DECODE_SOURCES = (pathlib.Path(__file__).parent / "csrc" / "flash_decode.cu",)
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_BN = 65535                     # the grid's y dimension
+_MAX_BN = 65535                     # the decode grid's y dimension
+_MAX_BLOCKS = 2 ** 31 - 1           # the forward's 1-d grid
+TC, SIMT = "tensor cores", "CUDA cores"
+# the forward's path and its (query rows, KV rows) tiles, by dtype: bf16
+# through mma.sync (fp32 sums, P split into two bf16 halves), fp32 through
+# FMAs (TF32 would miss the fp32 tolerance)
+FWD_PATHS = {torch.bfloat16: (TC, 128, 64), torch.float32: (SIMT, 64, 64)}
+
+
+class FwdPlan(NamedTuple):
+    """The path, the tiles, the number of blocks (one a query tile and
+    bn) and, for each block in the order they are issued, its bn, its first
+    query row and the KV tiles it visits."""
+    path: str
+    block_q: int
+    block_kv: int
+    blocks: int
+    tiles: tuple          # ((bn, first row, KV tiles visited), ...)
+
+
+def kv_tiles(r0: int, block_q: int, block_kv: int, rows: int, skv: int,
+             sq: int, causal: bool) -> int:
+    """KV tiles the query tile of rows ``r0 .. r0 + block_q - 1`` visits:
+    all, or causally up to the one holding its largest query position —
+    ``sq - 1`` when the tile wraps into the next query head."""
+    n = -(-skv // block_kv)
+    if causal:
+        r_last = min(r0 + block_q, rows) - 1
+        reach = r_last % sq if r0 // sq == r_last // sq else sq - 1
+        n = min(n, reach // block_kv + 1)
+    return n
+
+
+def block_tile(L: int, block_q: int, BN: int, rows: int, sq: int):
+    """(bn, first query row) of block ``L``, heaviest first: with ``sq`` a
+    multiple of the tile, tile i of every query head of every bn reaches
+    as far, so the blocks go by i from the last, every (bn, head) at each;
+    otherwise the tiles go from the last, every bn at each."""
+    if sq % block_q == 0:
+        tph, heads = sq // block_q, rows // sq
+        i, rem = tph - 1 - L // (BN * heads), L % (BN * heads)
+        return rem // heads, ((rem % heads) * tph + i) * block_q
+    return L % BN, (-(-rows // block_q) - 1 - L // BN) * block_q
+
+
+def fwd_plan(BN: int, R: int, Skv: int, sq_real: int, H: int, dtype,
+             causal: bool) -> FwdPlan:
+    """What csrc/flash_attention.cu launches for ``flash_fwd``."""
+    if H not in HEAD_DIMS:
+        raise ValueError(f"head_dim {H}: the kernel takes {HEAD_DIMS}")
+    if dtype not in FWD_PATHS:
+        raise ValueError(f"dtype {dtype} not in {list(FWD_PATHS)}")
+    path, bq, bkv = FWD_PATHS[dtype]
+    sq = sq_real or R
+    blocks = -(-R // bq) * BN
+    tiles = []
+    for L in range(blocks):
+        bn, r0 = block_tile(L, bq, BN, R, sq)
+        tiles.append((bn, r0, kv_tiles(r0, bq, bkv, R, Skv, sq, causal)))
+    return FwdPlan(path, bq, bkv, blocks, tuple(tiles))
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,7 +118,8 @@ def load_decode_library() -> ctypes.CDLL:
 def flash_fwd(q, k, v, *, causal: bool = True, softcap: float = 0.0,
               sq_real: int = 0):
     """q: (BN, R, H), row r the query column r % sq_real (0: R); k/v:
-    (BN, Skv, H); all fp32 or all bf16, contiguous, on a Hopper card.
+    (BN, Skv, H); all fp32 or all bf16, contiguous (bf16: each starting
+    on a 16-byte boundary), on a Hopper card.
 
     Returns ``(out (BN, R, H) in q.dtype, lse (BN, R) fp32)``."""
     dev = q.device
@@ -66,14 +130,15 @@ def flash_fwd(q, k, v, *, causal: bool = True, softcap: float = 0.0,
         raise ValueError(f"head_dim {H}: the kernel takes {HEAD_DIMS}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"dtype {q.dtype} not in {list(_DTYPES)}")
-    if BN > _MAX_BN:
-        raise ValueError(f"{BN} batch x KV heads > {_MAX_BN}")
     sq = sq_real or R
     if sq <= 0 or (R and R % sq):
         raise ValueError(f"rows {R} not a multiple of sq_real={sq}")
-    common.check_operand("q", q, q.dtype, dev)
-    common.check_operand("k", k, q.dtype, dev, (BN, Skv, H))
-    common.check_operand("v", v, q.dtype, dev, (BN, Skv, H))
+    if -(-R // FWD_PATHS[q.dtype][1]) * BN > _MAX_BLOCKS:
+        raise ValueError(f"{BN} x {R} rows: more blocks than the grid takes")
+    align = 16 if FWD_PATHS[q.dtype][0] == TC else 0
+    common.check_operand("q", q, q.dtype, dev, align=align)
+    common.check_operand("k", k, q.dtype, dev, (BN, Skv, H), align)
+    common.check_operand("v", v, q.dtype, dev, (BN, Skv, H), align)
     out = torch.empty((BN, R, H), dtype=q.dtype, device=dev)
     lse = torch.empty((BN, R), dtype=torch.float32, device=dev)
     if BN == 0 or R == 0:

@@ -65,8 +65,15 @@ def flash_fwd(qg, kg, vg, *, causal: bool, softcap: float, sq_real: int):
     if qg.device.type == "cpu":
         return ref.flash_fwd(qg, kg, vg, causal=causal, softcap=softcap,
                              sq_real=sq_real)
-    return K.flash_fwd(qg.contiguous(), kg.contiguous(), vg.contiguous(),
+    return K.flash_fwd(_aligned(qg), _aligned(kg), _aligned(vg),
                        causal=causal, softcap=softcap, sq_real=sq_real)
+
+
+def _aligned(t):
+    """``t`` contiguous and starting on a 16-byte boundary (the kernel's
+    16-byte copies): a view that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_backward(q, k, v, out, lse, dout, *, causal: bool, softcap: float,

@@ -23,6 +23,12 @@ from __future__ import annotations
 import torch
 
 NEG_INF = -1e30
+# the forward kernel's tolerance against ``flash_fwd``, (rtol, atol) of
+# ``out`` by dtype.  fp32: the sums in another order.  bf16: both versions
+# compute in fp32 and round once to bf16, so they are at most one bf16 ulp
+# apart, which is 2^-7 = 7.8e-3 of the value at most.  ``lse``: 1e-4, 1e-4.
+FLASH_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (8e-3, 1e-4)}
+LSE_TOL = (1e-4, 1e-4)
 
 
 def flash_fwd(q, k, v, *, causal: bool = True, softcap: float = 0.0,

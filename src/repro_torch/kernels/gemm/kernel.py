@@ -5,14 +5,17 @@
 both fp64, in; c (M, N) of the same type out.  It checks device, dtype,
 shape and contiguity, allocates the output with ``torch.empty``,
 launches on the current stream without synchronising, and raises if the
-launch returns a CUDA error.  ``gemm.launches`` counts the kernel
-launches made through it.
+launch returns a CUDA error.  ``plan`` is the host's copy of the tiles,
+stages and grid the kernel picks for a dtype and block multiplier (fp64 on
+the tensor cores, DMMA; fp32 on the CUDA cores, SIMT).  ``gemm.launches``
+counts the kernel launches made through it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +23,44 @@ from repro_torch.kernels import common
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "gemm.cu",)
 DTYPES = {torch.float32: 0, torch.float64: 1}
+# the paths: fp64 on the tensor cores, fp32 on the CUDA cores
+DMMA, SIMT = "DMMA", "SIMT"
+# block_multiplier -> (BM, BN), both paths: the block tile grows with m as
+# the TPU kernel's 128 m x 128 m tile does (Fig 7's LMUL axis)
+TILES = {1: (64, 64), 2: (128, 128), 4: (256, 128), 8: (256, 256)}
+BK = 16                            # k a stage
+STAGES = {DMMA: 3, SIMT: 2}        # cp.async ring depth
+PAD = 4                            # elements a padded shared row adds
+SMEM_LIMIT = 232448                # bytes of shared memory a block may take
+
+
+class Plan(NamedTuple):
+    """The path, the block tile (BM, BN, BK), the cp.async stages, the
+    grid (blocks along N, along M) and the block's shared memory."""
+    path: str
+    tile: tuple
+    stages: int
+    grid: tuple
+    smem: int
+
+
+def plan(M: int, N: int, K: int, dtype, block_multiplier: int) -> Plan:
+    """What csrc/gemm.cu launches for C (M, N) = A (M, K) @ B (K, N):
+    fp64 through ``mma.sync`` f64 with fp64 accumulators (A row-major and
+    B k-major rows, each padded by ``PAD`` doubles); fp32 through FMAs
+    (A transposed to k-major, padded; B as it is)."""
+    common.check_multiplier(block_multiplier)
+    bm, bn = TILES[block_multiplier]
+    if dtype == torch.float64:
+        path = DMMA
+        smem = STAGES[path] * 8 * (bm * (BK + PAD) + BK * (bn + PAD))
+    elif dtype == torch.float32:
+        path = SIMT
+        smem = STAGES[path] * 4 * (BK * (bm + PAD) + BK * bn)
+    else:
+        raise ValueError(f"gemm kernel takes {list(DTYPES)}, got {dtype}")
+    return Plan(path, (bm, bn, BK), STAGES[path],
+                (-(-N // bn), -(-M // bm)), smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,8 +75,8 @@ def load_library() -> ctypes.CDLL:
 def gemm(a: torch.Tensor, b: torch.Tensor, *,
          block_multiplier: int = 1) -> torch.Tensor:
     """a (M, K), b (K, N): contiguous, both fp32 or both fp64, on a
-    Hopper card.  ``block_multiplier`` in {1, 2, 4, 8} scales the
-    per-thread register tile (and so the block tile)."""
+    Hopper card.  ``block_multiplier`` in {1, 2, 4, 8} picks the block
+    tile (``plan``)."""
     dev = a.device
     common.require_hopper(dev)
     common.check_multiplier(block_multiplier)

@@ -16,6 +16,18 @@ backward) against the JAX package, on the same numpy inputs, fp32.
   softcap 0 and 30, KV chunks that do not divide S: 1e-4.
 
 The CUDA kernel itself runs only on the card (tests/test_torch_gpu.py).
+What the host can check of it is checked here:
+
+- ``kernel.fwd_plan`` sends bf16 to the tensor cores and fp32 to the CUDA
+  cores at every head dim, issues every (bn, query tile) once, heaviest
+  first, and the KV tiles each query tile visits hold every (row, kv)
+  pair the causal mask keeps while every tile it skips is wholly masked:
+  grouped rows that wrap from one query head into the next inside a tile
+  (S 1, 63, 200, 4096; G 1, 2, 8).
+- a plain emulation of the tensor-core path's arithmetic (bf16 Q K^T
+  products summed in fp32, an fp32 online softmax over 64-row KV tiles,
+  P split into two bf16 halves for P.V) stays within ``ref.FLASH_TOL`` of
+  ``ref.flash_fwd``, while rounding P once to bf16 does not.
 """
 import numpy as np
 import pytest
@@ -176,3 +188,120 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(RuntimeError):
         pt_kernel.flash_fwd(x, x, x)
     assert pt_kernel.flash_fwd.launches == before
+
+
+@pytest.mark.parametrize("H", pt_kernel.HEAD_DIMS)
+def test_fwd_plan_path_by_dtype(H):
+    """bf16 on the tensor cores (128-row query tiles), fp32 on the CUDA
+    cores (64-row tiles: TF32 would miss the fp32 tolerance)."""
+    bf = pt_kernel.fwd_plan(3, 400, 200, 200, H, torch.bfloat16, True)
+    f32 = pt_kernel.fwd_plan(3, 400, 200, 200, H, torch.float32, True)
+    assert (bf.path, bf.block_q, bf.block_kv) == (pt_kernel.TC, 128, 64)
+    assert (f32.path, f32.block_q, f32.block_kv) == (pt_kernel.SIMT, 64, 64)
+    assert bf.blocks == 3 * 4 and f32.blocks == 3 * 7
+    with pytest.raises(ValueError):
+        pt_kernel.fwd_plan(3, 400, 200, 200, H, torch.float16, True)
+
+
+def test_fwd_plan_refuses_other_head_dims():
+    with pytest.raises(ValueError):
+        pt_kernel.fwd_plan(1, 64, 64, 64, 96, torch.bfloat16, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("S", [1, 63, 200, 4096])
+def test_fwd_plan_visits_every_kept_pair(S, dtype):
+    """Per block: every kv the causal mask keeps for one of its rows lies
+    in a visited tile, every skipped tile is wholly masked, and all tiles
+    are visited without the mask; each (bn, query tile) comes once."""
+    BN = 2
+    for G in (1, 2, 8):
+        R = G * S
+        for causal in (True, False):
+            plan = pt_kernel.fwd_plan(BN, R, S, S, 128, dtype, causal)
+            bq, bkv = plan.block_q, plan.block_kv
+            seen = set()
+            for bn, r0, n_kv in plan.tiles:
+                assert r0 % bq == 0 and (bn, r0) not in seen
+                seen.add((bn, r0))
+                if not causal:
+                    assert n_kv == -(-S // bkv)
+                    continue
+                q_pos = np.arange(r0, min(r0 + bq, R)) % S
+                # row r keeps kv 0 .. q_pos[r]: the furthest kept kv is the
+                # largest query position, and it must sit in the last tile
+                assert (n_kv - 1) * bkv <= q_pos.max() < n_kv * bkv
+            assert len(seen) == BN * -(-R // bq) == plan.blocks
+
+
+@pytest.mark.parametrize("S,G", [(128, 2), (4096, 2), (256, 8)])
+def test_fwd_plan_issues_the_heaviest_first(S, G):
+    """With S a multiple of the query tile, the causal reach never grows
+    along the issue order (the train shapes: qwen3's 16/8 heads)."""
+    plan = pt_kernel.fwd_plan(8, G * S, S, S, 128, torch.bfloat16, True)
+    reach = [n for _, _, n in plan.tiles]
+    assert reach == sorted(reach, reverse=True)
+    assert reach[0] == S // plan.block_kv
+
+
+def _emulate_tensor_cores(q, k, v, *, causal, softcap, sq, split):
+    """The tensor-core path's arithmetic in plain fp32: bf16 products summed
+    in fp32 (exact products, another order of the sum), the online softmax
+    over 64-row KV tiles, then P.V with P split into ``p_hi = bf16(p)``
+    and ``p_lo = bf16(p - p_hi)`` (``split``) or rounded once to bf16."""
+    BN, R, H = q.shape
+    Skv = k.shape[1]
+    qf, kf, vf = q.float(), k.float(), v.float()
+    q_pos = (torch.arange(R) % sq)[:, None]
+    m = torch.full((BN, R, 1), pt_ref.NEG_INF)
+    l = torch.zeros((BN, R, 1))
+    acc = torch.zeros((BN, R, H))
+    for kv0 in range(0, Skv, 64):
+        kc, vc = kf[:, kv0:kv0 + 64], vf[:, kv0:kv0 + 64]
+        s = torch.bmm(qf, kc.transpose(1, 2)) * H ** -0.5
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        if causal:
+            kv = torch.arange(kv0, kv0 + kc.shape[1])[None, :]
+            s = torch.where(kv <= q_pos, s, pt_ref.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr, p = torch.exp(m - m_new), torch.exp(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        p_hi = p.bfloat16().float()
+        pv = torch.bmm(p_hi, vc)
+        if split:
+            pv = torch.bmm((p - p_hi).bfloat16().float(), vc) + pv
+        acc, m = acc * corr + pv, m_new
+    denom = l.clamp_min(1e-30)
+    return (acc / denom).bfloat16(), (m + torch.log(denom)).squeeze(-1)
+
+
+def _outside(got, want, rtol, atol):
+    err = (got.double() - want.double()).abs()
+    return int((err > atol + rtol * want.double().abs()).sum())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("S", [1, 63, 200])
+def test_tensor_core_arithmetic_within_flash_tol(S, softcap, causal):
+    """chip_smoke's short bf16 cases (H 32, 64, 128; G 1, 2, 8; 3 KV
+    heads): the split P passes ``FLASH_TOL`` and the lse tolerance at
+    every shape; a P rounded once to bf16 puts elements outside it
+    whenever a row has more than one key (S 1: p is exactly 1)."""
+    rtol, atol = pt_ref.FLASH_TOL[torch.bfloat16]
+    for H in (32, 64, 128):
+        for G in (1, 2, 8):
+            rng = np.random.default_rng(1000 * S + 10 * H + G)
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
+                np.float32)).bfloat16() for shape in
+                [(3, G * S, H), (3, S, H), (3, S, H)])
+            kw = dict(causal=causal, softcap=softcap, sq=S)
+            want, want_lse = pt_ref.flash_fwd(q, k, v, causal=causal,
+                                              softcap=softcap, sq_real=S)
+            out, lse = _emulate_tensor_cores(q, k, v, split=True, **kw)
+            once, _ = _emulate_tensor_cores(q, k, v, split=False, **kw)
+            assert _outside(out.float(), want.float(), rtol, atol) == 0
+            assert _outside(lse, want_lse, *pt_ref.LSE_TOL) == 0
+            missed = _outside(once.float(), want.float(), rtol, atol)
+            assert missed > 0 if S > 1 else missed == 0, (H, G, missed)

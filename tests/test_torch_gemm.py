@@ -9,7 +9,13 @@ sum, ``(|a| @ |b|)[i, j]`` (a dot product's rounding error grows with
 the sum of its terms' magnitudes, not with its possibly cancelled
 result).  fp32: 1e-5.  fp64, with x64 on: against JAX's ``a @ b`` at
 1e-12, and against the JAX kernel at 1e-6 only, because that kernel
-accumulates in fp32 (the port's kernel accumulates in fp64)."""
+accumulates in fp32 (the port's kernel accumulates in fp64).
+
+``kernel.plan``, what the CUDA kernel launches, is checked on the host:
+four distinct block tiles a dtype that grow with the block multiplier,
+fp64 on the tensor cores (DMMA) and fp32 on the CUDA cores (SIMT), a
+grid that covers M and N (ragged, and M, N or K of 1) and shared memory
+within the 227 KB a block may take."""
 import numpy as np
 import pytest
 import torch
@@ -104,3 +110,35 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(RuntimeError):
         pt_kernel.gemm(a, a)
     assert pt_kernel.gemm.launches == before
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.float64, pt_kernel.DMMA),
+                                        (torch.float32, pt_kernel.SIMT)])
+def test_plan_tiles_grow_with_the_multiplier(dtype, path):
+    plans = [pt_kernel.plan(4096, 4096, 4096, dtype, m) for m in (1, 2, 4, 8)]
+    tiles = [p.tile for p in plans]
+    assert all(p.path == path for p in plans)
+    assert len(set(tiles)) == 4
+    for (bm, bn, bk), (bm2, bn2, bk2) in zip(tiles, tiles[1:]):
+        assert bm2 >= bm and bn2 >= bn and bm2 * bn2 > bm * bn
+    assert all(p.smem <= pt_kernel.SMEM_LIMIT and p.stages >= 2
+               for p in plans)
+
+
+@pytest.mark.parametrize("M,N,K", [(1000, 777, 515), (1, 1, 1), (1, 300, 7),
+                                   (300, 1, 7), (300, 200, 1),
+                                   (4096, 4096, 4096)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("mult", [1, 2, 4, 8])
+def test_plan_grid_covers_the_output(M, N, K, dtype, mult):
+    plan = pt_kernel.plan(M, N, K, dtype, mult)
+    bm, bn, _ = plan.tile
+    gn, gm = plan.grid
+    assert (gn - 1) * bn < N <= gn * bn
+    assert (gm - 1) * bm < M <= gm * bm
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int32])
+def test_plan_refuses_other_types(dtype):
+    with pytest.raises(ValueError):
+        pt_kernel.plan(8, 8, 8, dtype, 1)

@@ -24,6 +24,7 @@ from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.kernels.gemm import ops as gemm_ops
+from repro_torch.kernels.gemm import ref as gemm_ref
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.qsim_gate import kernel as gate_kernel
@@ -153,6 +154,23 @@ def test_gemm_kernel_matches_plain(card, dtype, tol, mult):
                                atol=tol)
 
 
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+@pytest.mark.parametrize("mult", [1, 2, 4, 8])
+@pytest.mark.parametrize("M,K,N", [(512, 512, 512), (300, 64, 1032)])
+def test_gemm_kernel_16_byte_rows_match_plain(card, dtype, tol, mult, M, K,
+                                              N):
+    """Rows of 16-byte multiples take the 16-byte copies (the ragged test
+    above the element copies): against ref.gemm on the card."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(mult)
+    a = torch.randn((M, K), generator=g, device=card, dtype=dtype)
+    b = torch.randn((K, N), generator=g, device=card, dtype=dtype)
+    got = _counted(gemm_kernel.gemm, lambda: gemm_kernel.gemm(
+        a, b, block_multiplier=mult))
+    torch.testing.assert_close(got, gemm_ref.gemm(a, b), rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("k", [1, 2, 3, 5])
 @pytest.mark.parametrize("block_h", [4, 8, 12])
 def test_conv2d_kernel_matches_plain(card, k, block_h):
@@ -273,14 +291,15 @@ def test_engine_on_card_matches_cpu(card):
     (63, 2, 64, torch.float32, True, 0.0),
     (97, 8, 32, torch.float32, True, 30.0),
     (130, 2, 128, torch.bfloat16, False, 0.0),
-    (200, 8, 128, torch.bfloat16, True, 30.0)])
+    (200, 8, 128, torch.bfloat16, True, 30.0),
+    (63, 8, 64, torch.bfloat16, True, 0.0),
+    (4096, 2, 128, torch.bfloat16, True, 0.0)])
 def test_flash_kernel_matches_plain(card, S, G, H, dtype, causal, softcap):
     """Grouped rows that wrap from one query head to the next inside a
-    64-row tile (S not a multiple of 64, G 2 and 8): out and lse against
-    the plain version on the same card inputs.  fp32 out and lse 1e-4
-    (sums in another order); bf16 out rtol 8e-3, atol 1e-4 (both round
-    the same fp32 value once to bf16, so they are at most one bf16 ulp,
-    2^-7 of the value, apart)."""
+    query tile (S not a multiple of 64 or 128, G 2 and 8): out and lse
+    against the plain version on the same card inputs, within
+    ``ref.FLASH_TOL`` and ``ref.LSE_TOL`` (fp32 on the CUDA cores, bf16 on
+    the tensor cores)."""
     rng = np.random.default_rng(S + G)
     BN = 3
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(
@@ -290,10 +309,27 @@ def test_flash_kernel_matches_plain(card, S, G, H, dtype, causal, softcap):
         q, k, v, causal=causal, softcap=softcap, sq_real=S))
     want_out, want_lse = fa_ref.flash_fwd(q, k, v, causal=causal,
                                           softcap=softcap, sq_real=S)
-    rtol = 1e-4 if dtype == torch.float32 else 8e-3
+    rtol, atol = fa_ref.FLASH_TOL[dtype]
     torch.testing.assert_close(out.float(), want_out.float(), rtol=rtol,
-                               atol=1e-4)
-    torch.testing.assert_close(lse, want_lse, rtol=1e-4, atol=1e-4)
+                               atol=atol)
+    rtol, atol = fa_ref.LSE_TOL
+    torch.testing.assert_close(lse, want_lse, rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("S,G,causal", [(128, 2, True), (4096, 2, True),
+                                        (200, 8, False)])
+def test_flash_kernel_gives_the_same_bits_twice(card, S, G, causal):
+    """The tensor-core forward (no atomics, no split-KV) run twice on the
+    same inputs: out and lse bit for bit, at qwen3's train shapes and a
+    wrapped full-attention one."""
+    g = torch.Generator(device=card).manual_seed(S)
+    q, k, v = (torch.randn(shape, generator=g, device=card).bfloat16()
+               for shape in [(4, G * S, 128), (4, S, 128), (4, S, 128)])
+    first = _counted(fa_kernel.flash_fwd, lambda: fa_kernel.flash_fwd(
+        q, k, v, causal=causal, sq_real=S))
+    second = fa_kernel.flash_fwd(q, k, v, causal=causal, sq_real=S)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("H,G,Sq,dtype,softcap", [
