@@ -23,7 +23,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              F.scaled_dot_product_attention on the gathered dense cache (a
              yardstick the port never calls) and the bound (bytes over the
              memory rate, or operations over the bf16 peak, whichever is
-             larger).  Times come from repro_torch.perf.measure.
+             larger), and the KV split the wrapper launched
+             (kernel.split_plan: splits x tokens, grid, block mode).  On
+             the identity-map cases the kernel is also timed at 1, 2, 3, 4
+             and 8 splits forced (the sweep the plan's rule is read
+             against).  Times come from repro_torch.perf.measure.
 4. kernels-veceval — the STREAM, SpMV, GEMM and conv2d kernels against
              their plain versions on the card: ragged shapes, the JAX
              package's default sizes and the card sizes past the 50 MB L2.
@@ -32,6 +36,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              tensor, torch.matmul, F.conv2d) and bound ms.  TF32 is off.
              The GEMM at every block multiplier in both dtypes (ragged,
              512^3 and 4096^3 checked; 4096^3 timed: Fig 7 on the card).
+             The conv2d's tile (kernel.plan) at each card-size layer, and
+             two layers timed: 64 -> 64 (alexnet's largest) and yolov3's
+             8 -> 32, both 3x3 at 224^2.
              The one-hot SpMV: tests/test_kernels_fused.py's shapes, ragged
              rows and nonzeros, columns at -1 and at C (they contribute 0);
              timed at the JAX veceval size (2^14 rows x 16, C 2^14: 2^32
@@ -487,6 +494,29 @@ def library_fn(c):
                                                   enable_gqa=True)
 
 
+def _split_plan(c):
+    """The KV split the wrapper launches for a case (kernel.split_plan)."""
+    B, NKV, R, H = c["qg"].shape
+    p = pa_kernel.split_plan(
+        B, NKV, R, c["page_idx"].shape[1] * c["kp"].shape[1],
+        torch.cuda.get_device_properties(0).multi_processor_count,
+        head_dim=H, kv_bytes=c["kp"].element_size())
+    return (f"plan: {p.splits} splits x {p.tokens_per_split} tokens, grid "
+            f"{p.grid}, mode (KV warps, rows a warp) {p.mode}")
+
+
+SWEEP_SPLITS = (1, 2, 3, 4, 8)
+
+
+def split_sweep(args, sq):
+    """The kernel's median ms at each forced split count, timed
+    interleaved (as time_three)."""
+    fns = {f"s{n}": (lambda n=n: pa_kernel.paged_flash_decode(
+        *args, sq=sq, splits=n)) for n in SWEEP_SPLITS}
+    ms = measure_group(fns, reps=30, flush_l2=True, cover_ms=2.0)
+    return " ".join(f"{k} {m.median_s * 1e3:.4f}" for k, m in ms.items())
+
+
 def phase_kernel(card, hw):
     dev = torch.device("cuda")
     base = [0, 1, 16, 37, 256, 511, 777, 1024]       # ragged, 8 slots
@@ -535,7 +565,11 @@ def phase_kernel(card, hw):
         b_ms, b_by = bound_ms(c, hw)
         log("kernel", f"{name}: ok max_abs_err {err:.2e} | kernel_ms "
                       f"{k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
-                      f"{l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) | {card}")
+                      f"{l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) | "
+                      f"{_split_plan(c)} | {card}")
+        if not kw["permuted"]:
+            log("kernel", f"{name}: kernel_ms at forced splits "
+                          f"{split_sweep(args, c['sq'])} | {card}")
         if name.startswith("main-path"):
             main = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                         bound_ms=b_ms, bound_by=b_by)
@@ -773,10 +807,23 @@ def kernels_gemm(g, hw, card):
     return rec
 
 
+def _conv_plan(x, w):
+    """The tile the wrapper launches for x, w (conv2d.kernel.plan)."""
+    N, H, W, Cin = x.shape
+    kh, kw, _, Cout = w.shape
+    p = conv_kernel.plan(
+        N, H, W, Cin, Cout, kh, kw,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    return (f"plan: {conv_kernel.TILE_H}x{conv_kernel.TILE_W} pixels x "
+            f"{p.bn} channels a block ({p.tc} a "
+            f"thread, {p.threads} threads), kw template {p.kw_max}, grid "
+            f"{p.grid}, smem {p.smem} B")
+
+
 def kernels_conv2d(g, hw, card):
     dev = torch.device("cuda")
     worst = 0.0
-    for k in (1, 2, 3, 5):                          # ragged W, Cin, Cout
+    for k in (1, 2, 3, 5, 7):                       # ragged W, Cin, Cout
         x = torch.randn((2, 24, 37, 5), generator=g, device=dev)
         w = torch.randn((k, k, 5, 33), generator=g, device=dev) * 0.1
         want = conv_ref.conv2d_same(x, w)
@@ -796,14 +843,33 @@ def kernels_conv2d(g, hw, card):
                     f"conv2d {hw_side}^2 {cin}->{cout} k{k}",
                     conv_kernel.conv2d_same(x, w, bh=8),
                     conv_ref.conv2d_same(x, w), 1e-4, 1e-4))
+                if hw_side == 224:
+                    log("kernels-veceval", f"conv2d 224^2 {cin}->{cout} "
+                                           f"k{k}: {_conv_plan(x, w)}")
                 cin = cout
     log("kernels-veceval", f"conv2d: ok, max abs err {worst:.2e}")
+    # a yolov3 layer at the card size: 224^2, 8 -> 32, 3x3
+    x = torch.rand((1, 224, 224, 8), generator=g, device=dev)
+    w = torch.rand((3, 3, 8, 32), generator=g, device=dev) * 0.1
+    xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+    err = check("conv2d 224^2 8->32 3x3", conv_kernel.conv2d_same(x, w, bh=8),
+                conv_ref.conv2d_same(x, w), 1e-4, 1e-4)
+    worst = max(worst, err)
+    timed_record(
+        "conv2d 224^2 8->32 3x3 fp32 (yolov3)", {
+            "kernel": lambda: conv_kernel.conv2d_same(x, w, bh=8),
+            "plain": lambda: conv_ref.conv2d_same(x, w),
+            "library": lambda: F.conv2d(xn, wn, padding=1)},
+        2.0 * 224 * 224 * 9 * 8 * 32,
+        4.0 * (x.numel() + w.numel() + 224 * 224 * 32), torch.float32, hw,
+        card, err)
     # the largest layer of the card-size AlexNet stack: 224^2, 64 -> 64, 3x3
     x = torch.rand((1, 224, 224, 64), generator=g, device=dev)
     w = torch.rand((3, 3, 64, 64), generator=g, device=dev) * 0.1
     xn, wn = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
     check("conv2d F.conv2d yardstick", F.conv2d(xn, wn, padding=1)
           .permute(0, 2, 3, 1), conv_ref.conv2d_same(x, w), 1e-4, 1e-4)
+    log("kernels-veceval", f"conv2d 224^2 64->64 3x3: {_conv_plan(x, w)}")
     return timed_record(
         "conv2d 224^2 64->64 3x3 fp32", {
             "kernel": lambda: conv_kernel.conv2d_same(x, w, bh=8),

@@ -69,6 +69,30 @@ def _hopper(index: int) -> int:
     return index
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SMs of CUDA device ``index``, read once a process (the plans
+    size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+class CallTable(dict):
+    """A binding's checked and planned calls, by call signature: the
+    checks and the plan run once a signature, so a call on the decode path
+    costs little host time.  Past ``MAX_CALLS`` signatures the table
+    starts again."""
+    MAX_CALLS = 4096
+
+    def lookup(self, key, make, *args):
+        """The entry for ``key``, made by ``make(*args)`` the first time."""
+        call = self.get(key)
+        if call is None:
+            if len(self) >= self.MAX_CALLS:
+                self.clear()
+            call = self[key] = make(*args)
+        return call
+
+
 def cuda_tool(name: str) -> str:
     """Path of a CUDA toolkit program (nvcc, cuobjdump): on PATH or under
     CUDA_HOME."""

@@ -6,6 +6,9 @@ on-card oracle of the CUDA kernel.
 dense cache view, repeats KV heads up to the query heads and runs a full
 masked softmax.  ``paged_partials`` computes exactly what the kernel
 computes — grouped fp32 ``(acc, m, l)`` partials — by the same gather.
+``split_partials`` follows the kernel's KV split: partials over each
+split's token range, folded in rank order as the cluster's rank 0 folds
+them.
 """
 from __future__ import annotations
 
@@ -55,6 +58,37 @@ def paged_partials(qg, k_pages, v_pages, page_idx, pos0, kv_valid, *,
     Returns fp32 ``(acc, m, l)`` shaped (B, NKV, G*Sq, H) / (B, NKV, G*Sq)
     / (B, NKV, G*Sq).  Masked scores add exactly 0 to ``l`` and ``acc``;
     a row with nothing to attend has ``m = NEG_INF`` and ``l = 0``."""
+    return _range_partials(qg, k_pages, v_pages, page_idx, pos0, kv_valid,
+                           sq=sq, softcap=softcap, lo=0, hi=None)
+
+
+def split_partials(qg, k_pages, v_pages, page_idx, pos0, kv_valid, *,
+                   sq: int, splits: int, tokens_per_split: int,
+                   softcap: float = 0.0):
+    """``paged_partials`` as the kernel's KV split computes it: split s
+    covers table tokens [s * tokens_per_split, (s + 1) * tokens_per_split)
+    (a split at or past a row's kv_valid holds the neutral partial m =
+    NEG_INF, l = 0, acc = 0), and the splits' partials are folded in rank
+    order: m = the largest m_s, then l and acc are sums of l_s and acc_s
+    times exp(m_s - m), added split by split."""
+    parts = [_range_partials(qg, k_pages, v_pages, page_idx, pos0, kv_valid,
+                             sq=sq, softcap=softcap,
+                             lo=s * tokens_per_split,
+                             hi=(s + 1) * tokens_per_split)
+             for s in range(splits)]
+    m = torch.stack([p[1] for p in parts]).amax(dim=0)
+    acc = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for acc_s, m_s, l_s in parts:
+        w = torch.exp(m_s - m)
+        l = l + l_s * w
+        acc = acc + acc_s * w[..., None]
+    return acc, m, l
+
+
+def _range_partials(qg, k_pages, v_pages, page_idx, pos0, kv_valid, *,
+                    sq, softcap, lo, hi):
+    """Partials over table tokens lo <= t < hi (hi None: no bound)."""
     B, NKV, R, H = qg.shape
     k = k_pages[page_idx.long()].reshape(B, -1, NKV, H).transpose(1, 2)
     v = v_pages[page_idx.long()].reshape(B, -1, NKV, H).transpose(1, 2)
@@ -67,6 +101,9 @@ def paged_partials(qg, k_pages, v_pages, page_idx, pos0, kv_valid, *,
     qpos = (pos0[:, None, None]
             + (torch.arange(R, device=dev) % sq)[None, :, None])  # (B, R, 1)
     mask = (t <= qpos) & (t < kv_valid[:, None, None])        # (B, R, L)
+    mask &= t >= lo
+    if hi is not None:
+        mask &= t < hi
     mask = mask[:, None]                                      # (B, 1, R, L)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(dim=-1)

@@ -80,11 +80,6 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 class _Call(NamedTuple):
     """What one call signature needs, checked once: the output's shape,
     the launch plans (8 ints each, without and with 16-byte loads),
@@ -96,8 +91,7 @@ class _Call(NamedTuple):
     launch: object
 
 
-_calls = {}           # call signature -> _Call
-MAX_CALLS = 4096      # signatures kept; past it the table starts again
+_calls = common.CallTable()     # call signature -> _Call
 
 
 def _call(x_shape, q_shape, s_shape, x_dtype, q_dtype, s_dtype, out_dtype,
@@ -124,7 +118,7 @@ def _call(x_shape, q_shape, s_shape, x_dtype, q_dtype, s_dtype, out_dtype,
             f"the same device, got q {q_dtype} {tuple(q_shape)} on {q_dev}, "
             f"scale {s_dtype} {tuple(s_shape)} on {s_dev}")
     x_bf16 = x_dtype is torch.bfloat16
-    p = plan(M, N, K, x_bf16, _sm_count(index))
+    p = plan(M, N, K, x_bf16, common.sm_count(index))
     flags = ((OUT_BF16 if out_dtype is torch.bfloat16 else 0)
              | (TRANSPOSED if q_transposed else 0)
              | (0 if x_bf16 else X_FP32))
@@ -148,11 +142,7 @@ def wq_gemm(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *,
     out_dtype = out_dtype or x.dtype
     key = (x.shape, q.shape, scale.shape, x.dtype, q.dtype, scale.dtype,
            out_dtype, q_transposed, x.device, q.device, scale.device)
-    call = _calls.get(key)
-    if call is None:
-        if len(_calls) >= MAX_CALLS:
-            _calls.clear()
-        call = _calls[key] = _call(*key)
+    call = _calls.lookup(key, _call, *key)
     if not (x.is_contiguous() and q.is_contiguous()
             and scale.is_contiguous()):
         raise ValueError("wq_gemm: x, q and scale must be contiguous")

@@ -27,6 +27,7 @@ from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.gemm import ref as gemm_ref
 from repro_torch.kernels.paged_attention import kernel as pa_kernel
 from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.paged_attention import ref as pa_ref
 from repro_torch.kernels.qsim_gate import kernel as gate_kernel
 from repro_torch.kernels.qsim_gate import ops as gate_ops
 from repro_torch.kernels.spmv import kernel as spmv_kernel
@@ -64,38 +65,120 @@ def card():
     return dev
 
 
-@pytest.mark.parametrize("H,sq,permuted,dtype", [
-    (64, 1, True, torch.bfloat16), (128, 4, False, torch.bfloat16),
-    (64, 4, True, torch.float32), (128, 1, True, torch.float32)])
-def test_kernel_matches_plain(card, H, sq, permuted, dtype):
-    """Partials and normalized output of the kernel against the plain
-    version on the same card inputs: empty, single-token, page-boundary
-    and partial-last-page rows.  Both compute in fp32 from the same
-    inputs, so they differ only in summation order (2e-3)."""
-    rng = np.random.default_rng(H + sq)
-    B, NKV, G, pps = 4, 2, 4, 4
+def _paged_inputs(card, H, sq, permuted, dtype, valid, pps=32, seed=None):
+    """A 256-token table (8 tiles: every split count the plan can return
+    up to 8), a row per entry of ``valid``, 2 KV heads, G 4;
+    numpy-seeded."""
+    rng = np.random.default_rng(H + sq if seed is None else seed)
+    B, NKV, G = len(valid), 2, 4
     q = torch.from_numpy(rng.standard_normal((B, sq, NKV * G, H))).float()
     kp = torch.from_numpy(rng.standard_normal((B * pps, PAGE, NKV, H)))
     vp = torch.from_numpy(rng.standard_normal((B * pps, PAGE, NKV, H)))
     idx = (rng.permutation(B * pps) if permuted else np.arange(B * pps))
-    valid = np.array([0, 8, 17, 32], np.int32)
+    valid = np.asarray(valid, np.int32)
     pos = np.maximum(valid[:, None] - sq + np.arange(sq)[None], 0)
-    args = [q.to(card), kp.to(card, dtype), vp.to(card, dtype),
+    return [q.to(card), kp.to(card, dtype), vp.to(card, dtype),
             torch.from_numpy(idx.reshape(B, pps).astype(np.int32)).to(card),
             torch.from_numpy(pos.astype(np.int32)).to(card),
             torch.from_numpy(valid).to(card)]
+
+
+def _grouped(args):
+    q, kp, vp, idx, pos, valid = args
+    B, Sq, NQ, H = q.shape
+    NKV = kp.shape[2]
+    qg = q.reshape(B, Sq, NKV, NQ // NKV, H).permute(0, 2, 3, 1, 4)
+    return (qg.reshape(B, NKV, -1, H).contiguous(), kp, vp, idx,
+            pos[:, 0].contiguous(), valid), Sq
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("H,sq,permuted,dtype", [
+    (64, 1, True, torch.bfloat16), (128, 4, False, torch.bfloat16),
+    (64, 4, True, torch.float32), (128, 1, True, torch.float32)])
+def test_kernel_matches_plain(card, H, sq, permuted, dtype, splits):
+    """Partials and normalized output of the kernel against the plain
+    version on the same card inputs: empty (kv_valid 0), page-boundary,
+    partial-last-page, long and full-table rows (the last split clamped at
+    the table's end), with splits wholly past kv_valid, at
+    every split count the plan returns for the 256-token table (forced
+    through the binding's test-only ``splits``; None: the plan's own,
+    through ops.paged_attention).  Both compute in fp32 from the same
+    inputs, so they differ only in summation order (2e-3).  A second
+    launch gives the same bits."""
+    args = _paged_inputs(card, H, sq, permuted, dtype, [0, 8, 17, 200, 256])
     before = pa_kernel.paged_flash_decode.launches
-    got = pa_ops.paged_attention(*args, page_size=PAGE, return_partials=True)
-    assert pa_kernel.paged_flash_decode.launches == before + 1
-    want = pa_ops.paged_attention(*[a.cpu() for a in args], page_size=PAGE,
-                                  return_partials=True)
+    if splits is None:
+        call = lambda: pa_ops.paged_attention(                # noqa: E731
+            *args, page_size=PAGE, return_partials=True)
+        got = call()
+        assert pa_kernel.paged_flash_decode.launches == before + 1
+        want = pa_ops.paged_attention(*[a.cpu() for a in args],
+                                      page_size=PAGE, return_partials=True)
+        torch.cuda.synchronize()
+        for g, w in zip(got[1:], want[1:]):
+            torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=2e-3)
+        out = pa_ops.combine_partials([got]).cpu()
+        assert torch.isfinite(out).all() and (out[0] == 0).all()
+        torch.testing.assert_close(out, pa_ops.combine_partials([want]),
+                                   rtol=2e-3, atol=2e-3)
+    else:
+        grouped, Sq = _grouped(args)
+        call = lambda: pa_kernel.paged_flash_decode(          # noqa: E731
+            *grouped, sq=Sq, splits=splits)
+        got = call()
+        assert pa_kernel.paged_flash_decode.launches == before + 1
+        want = pa_ref.paged_partials(*grouped, sq=Sq)
+        torch.cuda.synchronize()
+        live = want[2] > 0
+        torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
+        torch.testing.assert_close(got[2], want[2], rtol=2e-3, atol=2e-3)
+        torch.testing.assert_close(got[1][live], want[1][live], rtol=2e-3,
+                                   atol=2e-3)
+        # the empty row: acc = 0, l = 0, m = -1e30, no NaN
+        assert (got[0][0] == 0).all() and (got[2][0] == 0).all()
+        assert (got[1][0] == pa_ref.NEG_INF).all()
+        assert all(torch.isfinite(t).all() for t in got)
+    again = call()
     torch.cuda.synchronize()
-    for g, w in zip(got[1:], want[1:]):
-        torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=2e-3)
-    out = pa_ops.combine_partials([got]).cpu()
-    assert torch.isfinite(out).all() and (out[0] == 0).all()
-    torch.testing.assert_close(out, pa_ops.combine_partials([want]),
-                               rtol=2e-3, atol=2e-3)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("H,dtype", [(64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (64, torch.float32),
+                                     (128, torch.float32)])
+def test_kernel_bits_do_not_depend_on_empty_splits(card, H, dtype):
+    """Every valid token in the first 32 of a 256-token table: the other
+    splits (and warps) hold neutral partials, which the fold adds exactly,
+    so every split count gives the same bits (against the plain version
+    at 2e-3)."""
+    args = _paged_inputs(card, H, 1, True, dtype, [0, 5, 17, 32], seed=7)
+    grouped, Sq = _grouped(args)
+    outs = [pa_kernel.paged_flash_decode(*grouped, sq=Sq, splits=s)
+            for s in range(1, 9)]
+    want = pa_ref.paged_partials(*grouped, sq=Sq)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(outs[0][0], want[0], rtol=2e-3, atol=2e-3)
+    for got in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(got, outs[0]))
+
+
+def test_kernel_smem_copies_agree(card):
+    """kernel.py's copies of the kernels' shared memory (the plans rest on
+    them) equal csrc's."""
+    lib = pa_kernel.load_library()
+    for H in pa_kernel.HEAD_DIMS:
+        for kv_bytes in (2, 4):
+            for mode in pa_kernel.MODES:
+                assert lib.paged_partials_smem_bytes(H, kv_bytes, *mode) == \
+                    pa_kernel.smem_bytes(H, kv_bytes, mode)
+    lib = conv_kernel.load_library()
+    for bn in conv_kernel.CHANNEL_TILES:
+        for kh, kw in ((1, 1), (3, 3), (5, 5), (7, 3), (2, 4), (7, 7),
+                       (1, 9)):
+            assert lib.conv2d_smem_bytes(kh, kw, bn) == \
+                conv_kernel.smem_bytes(kh, kw, bn)
 
 
 def _counted(wrapper, call):
@@ -171,21 +254,29 @@ def test_gemm_kernel_16_byte_rows_match_plain(card, dtype, tol, mult, M, K,
     torch.testing.assert_close(got, gemm_ref.gemm(a, b), rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("k", [1, 2, 3, 5])
+@pytest.mark.parametrize("k", [1, 2, 3, 4, 5, 7])
 @pytest.mark.parametrize("block_h", [4, 8, 12])
 def test_conv2d_kernel_matches_plain(card, k, block_h):
     """Ragged width, input and output channels; even filters pad as the
-    TPU kernel does; block rows below, at and past the kernel's 8-row
-    chunk."""
+    TPU kernel does; block_h (the JAX entry's row block, checked for
+    parity) below, at and past 8.  Every tile of the plan: Cout 8, 16, 32
+    (and 33, 64 wide), 64 and 100 (two channel tiles), 1x1 to 5x5 filters
+    under their width templates, 7x7 under the any-width one, and a 3-row
+    by k-column one.  fp32 FMAs in both (1e-4)."""
     rng = np.random.default_rng(k)
-    x = torch.from_numpy(rng.standard_normal((2, 24, 37, 5)).astype(
-        np.float32))
-    w = torch.from_numpy((rng.standard_normal((k, k, 5, 33)) * 0.1).astype(
-        np.float32))
-    got = _counted(conv_kernel.conv2d_same, lambda: conv_ops.conv2d_same(
-        x.to(card), w.to(card), block_h=block_h))
-    torch.testing.assert_close(got.cpu(), conv_ops.conv2d_same(x, w),
-                               rtol=1e-4, atol=1e-4)
+    for cin, cout in ((5, 33), (16, 8), (12, 16), (8, 32), (20, 64),
+                      (3, 100)):
+        x = torch.from_numpy(rng.standard_normal((2, 24, 37, cin)).astype(
+            np.float32))
+        for kh in sorted({k, 3}):
+            w = torch.from_numpy((rng.standard_normal((kh, k, cin, cout))
+                                  * 0.1).astype(np.float32))
+            want = conv_ops.conv2d_same(x, w)
+            got = _counted(conv_kernel.conv2d_same,
+                           lambda: conv_ops.conv2d_same(
+                               x.to(card), w.to(card), block_h=block_h))
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4,
+                                       atol=1e-4)
 
 
 @pytest.mark.parametrize("idiom,wrapper", [
