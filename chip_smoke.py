@@ -12,13 +12,15 @@ Phases (one line each; any failure exits nonzero and prints no result):
              conv2d, strided gather, tail mask, Qsim gate, flash attention,
              flash decode, SSD scan, int8 GEMM).
    sass    — cuobjdump's counts of the matrix instructions in the flash
-             attention (HMMA or HGMMA required) and GEMM (DMMA required)
-             libraries.
+             attention (HMMA or HGMMA required), GEMM (DMMA required) and
+             SSD scan (TF32 HMMA required: its 3xTF32 products) libraries.
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
              kv_valid (0, 1, page boundaries, partial last pages, full),
-             identity and permuted page maps.  Prints the kernel's time,
+             identity and permuted page maps, without and with softcap 30
+             (the queries scaled by 30 for it: scores of ~30, where the
+             cap moves the output).  Prints the kernel's time,
              the plain version's, the time of
              F.scaled_dot_product_attention on the gathered dense cache (a
              yardstick the port never calls) and the bound (bytes over the
@@ -72,7 +74,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              at S 1, 200 and 2048 (b 8 at S 200), then at mamba2-780m's
              layer (b 8, S 2048, 48 heads, P 64, N 128, chunk 256), where
              kernel and plain are timed (no PyTorch call computes the SSD,
-             so no library time) and the bound is printed.
+             so no library time) and the bound is printed: the operations
+             at the fp32 CUDA-core rate (the record's), and three times
+             them at the TF32 tensor-core rate (the kernel's 3xTF32), and
+             the device time of each of the call's four kernels
+             (torch.profiler).
    kernels-int8 — the weight-only int8 GEMM against its plain version:
              tests/test_quant.py's shapes ((128, 256, 128), (256, 128, 384)),
              ragged M 1, 7, 8, 9, 16, 33, 64, 65 and 256 with K and N off
@@ -103,7 +109,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              shape (B 8, 552, 520, 32/8, H 64) and qwen3's at 64 slots,
              bf16: kernel, plain, library (F.scaled_dot_product_attention
              with the valid-length mask on the dense cache laid out heads
-             first, a call the port never makes) and bound.
+             first, a call the port never makes) and bound, with the KV
+             split the wrapper launched (kernel.decode_plan), and the
+             kernel at 1, 2, 4 and 8 splits forced and the plan's, beside
+             SDPA (the sweep the plan's rule is read against); the plan's
+             and SDPA also without the L2 flush.
 5. parity  — the port on the card against the port on the CPU, reduced
              granite-3-2b in fp32 (TF32 off): greedy tokens identical; and
              one train step of reduced qwen3-1.7b with the flash kernel
@@ -417,15 +427,16 @@ def phase_build():
 
 
 # the matrix instructions a library's SASS must hold: (library name, its
-# sources, the opcodes any of which must appear)
-SASS_REQUIRED = (("flash_attention", fa_kernel.SOURCES, ("HMMA", "HGMMA")),
-                 ("gemm", gemm_kernel.SOURCES, ("DMMA",)))
+# sources, a pattern one of its opcodes must match)
+SASS_REQUIRED = (("flash_attention", fa_kernel.SOURCES, r"H?G?MMA\..*"),
+                 ("gemm", gemm_kernel.SOURCES, r"DMMA\..*"),
+                 ("ssd_scan", ssd_kernel.SOURCES, r"HMMA\..*TF32.*"))
 
 
 def phase_sass():
     """Counts of the matrix instructions (HMMA, HGMMA, DMMA) in the SASS of
-    the flash-attention and GEMM libraries, by cuobjdump; exits unless
-    each holds its tensor-core opcode."""
+    the flash-attention, GEMM and SSD libraries, by cuobjdump; exits
+    unless each holds its tensor-core opcode."""
     for name, sources, need in SASS_REQUIRED:
         sass = subprocess.run(
             [cuda_tool("cuobjdump"), "-sass",
@@ -435,8 +446,9 @@ def phase_sass():
             re.findall(r"\b((?:HMMA|HGMMA|DMMA)[.\w]*)", sass))
         log("sass", f"{name}: " + (", ".join(
             f"{op} x{n}" for op, n in sorted(counts.items())) or "none"))
-        if not any(op.split(".")[0] in need for op in counts):
-            raise SystemExit(f"{name}: no {' or '.join(need)} in the SASS")
+        if not any(re.fullmatch(need, op) for op in counts):
+            raise SystemExit(f"{name}: no opcode matching {need} in the "
+                             f"SASS")
 
 
 # ---------------------------------------------------------------------------
@@ -506,6 +518,29 @@ def _split_plan(c):
 
 
 SWEEP_SPLITS = (1, 2, 3, 4, 8)
+SOFTCAP, SOFTCAP_Q_SCALE = 30.0, 30.0
+
+
+def check_partials(name, args, sq, softcap):
+    """The kernel's partials against the plain version's on the same card
+    inputs (acc, l everywhere, m where a row has a valid key, all finite)
+    and the normalized outputs, within TOL; returns the outputs' max abs
+    error."""
+    got = pa_kernel.paged_flash_decode(*args, sq=sq, softcap=softcap)
+    want = pa_ref.paged_partials(*args, sq=sq, softcap=softcap)
+    torch.cuda.synchronize()
+    for g_, w_, what in zip(got, want, ("acc", "m", "l")):
+        if not torch.isfinite(g_).all():
+            raise SystemExit(f"{name}: non-finite {what}")
+        live = want[2] > 0
+        if what == "m":
+            g_, w_ = g_[live], w_[live]
+        torch.testing.assert_close(g_, w_, atol=TOL, rtol=TOL,
+                                   msg=lambda m: f"{name} {what}: {m}")
+    out_k = got[0] / got[2].clamp_min(1e-30)[..., None]
+    out_p = want[0] / want[2].clamp_min(1e-30)[..., None]
+    torch.testing.assert_close(out_k, out_p, atol=TOL, rtol=TOL)
+    return float((out_k - out_p).abs().max())
 
 
 def split_sweep(args, sq):
@@ -535,27 +570,18 @@ def phase_kernel(card, hw):
     cases.append(("main-path decode: granite H64 Sq1 identity max_len512",
                   dict(B=8, NKV=8, G=4, H=64, page=16, max_len=512, sq=1,
                        valid=main_valid, permuted=False)))
-    worst, main = 0.0, None
+    worst, worst_cap, main = 0.0, 0.0, None
     for i, (name, kw) in enumerate(cases):
         c = make_case(**kw, seed=i, dev=dev)
         args = (c["qg"], c["kp"], c["vp"], c["page_idx"], c["pos0"],
                 c["kv_valid"])
-        got = pa_kernel.paged_flash_decode(*args, sq=c["sq"])
-        want = pa_ref.paged_partials(*args, sq=c["sq"])
-        torch.cuda.synchronize()
-        for g_, w_, what in zip(got, want, ("acc", "m", "l")):
-            if not torch.isfinite(g_).all():
-                raise SystemExit(f"{name}: non-finite {what}")
-            live = want[2] > 0
-            if what == "m":
-                g_, w_ = g_[live], w_[live]
-            torch.testing.assert_close(g_, w_, atol=TOL, rtol=TOL,
-                                       msg=lambda m: f"{name} {what}: {m}")
-        out_k = got[0] / got[2].clamp_min(1e-30)[..., None]
-        out_p = want[0] / want[2].clamp_min(1e-30)[..., None]
-        torch.testing.assert_close(out_k, out_p, atol=TOL, rtol=TOL)
-        err = float((out_k - out_p).abs().max())
+        err = check_partials(name, args, c["sq"], 0.0)
         worst = max(worst, err)
+        # softcap 30 over queries scaled by 30: scores of ~30, where the
+        # cap moves the output (at ~1 it would be within TOL of no cap)
+        cap_args = (c["qg"] * SOFTCAP_Q_SCALE, *args[1:])
+        worst_cap = max(worst_cap, check_partials(
+            f"{name} softcap {SOFTCAP:g}", cap_args, c["sq"], SOFTCAP))
         t = time_three({
             "kernel": lambda: pa_kernel.paged_flash_decode(*args,
                                                            sq=c["sq"]),
@@ -573,7 +599,10 @@ def phase_kernel(card, hw):
         if name.startswith("main-path"):
             main = dict(ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
                         bound_ms=b_ms, bound_by=b_by)
-    return worst, main
+    log("kernel", f"paged_partials: {len(cases)} cases ok at softcap 0 "
+                  f"(max abs err {worst:.2e}) and {SOFTCAP:g} (queries x "
+                  f"{SOFTCAP_Q_SCALE:g}, max abs err {worst_cap:.2e})")
+    return max(worst, worst_cap), main
 
 
 # ---------------------------------------------------------------------------
@@ -1239,14 +1268,38 @@ def kernels_ssd(g, hw, card):
     # x and y, dt, B and C, h_final: each read or written once, fp32
     nbytes = 4.0 * (2 * b * S * h * P + b * S * h + 2 * b * S * N
                     + b * h * P * N)
-    rec = timed_record(
-        f"ssd_scan b{b} S{S} h{h} P{P} N{N} chunk{L} fp32", {
-            "kernel": lambda: _ssd_kernel_call(*args, L),
-            "plain": lambda: ssd_ref.ssd_chunked(*args, L)},
+    what = f"ssd_scan b{b} S{S} h{h} P{P} N{N} chunk{L} fp32"
+    rec = timed_record(what, {
+        "kernel": lambda: _ssd_kernel_call(*args, L),
+        "plain": lambda: ssd_ref.ssd_chunked(*args, L)},
         flops, nbytes, torch.float32, hw, card, worst, "kernels-ssm")
+    # the kernel runs each product as three TF32 products on the tensor
+    # cores: that bound beside the record's (fp32 on the CUDA cores)
+    tf32_ms = max(3 * flops / hw.peak_flops_tf32,
+                  nbytes / hw.hbm_bw) * 1e3
+    log("kernels-ssm", f"{what}: 3xTF32 bound_ms {tf32_ms:.4f} (3 x "
+                       f"{flops / 1e9:.1f} GFLOP at "
+                       f"{hw.peak_flops_tf32 / 1e12:.0f} TFLOP/s); the "
+                       f"call's kernels: {ssd_kernel_times(args, L)} | "
+                       f"{card}")
     del args
     torch.cuda.empty_cache()
     return rec
+
+
+def ssd_kernel_times(args, L):
+    """Device us of each kernel one SSD call issues, the mean of 5 calls
+    under torch.profiler."""
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(5):
+            _ssd_kernel_call(*args, L)
+        torch.cuda.synchronize()
+    rows = [(e.key.split("(")[0].split("::")[-1], e.device_time_total
+             / e.count) for e in prof.key_averages()
+            if e.device_time_total > 0 and "ssd_" in e.key]
+    return ", ".join(f"{k} {us:.1f} us" for k, us in rows) or "not measured"
 
 
 def phase_kernels_ssm(card, hw):
@@ -1490,6 +1543,9 @@ DECODE_TIMED = (("qwen3-1.7b static decode", 8, 2088, 2080, 16, 8, 128),
                  128))
 
 
+DECODE_SWEEP = (1, 2, 4, 8)     # forced split counts, beside the plan's
+
+
 def _decode_lens(sq, dev):
     """(rows, sq) valid lengths: a decode row (sq 1), or the sq columns of
     a prefill row ending at the row's length (t <= position)."""
@@ -1564,16 +1620,39 @@ def kernels_flash_decode(g, hw, card):
         nbytes = 2.0 * B * valid * NKV * H * 2 + 2.0 * q.numel() * 2 \
             + lens.numel() * 4
         flops = 4.0 * B * valid * NQ * H
-        recs.append(timed_record(
-            f"flash_decode {what}: B{B} S_cache {S} kv_valid {valid} "
-            f"{NQ}/{NKV} heads H{H} bf16", {
-                "kernel": lambda q=q, k=k, v=v, lens=lens:
-                    fa_kernel.flash_decode(q, k, v, lens),
-                "plain": lambda q=q, k=k, v=v, lens=lens:
-                    fa_ref.flash_decode(q, k, v, lens),
-                "library": library},
+        name = (f"flash_decode {what}: B{B} S_cache {S} kv_valid {valid} "
+                f"{NQ}/{NKV} heads H{H} bf16")
+        recs.append(timed_record(name, {
+            "kernel": lambda q=q, k=k, v=v, lens=lens:
+                fa_kernel.flash_decode(q, k, v, lens),
+            "plain": lambda q=q, k=k, v=v, lens=lens:
+                fa_ref.flash_decode(q, k, v, lens),
+            "library": library},
             flops, nbytes, torch.bfloat16, hw, card, err,
             "kernels-serve-dense"))
+        plan = fa_kernel.decode_plan(
+            B, 1, NQ, NKV, H, S, 2,
+            torch.cuda.get_device_properties(0).multi_processor_count)
+        # the sweep the plan's rule is read against, timed interleaved
+        fns = {f"s{n}": (lambda n=n, q=q, k=k, v=v, lens=lens:
+                         fa_kernel.flash_decode(q, k, v, lens, splits=n))
+               for n in DECODE_SWEEP}
+        fns["plan"] = lambda q=q, k=k, v=v, lens=lens: \
+            fa_kernel.flash_decode(q, k, v, lens)
+        fns["sdpa"] = library
+        ms = measure_group(fns, reps=30, flush_l2=True, cover_ms=2.0)
+        # the same two without the flush: what the dirty lines the flush
+        # leaves in L2 (written back under the K/V stream) cost
+        warm = measure_group({n: fns[n] for n in ("plan", "sdpa")}, reps=30,
+                             flush_l2=False, cover_ms=2.0)
+        log("kernels-serve-dense",
+            f"{name}: plan {plan.splits} splits x {plan.tokens_per_split} "
+            f"tokens, grid {plan.grid}, {plan.blocks_per_sm} block an SM | "
+            f"ms at forced splits " + " ".join(
+                f"{n} {m.median_s * 1e3:.4f}" for n, m in ms.items())
+            + " | L2 not flushed: " + " ".join(
+                f"{n} {m.median_s * 1e3:.4f}" for n, m in warm.items())
+            + f" | {card}")
         del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
     rec = recs[0]                       # the JSON line: qwen3's shape

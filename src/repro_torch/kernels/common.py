@@ -159,6 +159,13 @@ def stream_of(t: torch.Tensor) -> int:
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and starting on a 16-byte boundary (for kernels
+    that copy 16-byte vectors): a view that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def check_operand(name: str, t: torch.Tensor, dtype, device,
                   shape=None, align: int = 0) -> None:
     """Raise unless ``t`` has this dtype, device, shape (if given), is

@@ -15,7 +15,9 @@ launch returns a CUDA error; ``flash_fwd.launches`` and
 ``flash_decode.launches`` count the kernel launches made through them.
 ``fwd_plan`` is the host's copy of what the forward launches: its path
 (bf16 on the tensor cores, fp32 on the CUDA cores), tiles, grid and the
-KV tiles each query tile visits.
+KV tiles each query tile visits.  ``decode_plan`` is the same for the
+decode: its query slices and the KV split over a thread-block cluster,
+which the kernel folds in rank order.
 """
 from __future__ import annotations
 
@@ -39,6 +41,15 @@ TC, SIMT = "tensor cores", "CUDA cores"
 # through mma.sync (fp32 sums, P split into two bf16 halves), fp32 through
 # FMAs (TF32 would miss the fp32 tolerance)
 FWD_PATHS = {torch.bfloat16: (TC, 128, 64), torch.float32: (SIMT, 64, 64)}
+# the decode: 32-token tiles (one a lane), a three-stage ring a warp, at
+# most 8 queries a block, at most 8 KV splits (a portable cluster)
+DECODE_TILE = 32
+DECODE_STAGES = 3
+DECODE_MAX_ROWS = 8
+DECODE_MAX_SPLITS = 8
+SM_SMEM_BYTES = 233472          # an H100 SM's shared memory (228 KB)
+BLOCK_RESERVED_BYTES = 1024     # what the card keeps of it for each block
+SM_SCHEDULERS = 4               # warp schedulers an SM
 
 
 class FwdPlan(NamedTuple):
@@ -94,6 +105,82 @@ def fwd_plan(BN: int, R: int, Skv: int, sq_real: int, H: int, dtype,
     return FwdPlan(path, bq, bkv, blocks, tuple(tiles))
 
 
+class DecodePlan(NamedTuple):
+    """``rows`` queries a block, ``slices`` blocks over the G * Sq queries
+    of a (b, kv head); ``splits`` blocks a slice (a cluster), each over
+    ``tokens_per_split`` tokens of the cache's capacity; ``grid`` = (B *
+    splits, NKV, slices); ``blocks_per_sm`` what the split counts on."""
+    rows: int
+    slices: int
+    splits: int
+    tokens_per_split: int
+    grid: tuple
+    blocks_per_sm: int
+
+
+def decode_rows(queries: int) -> int:
+    """Queries a block holds: the least power of two holding the G * Sq
+    queries of a (b, kv head), at most 8."""
+    nr = 1
+    while nr < min(queries, DECODE_MAX_ROWS):
+        nr *= 2
+    return nr
+
+
+def decode_warps(head_dim: int, elem: int) -> int:
+    """Warps a block: 2 where a K/V row is over 256 bytes, else 4."""
+    return 2 if head_dim * elem > 256 else 4
+
+
+def decode_smem_bytes(head_dim: int, elem: int, rows: int) -> int:
+    """A block's dynamic shared memory (csrc's ``Cfg::kSmem``): the
+    queries in fp32 and each warp's ring of K and V tiles, rows padded by
+    16 bytes."""
+    ring = DECODE_STAGES * 2 * DECODE_TILE * (head_dim * elem + 16)
+    return rows * head_dim * 4 + decode_warps(head_dim, elem) * ring
+
+
+def decode_blocks_per_sm(head_dim: int, elem: int, rows: int) -> int:
+    """The blocks an SM holds by shared memory, but no more than give its
+    four schedulers a warp each: the kernel's warps are issue-bound (a
+    tile's scores, softmax and P.V), so a second block of four warps on an
+    SM shares the same issue slots and adds no pull (granite's 6c decode
+    on an H100: 4 splits, two blocks an SM, 0.0220 ms; 2 splits, one,
+    0.0172: chip_smoke.py's sweep)."""
+    by_smem = SM_SMEM_BYTES // (decode_smem_bytes(head_dim, elem, rows)
+                                + BLOCK_RESERVED_BYTES)
+    return max(min(by_smem, SM_SCHEDULERS // decode_warps(head_dim, elem)),
+               1)
+
+
+@functools.lru_cache(maxsize=4096)
+def decode_plan(B: int, Sq: int, NQ: int, NKV: int, H: int, S_cache: int,
+                elem: int, sms: int, splits: int | None = None) -> DecodePlan:
+    """What csrc/flash_decode.cu launches for ``flash_decode``.  The KV
+    range (the cache's capacity, never the lengths: no device value is
+    read) is split only as far as the grid stays within one wave of
+    ``decode_blocks_per_sm``: the largest count <= 8 with B * NKV * slices
+    * splits <= sms * blocks_per_sm, at least 1, each split whole
+    ``DECODE_TILE``-token tiles.  ``splits`` forces a count (tests only;
+    still at most the tiles there are)."""
+    queries = Sq * (NQ // NKV)
+    rows = decode_rows(queries)
+    slices = max(-(-queries // rows), 1)
+    blocks = max(B * NKV * slices, 1)
+    per_sm = decode_blocks_per_sm(H, elem, rows)
+    tiles = max(-(-S_cache // DECODE_TILE), 1)
+    if splits is None:
+        want = max(min(sms * per_sm // blocks, DECODE_MAX_SPLITS, tiles), 1)
+    elif 1 <= splits <= DECODE_MAX_SPLITS:
+        want = min(splits, tiles)
+    else:
+        raise ValueError(f"splits={splits} not in 1..{DECODE_MAX_SPLITS}")
+    per = -(-tiles // want)
+    n = -(-tiles // per)
+    return DecodePlan(rows, slices, n, per * DECODE_TILE,
+                      (B * n, NKV, slices), per_sm)
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Build (at first use) and load the kernel library, once a process."""
@@ -111,7 +198,9 @@ def load_decode_library() -> ctypes.CDLL:
     p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
         ctypes.c_float
     common.bind(lib, "flash_decode_launch", *[p] * 5, *[i] * 7, *[ll] * 4,
-                f, f)
+                i, i, f, f)
+    lib.flash_decode_smem_bytes.argtypes = [i, i, i]
+    lib.flash_decode_smem_bytes.restype = i
     return lib
 
 
@@ -177,16 +266,18 @@ def _cache_strides(name, t, B, NKV, H, like):
     return sb, st
 
 
-def flash_decode(q, k, v, lens, *, softcap: float = 0.0):
+def flash_decode(q, k, v, lens, *, softcap: float = 0.0,
+                 splits: int | None = None):
     """q: (B, Sq, NQ, H) contiguous; k/v: (B, S_cache, NKV, H) caches, any
     batch and token strides (a layer's view of a stacked cache, a row of
     a slotted one); lens: (B, Sq) int32, query c of row b attending to
     the keys ``t < lens[b, c]`` (clamped to [0, S_cache]); q, k, v fp32 or
-    all bf16, on a Hopper card.
+    all bf16, on a Hopper card.  ``splits`` forces the KV split (tests
+    only).
 
     Returns (B, Sq, NQ, H) in q.dtype; a query with no valid key is 0."""
     dev = q.device
-    common.require_hopper(dev)
+    index = common.require_hopper(dev)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, Sq, NQ, H), got {tuple(q.shape)}")
     B, Sq, NQ, H = q.shape
@@ -208,12 +299,14 @@ def flash_decode(q, k, v, lens, *, softcap: float = 0.0):
     out = torch.empty((B, Sq, NQ, H), dtype=q.dtype, device=dev)
     if B == 0 or Sq == 0:
         return out
+    plan = decode_plan(B, Sq, NQ, NKV, H, S, q.element_size(),
+                       common.sm_count(index), splits)
     lib = load_decode_library()
     err = lib.flash_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
         out.data_ptr(), B, Sq, NKV, NQ // NKV, H, _DTYPES[q.dtype], S,
-        k_sb, k_st, v_sb, v_st, float(H ** -0.5), float(softcap),
-        common.stream_of(q))
+        k_sb, k_st, v_sb, v_st, plan.splits, plan.tokens_per_split,
+        float(H ** -0.5), float(softcap), common.stream_of(q))
     common.check_launch(lib, "flash_decode_launch", err)
     flash_decode.launches += 1
     return out

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import aligned
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref
 
@@ -65,15 +66,8 @@ def flash_fwd(qg, kg, vg, *, causal: bool, softcap: float, sq_real: int):
     if qg.device.type == "cpu":
         return ref.flash_fwd(qg, kg, vg, causal=causal, softcap=softcap,
                              sq_real=sq_real)
-    return K.flash_fwd(_aligned(qg), _aligned(kg), _aligned(vg),
+    return K.flash_fwd(aligned(qg), aligned(kg), aligned(vg),
                        causal=causal, softcap=softcap, sq_real=sq_real)
-
-
-def _aligned(t):
-    """``t`` contiguous and starting on a 16-byte boundary (the kernel's
-    16-byte copies): a view that starts elsewhere is copied."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_backward(q, k, v, out, lse, dout, *, causal: bool, softcap: float,

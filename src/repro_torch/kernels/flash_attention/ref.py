@@ -16,7 +16,9 @@ in the layout of its JAX op: queries (B, Sq, NQ, H) against a whole K/V
 cache (B, S, NKV, H), GQA by grouping the G = NQ / NKV query heads of a
 KV head.  A query attends to the keys ``t < kv_valid``; scores, softmax
 and P.V are fp32, and a query with no valid key comes out all zero, as
-the kernel's ``acc / max(l, 1e-30)`` gives.
+the kernel's ``acc / max(l, 1e-30)`` gives.  ``flash_decode_split`` is
+the same function as the kernel's KV split computes it: per-split
+partials folded in rank order, then normalized.
 """
 from __future__ import annotations
 
@@ -72,4 +74,42 @@ def flash_decode(q, k, v, kv_valid, *, softcap: float = 0.0):
     p = torch.exp(s - s.amax(dim=-1, keepdim=True)) * mask
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bcngt,btnh->bcngh", p, v.float()) / l
+    return out.reshape(B, Sq, NQ, H).to(q.dtype)
+
+
+def flash_decode_split(q, k, v, kv_valid, *, splits: int,
+                       tokens_per_split: int, softcap: float = 0.0):
+    """``flash_decode`` as the kernel's cluster split computes it: split s
+    covers cache tokens [s * tokens_per_split, (s + 1) * tokens_per_split)
+    and holds (m, l, acc) over its valid keys (the neutral m = NEG_INF,
+    l = 0, acc = 0 where it has none); the splits are folded in rank
+    order, m the largest m_s and l and acc sums of l_s and acc_s times
+    exp(m_s - m), added split by split; out = acc / max(l, 1e-30)."""
+    B, Sq, NQ, H = q.shape
+    S, NKV = k.shape[1], k.shape[2]
+    G = NQ // NKV
+    lens = kv_valid.reshape(B, -1).expand(B, Sq)
+    qg = q.float().reshape(B, Sq, NKV, G, H)
+    s = torch.einsum("bcngh,btnh->bcngt", qg, k.float()) * (H ** -0.5)
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    t = torch.arange(S, device=q.device)
+    valid = t[None, None] < lens[..., None]                  # (B, Sq, S)
+    parts = []
+    for sp in range(splits):
+        lo, hi = sp * tokens_per_split, (sp + 1) * tokens_per_split
+        mask = (valid & (t >= lo) & (t < hi))[:, :, None, None]
+        ss = torch.where(mask, s, NEG_INF)
+        m = ss.amax(dim=-1)
+        p = torch.where(mask, torch.exp(ss - m[..., None]), 0.0)
+        parts.append((m, p.sum(dim=-1),
+                      torch.einsum("bcngt,btnh->bcngh", p, v.float())))
+    m = torch.stack([pt[0] for pt in parts]).amax(dim=0)
+    l = torch.zeros_like(parts[0][1])
+    acc = torch.zeros_like(parts[0][2])
+    for m_s, l_s, acc_s in parts:
+        w = torch.exp(m_s - m)
+        l = l + l_s * w
+        acc = acc + acc_s * w[..., None]
+    out = acc / l.clamp_min(1e-30)[..., None]
     return out.reshape(B, Sq, NQ, H).to(q.dtype)

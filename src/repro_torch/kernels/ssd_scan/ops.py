@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.common import aligned
 from repro_torch.kernels.ssd_scan import kernel as K
 from repro_torch.kernels.ssd_scan import ref
 
@@ -37,7 +38,7 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
             "B4 follow-up, the SSD backward for mamba2 training)")
     b, _, h, _ = x.shape
     return K.ssd_scan_fwd(
-        x.contiguous(), dt.contiguous(), B.contiguous(), C.contiguous(),
+        aligned(x), dt.contiguous(), aligned(B), aligned(C),
         A.expand(b, h).contiguous().view(-1),
         D.expand(b, h).contiguous().view(-1), chunk=chunk)
 

@@ -22,9 +22,16 @@ same numpy inputs.
   paged one never; with ``True`` the reverse.
 - a tensor off the CPU launches the kernel or raises; the kernel's
   wrapper refuses CPU tensors.
+- the kernel's KV split: ``ref.flash_decode_split`` (per-split partials
+  folded in rank order) against the JAX ``flash_decode`` (Pallas,
+  interpret) at every forced count 1-8, softcap 0 and 30, rows of length
+  0, 1, 32, ragged and full (fp32, 2e-4); ``kernel.decode_plan`` at the
+  served shapes and under the tests' override.
 
 The CUDA kernel itself runs only on the card (tests/test_torch_gpu.py).
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -272,3 +279,110 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(RuntimeError):
         pt_kernel.flash_decode(q, k, k, torch.ones((2, 1), dtype=torch.int32))
     assert pt_kernel.flash_decode.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the KV split over a thread-block cluster and its plan
+# ---------------------------------------------------------------------------
+SMS = 132               # an H100 SXM's SMs
+SPLIT_S = 256           # 8 tiles of 32 tokens: every split count up to 8
+SPLIT_VALID = [0, 1, 32, 77, SPLIT_S]   # empty, one, a tile edge, ragged, full
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(softcap):
+    """fp32 inputs (B 5, 4/2 heads, H 64) and the JAX kernel's output."""
+    q, k, v = _qkv(len(SPLIT_VALID), 1, SPLIT_S, 4, 2, 64, seed=31)
+    valid = np.asarray(SPLIT_VALID, np.int32)
+    want = jax_fa_ops.flash_decode(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), jnp.asarray(valid),
+                                   softcap=softcap, block_kv=128)
+    return q, k, v, valid, np.asarray(want)
+
+
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("forced", range(1, 9))
+def test_flash_decode_split_matches_jax_kernel(forced, softcap):
+    """The kernel's split, emulated, at every forced count: splits wholly
+    past a row's length hold the neutral partial, which the rank-order
+    fold adds exactly, so the row with no valid key is exactly 0."""
+    q, k, v, valid, want = _split_case(softcap)
+    plan = pt_kernel.decode_plan(len(valid), 1, 4, 2, 64, SPLIT_S, 4, SMS,
+                                 forced)
+    assert plan.splits == forced or (forced > 4 and plan.splits in (4, 8))
+    got = pt_ref.flash_decode_split(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(valid), splits=plan.splits,
+        tokens_per_split=plan.tokens_per_split, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert bool((got[0] == 0).all())
+    # the split twin and the unsplit plain version: the same function
+    torch.testing.assert_close(got, pt_ref.flash_decode(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(valid), softcap=softcap), rtol=1e-5, atol=1e-5)
+
+
+# (B, Sq, NQ, NKV, H, S_cache, elem) -> (rows, slices, splits, tokens)
+DECODE_PLANS = {
+    "qwen3_static_decode": ((8, 1, 16, 8, 128, 2088, 2), (2, 1, 2, 1056)),
+    "granite_6c_static_decode": ((8, 1, 32, 8, 64, 552, 2), (4, 1, 2, 288)),
+    "qwen3_decode_64_slots": ((64, 1, 16, 8, 128, 2088, 2),
+                              (2, 1, 1, 2112)),
+    "qwen3_sq32_prefill": ((8, 32, 16, 8, 128, 2088, 2), (8, 8, 1, 2112)),
+    "fp32_h128_g8": ((5, 1, 16, 2, 128, 200, 4), (8, 1, 7, 32)),
+    "one_tile": ((1, 1, 1, 1, 32, 16, 4), (1, 1, 1, 32)),
+}
+
+
+@pytest.mark.parametrize("name", DECODE_PLANS)
+def test_decode_plan(name):
+    """Split only as far as the grid stays within one wave of the blocks
+    the SMs hold (one of four warps each an SM: the kernel is issue-bound
+    inside an SM), at most 8 and at most the tiles; the Sq 32 prefill row
+    keeps its slices and is not split; the split covers the capacity."""
+    args, want = DECODE_PLANS[name]
+    B, Sq, NQ, NKV, H, S_cache, elem = args
+    plan = pt_kernel.decode_plan(*args, SMS)
+    assert (plan.rows, plan.slices, plan.splits,
+            plan.tokens_per_split) == want
+    assert plan.grid == (B * plan.splits, NKV, plan.slices)
+    assert plan.tokens_per_split % pt_kernel.DECODE_TILE == 0
+    assert plan.tokens_per_split * plan.splits >= S_cache
+    assert plan.tokens_per_split * (plan.splits - 1) < S_cache
+    blocks = B * NKV * plan.slices
+    tiles = -(-S_cache // pt_kernel.DECODE_TILE)
+    assert blocks * plan.splits <= SMS * plan.blocks_per_sm or \
+        plan.splits == 1
+    assert plan.splits in (pt_kernel.DECODE_MAX_SPLITS, tiles) or \
+        blocks * (plan.splits + 1) > SMS * plan.blocks_per_sm
+    assert pt_kernel.decode_smem_bytes(H, elem, plan.rows) \
+        + pt_kernel.BLOCK_RESERVED_BYTES <= pt_kernel.SM_SMEM_BYTES
+
+
+def test_decode_smem_at_the_served_shapes():
+    """208 KB a block at bf16 H 128 (one an SM), 110 KB at H 64 (two by
+    shared memory, one by the schedulers)."""
+    assert pt_kernel.decode_smem_bytes(128, 2, 2) == 2 * 128 * 4 + 4 * 3 \
+        * 2 * 32 * 272
+    assert pt_kernel.decode_blocks_per_sm(128, 2, 2) == 1
+    assert pt_kernel.SM_SMEM_BYTES // (pt_kernel.decode_smem_bytes(
+        64, 2, 4) + pt_kernel.BLOCK_RESERVED_BYTES) == 2
+    assert pt_kernel.decode_blocks_per_sm(64, 2, 4) == 1
+    assert pt_kernel.decode_warps(128, 4) == 2
+
+
+@pytest.mark.parametrize("forced", range(1, 9))
+def test_decode_plan_override(forced):
+    """The tests' override forces a count, still at most the tiles and
+    each split whole tiles; outside 1..8 it raises."""
+    for args, _ in DECODE_PLANS.values():
+        plan = pt_kernel.decode_plan(*args, SMS, forced)
+        S_cache = args[5]
+        tiles = -(-S_cache // pt_kernel.DECODE_TILE)
+        assert plan.splits <= min(forced, tiles)
+        per = plan.tokens_per_split // pt_kernel.DECODE_TILE
+        assert per == -(-tiles // min(forced, tiles))
+        assert plan.splits == -(-tiles // per)
+    for bad in (0, 9):
+        with pytest.raises(ValueError):
+            pt_kernel.decode_plan(8, 1, 16, 8, 128, 2088, 2, SMS, bad)

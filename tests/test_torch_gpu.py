@@ -92,29 +92,44 @@ def _grouped(args):
             pos[:, 0].contiguous(), valid), Sq
 
 
-@pytest.mark.parametrize("splits", [None, 1, 2, 3, 4, 5, 8])
+# softcap 30 over queries scaled by 30: scores of ~30, where the cap
+# changes the output (at ~1 it would be within the tolerance of no cap)
+SOFTCAP, SOFTCAP_Q_SCALE = 30.0, 30.0
+
+
+@pytest.mark.parametrize("splits,softcap", [
+    *((s, 0.0) for s in (None, 1, 2, 3, 4, 5, 8)),
+    *((s, SOFTCAP) for s in (None, 1, 3, 8))])
 @pytest.mark.parametrize("H,sq,permuted,dtype", [
     (64, 1, True, torch.bfloat16), (128, 4, False, torch.bfloat16),
     (64, 4, True, torch.float32), (128, 1, True, torch.float32)])
-def test_kernel_matches_plain(card, H, sq, permuted, dtype, splits):
+def test_kernel_matches_plain(card, H, sq, permuted, dtype, splits, softcap):
     """Partials and normalized output of the kernel against the plain
     version on the same card inputs: empty (kv_valid 0), page-boundary,
     partial-last-page, long and full-table rows (the last split clamped at
     the table's end), with splits wholly past kv_valid, at
     every split count the plan returns for the 256-token table (forced
     through the binding's test-only ``splits``; None: the plan's own,
-    through ops.paged_attention).  Both compute in fp32 from the same
-    inputs, so they differ only in summation order (2e-3).  A second
-    launch gives the same bits."""
+    through ops.paged_attention), without and with a softcap (scores
+    of ~30: the cap moves the output far past the tolerance).  Both
+    compute in fp32 from the same inputs, so they differ only in
+    summation order (2e-3).  A second launch gives the same bits."""
     args = _paged_inputs(card, H, sq, permuted, dtype, [0, 8, 17, 200, 256])
+    if softcap:
+        args[0] = args[0] * SOFTCAP_Q_SCALE
+        cpu = [a.cpu() for a in args]     # the plain version: the cap bites
+        capped = pa_ops.paged_attention(*cpu, page_size=PAGE, softcap=softcap)
+        uncapped = pa_ops.paged_attention(*cpu, page_size=PAGE)
+        assert float((capped - uncapped).abs().max()) > 0.1
     before = pa_kernel.paged_flash_decode.launches
     if splits is None:
         call = lambda: pa_ops.paged_attention(                # noqa: E731
-            *args, page_size=PAGE, return_partials=True)
+            *args, page_size=PAGE, return_partials=True, softcap=softcap)
         got = call()
         assert pa_kernel.paged_flash_decode.launches == before + 1
         want = pa_ops.paged_attention(*[a.cpu() for a in args],
-                                      page_size=PAGE, return_partials=True)
+                                      page_size=PAGE, return_partials=True,
+                                      softcap=softcap)
         torch.cuda.synchronize()
         for g, w in zip(got[1:], want[1:]):
             torch.testing.assert_close(g.cpu(), w, rtol=2e-3, atol=2e-3)
@@ -125,10 +140,10 @@ def test_kernel_matches_plain(card, H, sq, permuted, dtype, splits):
     else:
         grouped, Sq = _grouped(args)
         call = lambda: pa_kernel.paged_flash_decode(          # noqa: E731
-            *grouped, sq=Sq, splits=splits)
+            *grouped, sq=Sq, splits=splits, softcap=softcap)
         got = call()
         assert pa_kernel.paged_flash_decode.launches == before + 1
-        want = pa_ref.paged_partials(*grouped, sq=Sq)
+        want = pa_ref.paged_partials(*grouped, sq=Sq, softcap=softcap)
         torch.cuda.synchronize()
         live = want[2] > 0
         torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
@@ -144,20 +159,24 @@ def test_kernel_matches_plain(card, H, sq, permuted, dtype, splits):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("softcap", [0.0, SOFTCAP])
 @pytest.mark.parametrize("H,dtype", [(64, torch.bfloat16),
                                      (128, torch.bfloat16),
                                      (64, torch.float32),
                                      (128, torch.float32)])
-def test_kernel_bits_do_not_depend_on_empty_splits(card, H, dtype):
+def test_kernel_bits_do_not_depend_on_empty_splits(card, H, dtype, softcap):
     """Every valid token in the first 32 of a 256-token table: the other
     splits (and warps) hold neutral partials, which the fold adds exactly,
     so every split count gives the same bits (against the plain version
-    at 2e-3)."""
+    at 2e-3), without and with a softcap."""
     args = _paged_inputs(card, H, 1, True, dtype, [0, 5, 17, 32], seed=7)
+    if softcap:
+        args[0] = args[0] * SOFTCAP_Q_SCALE
     grouped, Sq = _grouped(args)
-    outs = [pa_kernel.paged_flash_decode(*grouped, sq=Sq, splits=s)
+    outs = [pa_kernel.paged_flash_decode(*grouped, sq=Sq, splits=s,
+                                         softcap=softcap)
             for s in range(1, 9)]
-    want = pa_ref.paged_partials(*grouped, sq=Sq)
+    want = pa_ref.paged_partials(*grouped, sq=Sq, softcap=softcap)
     torch.cuda.synchronize()
     torch.testing.assert_close(outs[0][0], want[0], rtol=2e-3, atol=2e-3)
     for got in outs[1:]:
@@ -453,6 +472,87 @@ def test_flash_decode_kernel_matches_plain(card, H, G, Sq, dtype, softcap):
     assert bool((got[lens == 0] == 0).all())
 
 
+DECODE_SPLIT_S = 256        # 8 tiles of 32: every split count up to 8
+
+
+def _decode_inputs(card, dtype, H, G, Sq, valid, seed, q_scale=1.0):
+    """B = len(valid) rows over a DECODE_SPLIT_S-token cache read through
+    a strided view (every other row of a wider one), 2 KV heads; query
+    c of a row attends to the ramp ending at the row's length."""
+    rng = np.random.default_rng(seed)
+    B, S, NKV = len(valid), DECODE_SPLIT_S, 2
+    q = torch.from_numpy((rng.standard_normal((B, Sq, NKV * G, H))
+                          * q_scale).astype(np.float32)).to(card, dtype)
+    wide = torch.from_numpy(rng.standard_normal((2 * B, S, NKV, H)).astype(
+        np.float32)).to(card, dtype)
+    lens = (torch.tensor(valid)[:, None] - Sq + 1
+            + torch.arange(Sq)[None]).clamp(0, S)
+    return q, wide[::2], wide[1::2], lens.to(torch.int32).to(card)
+
+
+@pytest.mark.parametrize("softcap", [0.0, SOFTCAP])
+@pytest.mark.parametrize("Sq", [1, 32])
+@pytest.mark.parametrize("G", [1, 2, 8])
+@pytest.mark.parametrize("H", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_kernel_at_every_split(card, dtype, H, G, Sq, softcap):
+    """The cluster split forced to every count 1-8 (the binding's
+    test-only ``splits``) over a 256-token cache: rows of length 0, 1, a
+    tile edge, ragged and full, so some splits lie wholly past a row's
+    length.  Against ``ref.flash_decode`` (fp32 2e-4; bf16 one ulp, rtol
+    8e-3 atol 1e-4), a query with no valid key exactly 0; a second launch
+    gives the same bits.  With softcap 30 the queries are scaled by 30."""
+    q, k, v, lens = _decode_inputs(
+        card, dtype, H, G, Sq, [0, 1, 32, 77, DECODE_SPLIT_S],
+        seed=H + G + Sq, q_scale=SOFTCAP_Q_SCALE if softcap else 1.0)
+    want = fa_ref.flash_decode(q, k, v, lens, softcap=softcap)
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (8e-3, 1e-4)
+    for splits in range(1, 9):
+        call = lambda: fa_kernel.flash_decode(            # noqa: E731
+            q, k, v, lens, softcap=softcap, splits=splits)
+        got = _counted(fa_kernel.flash_decode, call)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{splits}: {m}")
+        assert bool((got[lens == 0] == 0).all())
+        again = call()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("H,dtype", [(64, torch.bfloat16),
+                                     (128, torch.bfloat16),
+                                     (64, torch.float32),
+                                     (128, torch.float32)])
+def test_flash_decode_bits_do_not_depend_on_empty_splits(card, H, dtype):
+    """Every valid token in the first 32 of the cache: the other splits
+    hold neutral partials, which the fold adds exactly, so every split
+    count gives the bits of one split (against the plain version at the
+    tolerance of the test above)."""
+    q, k, v, lens = _decode_inputs(card, dtype, H, 4, 1, [0, 5, 17, 32],
+                                   seed=7)
+    outs = [fa_kernel.flash_decode(q, k, v, lens, splits=s)
+            for s in range(1, 9)]
+    want = fa_ref.flash_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (8e-3, 1e-4)
+    torch.testing.assert_close(outs[0].float(), want.float(), rtol=rtol,
+                               atol=atol)
+    for got in outs[1:]:
+        assert torch.equal(got, outs[0])
+
+
+def test_flash_decode_smem_copy_agrees(card):
+    """kernel.py's copy of the decode's shared memory (its split plan
+    rests on it) equals csrc's."""
+    lib = fa_kernel.load_decode_library()
+    for H in fa_kernel.HEAD_DIMS:
+        for dtype, code in ((torch.float32, 0), (torch.bfloat16, 1)):
+            elem = torch.tensor([], dtype=dtype).element_size()
+            for nr in (1, 2, 4, 8):
+                assert lib.flash_decode_smem_bytes(H, code, nr) == \
+                    fa_kernel.decode_smem_bytes(H, elem, nr)
+
+
 @pytest.mark.parametrize("R,C,K", [
     (64, 256, 16), (100, 77, 13), (1000, 3000, 33), (9, 512, 1),
     (50, 2049, 2), (70, 5000, 7), (17, 100, 8), (20, 1, 9), (300, 4097, 24),
@@ -537,17 +637,8 @@ def test_train_step_on_card_matches_cpu(card):
         assert abs(got["cuda"][k] - want) <= 1e-4 * abs(want), (k, got)
 
 
-@pytest.mark.parametrize("b,S,h,P,N,chunk", [
-    (1, 1, 2, 16, 16, 16), (2, 200, 3, 16, 16, 16), (1, 200, 2, 32, 64, 64),
-    (2, 300, 2, 64, 128, 256), (1, 2048, 2, 64, 128, 256),
-    (2, 100, 1, 64, 32, 128), (1, 77, 2, 32, 128, 32)])
-def test_ssd_kernel_matches_plain(card, b, S, h, P, N, chunk):
-    """y and h_final of the kernel against ``ref.ssd_chunked`` on the same
-    card inputs (TF32 off): every P and N the kernel takes, chunks of 16
-    to 256, S shorter than, not a multiple of and a multiple of the chunk.
-    Both compute in fp32 and differ in summation order: 2e-3, the JAX
-    kernel test's tolerance."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+def _ssd_args(card, b, S, h, P, N):
+    """Model-layout fp32 inputs at the JAX kernel test's scales."""
     rng = np.random.default_rng(S + P + N)
     f = np.float32
     x = rng.standard_normal((b, S, h, P)).astype(f)
@@ -556,12 +647,52 @@ def test_ssd_kernel_matches_plain(card, b, S, h, P, N, chunk):
     B, C = ((rng.standard_normal((b, S, N)) * 0.5).astype(f)
             for _ in range(2))
     D = rng.standard_normal(h).astype(f)
-    args = [torch.from_numpy(a).to(card) for a in (x, dt, A, B, C, D)]
+    return [torch.from_numpy(a).to(card) for a in (x, dt, A, B, C, D)]
+
+
+@pytest.mark.parametrize("b,S,h,P,N,chunk", [
+    (1, 1, 2, 16, 16, 16), (2, 200, 3, 16, 16, 16), (1, 200, 2, 32, 64, 64),
+    (2, 300, 2, 64, 128, 256), (1, 2048, 2, 64, 128, 256),
+    (2, 100, 1, 64, 32, 128), (1, 77, 2, 32, 128, 32),
+    (1, 511, 2, 64, 128, 256), (1, 513, 2, 64, 128, 256),
+    (2, 767, 3, 32, 64, 256), (1, 1025, 2, 16, 32, 256)])
+def test_ssd_kernel_matches_plain(card, b, S, h, P, N, chunk):
+    """y and h_final of the kernel against ``ref.ssd_chunked`` on the same
+    card inputs (TF32 off): every P and N the kernel takes, chunks of 16
+    to 256, S shorter than, not a multiple of (k * 256 +- 1 among them)
+    and a multiple of the chunk; the state before each chunk (the
+    workspace after the state pass) against ``ref.state_pass``.  Both
+    compute in fp32 grade (the kernel in 3xTF32) and differ in summation
+    order: 2e-3, the JAX kernel test's tolerance.  A second launch gives
+    the same bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_args(card, b, S, h, P, N)
     y, hf = _counted(ssd_kernel.ssd_scan_fwd,
                      lambda: ssd_ops.ssd_chunked(*args, chunk=chunk))
     want_y, want_h = ssd_ref.ssd_chunked(*args, chunk=chunk)
     torch.testing.assert_close(y, want_y, rtol=2e-3, atol=2e-3)
     torch.testing.assert_close(hf, want_h, rtol=2e-3, atol=2e-3)
+    x, dt, A, B, C, D = args
+    y2, hf2, h_prev = ssd_kernel.ssd_scan_fwd(
+        x, dt, B, C, A.repeat(b), D.repeat(b), chunk=chunk,
+        return_states=True)
+    want_prev, _ = ssd_ref.state_pass(
+        ssd_ref.chunk_states(x, dt, A, B, C, chunk), dt, A, chunk)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(h_prev, want_prev, rtol=2e-3, atol=2e-3)
+    assert torch.equal(y, y2) and torch.equal(hf, hf2)
+
+
+def test_ssd_kernel_is_fp32_grade(card):
+    """At b 1, S 512, 2 heads, P 64, N 128, chunk 256, y is within 1e-4 of
+    the largest |y| of the plain version run in fp64: fp32 grade, which a
+    single TF32 pass (operands with ~5e-4 relative error) would miss."""
+    args = _ssd_args(card, 1, 512, 2, 64, 128)
+    y, _ = ssd_ops.ssd_chunked(*args, chunk=256)
+    y64, _ = ssd_ref.ssd_chunked(*[a.double() for a in args], chunk=256)
+    torch.cuda.synchronize()
+    err = float((y.double() - y64).abs().max())
+    assert err <= 1e-4 * float(y64.abs().max()), err
 
 
 def test_ssd_stream_layout_and_gradient_on_card(card):

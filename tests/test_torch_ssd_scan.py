@@ -4,6 +4,12 @@ package on the CPU: the plain versions against the JAX oracle
 (``repro.kernels.ssd_scan.ops.ssd_scan``) and the model's
 ``_ssd_chunked``, on the same numpy-seeded inputs.
 
+The chunked form is the composition of the CUDA kernel's passes
+(``chunk_states``, ``state_pass``, ``chunk_outputs``): the state before
+each chunk is held against the JAX model's final state on the prefix up
+to it (1e-5: the same recurrence summed alike), and the composition
+against ``ssd_chunked`` bit for bit.
+
 Tolerances: 2e-3 (rtol = atol) between the chunked and the token-by-token
 forms and between the two packages' chunked forms, the JAX kernel test's
 tolerance (tests/test_kernels_fused.py::test_ssd_scan): the same fp32
@@ -186,3 +192,55 @@ def test_cpu_runs_the_plain_version_and_other_devices_the_kernel():
     with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA device"):
         ops.ssd_chunked(**meta, chunk=16)
     assert K.ssd_scan_fwd.launches == before
+
+
+@pytest.mark.parametrize("S,chunk", [(100, 16), (70, 32), (33, 32)])
+def test_state_before_each_chunk_matches_jax_on_the_prefix(S, chunk):
+    """``state_pass``' state before chunk c is the state after the first
+    c * chunk tokens: the JAX model's ``h_final`` on that prefix (the first
+    chunk's is zero); its final state is ``ssd_chunked``'s, S not a
+    multiple of the chunk."""
+    d = _model(11, 2, S, 3, 16, 32)
+    t = _t(d)
+    states = ref.chunk_states(t["x"], t["dt"], t["A"], t["B"], t["C"], chunk)
+    h_prev, h_final = ref.state_pass(states, t["dt"], t["A"], chunk)
+    nc = -(-S // chunk)
+    assert states.shape == h_prev.shape == (2, nc, 3, 16, 32)
+    assert bool((h_prev[:, 0] == 0).all())
+    for c in range(1, nc):
+        pre = {k: (v[:, :c * chunk] if k in ("x", "dt", "B", "C") else v)
+               for k, v in d.items()}
+        _, want = jax_ssd_chunked(**_j(pre), chunk=chunk)
+        np.testing.assert_allclose(h_prev[:, c].numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5, err_msg=f"chunk {c}")
+    _, want_final = jax_ssd_chunked(**_j(d), chunk=chunk)
+    np.testing.assert_allclose(h_final.numpy(), np.asarray(want_final),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("S,chunk", [(1, 16), (37, 16), (200, 64)])
+def test_passes_compose_to_ssd_chunked(S, chunk):
+    """``ssd_chunked`` is ``chunk_outputs`` after ``state_pass`` after
+    ``chunk_states``, bit for bit: each pass is the kernel's oracle."""
+    d = _t(_model(12, 2, S, 3, 16, 32))
+    y, h = ref.ssd_chunked(**d, chunk=chunk)
+    states = ref.chunk_states(d["x"], d["dt"], d["A"], d["B"], d["C"], chunk)
+    h_prev, h_final = ref.state_pass(states, d["dt"], d["A"], chunk)
+    assert torch.equal(h, h_final)
+    assert torch.equal(y, ref.chunk_outputs(
+        d["x"], d["dt"], d["A"], d["B"], d["C"], d["D"], h_prev, chunk))
+
+
+def test_workspaces_at_the_layer_shape():
+    """The binding's workspaces at mamba2-780m's layer (b 8, S 2048, 48
+    heads, P 64, N 128, chunk 256): C.B^T 16.8 MB (it stays in the 50 MB
+    L2), the states 100.7 MB; a chunk that is not a multiple of the tile
+    pads to one."""
+    ws = K.workspace_shapes(8, 2048, 48, 64, 128, 256)
+    assert ws == {"cb": (8, 8, 256, 256), "cum": (8, 48, 8, 256),
+                  "states": (8, 8, 48, 64, 128)}
+    assert 4 * np.prod(ws["cb"]) == 16_777_216
+    assert 4 * np.prod(ws["states"]) == 100_663_296
+    assert K.workspace_shapes(1, 100, 2, 16, 16, 40)["cb"] == (1, 3, 64, 64)
+    assert K.workspace_shapes(1, 0, 2, 16, 16, 16)["states"] == \
+        (1, 0, 2, 16, 16)
