@@ -13,7 +13,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              flash decode, SSD scan, int8 GEMM).
    sass    — cuobjdump's counts of the matrix instructions in the flash
              attention (HMMA or HGMMA required), GEMM (DMMA required) and
-             SSD scan (TF32 HMMA required: its 3xTF32 products) libraries.
+             SSD scan (TF32 HMMA required: its 3xTF32 products) libraries,
+             and of the copy instructions in the SpMV library (UBLKCP or
+             LDGSTS required: the take kernel's bulk-copied ring).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
              shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
@@ -41,6 +43,16 @@ Phases (one line each; any failure exits nonzero and prints no result):
              The conv2d's tile (kernel.plan) at each card-size layer, and
              two layers timed: 64 -> 64 (alexnet's largest) and yolov3's
              8 -> 32, both 3x3 at 224^2.
+             The take SpMV on both paths (kernel.take_plan: the vector
+             path's persistent ring, the general path), every block
+             multiplier, K 1 to 64, columns at -1 and at C (they add
+             nothing), a misaligned view (the general path), at 2^14 and
+             2^22 rows; timed at 2^22 x 16 against C 2^22: both paths at
+             every block multiplier beside the plain version and cuSPARSE,
+             and three probes on the same bytes that part the costs (unit-
+             stride columns: the DRAM stream; random within the first 2^14
+             columns: the gather from L1; within the first 2^20: from L2);
+             both paths also at the JAX size (2^14 x 16).
              The one-hot SpMV: tests/test_kernels_fused.py's shapes, ragged
              rows and nonzeros, columns at -1 and at C (they contribute 0);
              timed at the JAX veceval size (2^14 rows x 16, C 2^14: 2^32
@@ -236,7 +248,7 @@ from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.core import microbench, veceval  # noqa: E402
 from repro_torch.core.costmodel import hw_for  # noqa: E402
 from repro_torch.kernels.common import (  # noqa: E402
-    REQUIRED_CAPABILITY, cuda_tool, library_path)
+    REQUIRED_CAPABILITY, cuda_tool, library_path, sm_count)
 from repro_torch.kernels.conv2d import kernel as conv_kernel  # noqa: E402
 from repro_torch.kernels.conv2d import ref as conv_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
@@ -426,24 +438,26 @@ def phase_build():
                  f"and loaded in {secs:.1f} s")
 
 
-# the matrix instructions a library's SASS must hold: (library name, its
-# sources, a pattern one of its opcodes must match)
+# the matrix or copy instructions a library's SASS must hold: (library
+# name, its sources, a pattern one of its opcodes must match)
 SASS_REQUIRED = (("flash_attention", fa_kernel.SOURCES, r"H?G?MMA\..*"),
                  ("gemm", gemm_kernel.SOURCES, r"DMMA\..*"),
-                 ("ssd_scan", ssd_kernel.SOURCES, r"HMMA\..*TF32.*"))
+                 ("ssd_scan", ssd_kernel.SOURCES, r"HMMA\..*TF32.*"),
+                 ("spmv", spmv_kernel.SOURCES, r"(?:UBLKCP|LDGSTS)\..*"))
 
 
 def phase_sass():
     """Counts of the matrix instructions (HMMA, HGMMA, DMMA) in the SASS of
-    the flash-attention, GEMM and SSD libraries, by cuobjdump; exits
-    unless each holds its tensor-core opcode."""
+    the flash-attention, GEMM and SSD libraries and of the copy
+    instructions (UBLKCP, LDGSTS) in the SpMV library, by cuobjdump;
+    exits unless each holds its opcode."""
     for name, sources, need in SASS_REQUIRED:
         sass = subprocess.run(
             [cuda_tool("cuobjdump"), "-sass",
              str(library_path(name, sources))],
             capture_output=True, text=True, check=True).stdout
         counts = collections.Counter(
-            re.findall(r"\b((?:HMMA|HGMMA|DMMA)[.\w]*)", sass))
+            re.findall(r"\b((?:HMMA|HGMMA|DMMA|UBLKCP|LDGSTS)[.\w]*)", sass))
         log("sass", f"{name}: " + (", ".join(
             f"{op} x{n}" for op, n in sorted(counts.items())) or "none"))
         if not any(re.fullmatch(need, op) for op in counts):
@@ -677,25 +691,75 @@ def _ell(R, C, K, g, dev):
     return vals, cols, x
 
 
-def _check_spmv(what, vals, cols, x, m=1):
-    got = spmv_kernel.spmv_ell(vals, cols, x, block_multiplier=m)
-    scale = (vals * x[cols]).abs().sum(-1, keepdim=True)
-    return check(what, got, spmv_ref.spmv_ell(vals, cols, x), 1e-6, 0.0,
+def _check_spmv(what, vals, cols, x, m=1, path=None):
+    """The take kernel against the plain version over the in-range
+    nonzeros (a column outside [0, C) adds nothing), each row within 1e-6
+    of its sum of |terms|."""
+    got = spmv_kernel.spmv_ell(vals, cols, x, block_multiplier=m, path=path)
+    C = x.shape[0]
+    inside = (cols >= 0) & (cols < C)
+    kept, at = vals * inside, cols.clamp(0, C - 1)
+    scale = (kept * x[at]).abs().sum(-1, keepdim=True)
+    return check(what, got, spmv_ref.spmv_ell(kept, at, x), 1e-6, 0.0,
                  scale)
 
 
+def _spmv_paths(vals, cols, m):
+    """The paths a take check forces: both where the vector path applies
+    (K a multiple of 4, aligned operands, a ring that fits), else the
+    general one."""
+    R, K = vals.shape
+    try:
+        spmv_kernel.take_plan(R, K, m, sm_count(0), vals.data_ptr() % 16 == 0
+                              and cols.data_ptr() % 16 == 0, "vector")
+    except ValueError:
+        return ("general",)
+    return ("vector", "general")
+
+
+# the window probes: random columns within the first 2^14 (x's 64 KB stays
+# in L1) and within the first 2^20 (4 MB: in L2, not L1)
+SPMV_WINDOWS = (1 << 14, 1 << 20)
+
+
 def kernels_spmv(g, hw, card):
+    """The take kernel on both paths (each forced where the vector path
+    applies), every block multiplier: 1000 x 777 at K 1 to 64 with columns
+    at -1 and at C, a view one float past a 16-byte boundary (the plan's
+    general path), 2^14 and 2^22 rows x 16.  Timed at 2^22 x 16 against C
+    2^22, L2 flushed: both paths at every block multiplier beside the
+    plain version and cuSPARSE in one group; then the probes, each path
+    on the same bytes with other columns (unit-stride, and random within
+    each of SPMV_WINDOWS); then both paths at the JAX size.  Returns the
+    record of the plan's path at block multiplier 1 (veceval's)."""
     dev = torch.device("cuda")
     worst = 0.0
-    for K in (1, 5, 13, 16, 33):                    # ragged rows and nnz
+    for K in (1, 4, 5, 13, 16, 32, 33, 64):         # ragged rows and nnz
         vals, cols, x = _ell(1000, 777, K, g, dev)
+        cols[::7, 0] = -1                           # add nothing
+        cols[3::7, -1] = 777
         for m in (1, 2, 4, 8):
-            worst = max(worst, _check_spmv(f"spmv 1000x777 nnz {K} m{m}",
-                                           vals, cols, x, m))
+            for path in _spmv_paths(vals, cols, m):
+                worst = max(worst, _check_spmv(
+                    f"spmv 1000x777 nnz {K} m{m} {path}", vals, cols, x, m,
+                    path))
+    view = torch.empty(vals.numel() + 1, device=dev)[1:].view(vals.shape)
+    view.copy_(vals)
+    if _spmv_paths(view, cols, 1) != ("general",):
+        raise SystemExit("spmv: a misaligned view must take the general "
+                         "path")
+    for m in (1, 2, 4, 8):
+        worst = max(worst, _check_spmv(f"spmv misaligned view nnz "
+                                       f"{vals.shape[1]} m{m}", view, cols,
+                                       x, m))
     for R in (1 << 14, 1 << 22):                    # default, card
         vals, cols, x = _ell(R, R, 16, g, dev)
-        worst = max(worst, _check_spmv(f"spmv {R} nnz 16", vals, cols, x))
-    log("kernels-veceval", f"spmv: ok, max abs err {worst:.2e}")
+        for m in (1, 2, 4, 8):
+            for path in _spmv_paths(vals, cols, m):
+                worst = max(worst, _check_spmv(
+                    f"spmv {R} nnz 16 m{m} {path}", vals, cols, x, m, path))
+    log("kernels-veceval", f"spmv: ok on both paths, max abs err "
+                           f"{worst:.2e}")
     # cuSPARSE through a CSR tensor built beforehand (columns sorted per row)
     R, K = vals.shape
     cs, perm = cols.sort(dim=1)
@@ -707,20 +771,70 @@ def kernels_spmv(g, hw, card):
             size=(R, R), check_invariants=False)
     check("spmv cuSPARSE yardstick", torch.mv(csr, x)[:, None],
           spmv_ref.spmv_ell(vals, cols, x), 1e-5, 1e-5)
-    # what the random gather costs: the same kernel and bytes with unit-
-    # stride columns, cols[r, k] = (16 r + k) mod C
-    unit = (torch.arange(R * K, device=dev) % R).to(torch.int32).view(R, K)
-    unit_ms = measure_group({"kernel": lambda: spmv_kernel.spmv_ell(
-        vals, unit, x)}, reps=30, flush_l2=True, cover_ms=2.0)
-    log("kernels-veceval", f"spmv same size, unit-stride columns: kernel_ms "
-        f"{unit_ms['kernel'].median_s * 1e3:.4f} | {card}")
-    return timed_record(
-        f"spmv rows=cols=2^22 nnz 16 fp32", {
-            "kernel": lambda: spmv_kernel.spmv_ell(vals, cols, x),
-            "plain": lambda: spmv_ref.spmv_ell(vals, cols, x),
-            "library": lambda: torch.mv(csr, x)},
-        2.0 * R * K, R * K * 8.0 + R * 4.0 + R * 4.0, torch.float32, hw,
-        card, worst)
+    flops, nbytes = 2.0 * R * K, R * K * 8.0 + R * 4.0 + R * 4.0
+    plan_path = spmv_kernel.take_plan(R, K, 1, sm_count(0), True).path
+
+    def take(c, m, path):
+        return lambda: spmv_kernel.spmv_ell(vals, c, x, block_multiplier=m,
+                                            path=path)
+
+    fns = {"kernel": take(cols, 1, None),
+           "plain": lambda: spmv_ref.spmv_ell(vals, cols, x),
+           "library": lambda: torch.mv(csr, x),
+           "general m1": take(cols, 1, "general")}
+    for m in (2, 4, 8):
+        for path in _spmv_paths(vals, cols, m):
+            fns[f"{path} m{m}"] = take(cols, m, path)
+    ms = {k: v.median_s * 1e3 for k, v in measure_group(
+        fns, reps=30, flush_l2=True,
+        cover_ms={k: 20.0 if k == "plain" else 2.0 for k in fns}).items()}
+    bound_s, bound_by = hw.bound_s(flops, nbytes, torch.float32)
+    bound = bound_s * 1e3
+    log("kernels-veceval", f"spmv rows=cols=2^22 nnz 16 random columns, "
+        f"bound {bound:.4f} ms: " + ", ".join(
+            f"{k} {v:.4f} ({100 * bound / v:.1f}%)" for k, v in ms.items())
+        + f" | {card}")
+    # the costs apart: the same kernel and bytes with unit-stride columns,
+    # cols[r, k] = (16 r + k) mod C (the DRAM stream), and random within a
+    # window of x (the gather from L1, then from L2)
+    probes = {"unit-stride": (torch.arange(R * K, device=dev) % R).to(
+        torch.int32).view(R, K)}
+    for w in SPMV_WINDOWS:
+        probes[f"window 2^{w.bit_length() - 1}"] = torch.randint(
+            0, w, (R, K), generator=g, device=dev, dtype=torch.int32)
+    fns = {}
+    for name, c in probes.items():
+        worst = max(worst, _check_spmv(f"spmv probe {name}", vals, c, x))
+        for m in (1, 2, 4, 8):
+            for path in _spmv_paths(vals, cols, m):
+                fns[f"{name} {path} m{m}"] = take(c, m, path)
+    probe_ms = measure_group(fns, reps=30, flush_l2=True, cover_ms=2.0)
+    for name in probes:
+        log("kernels-veceval", f"spmv probe {name} (same bytes, bound "
+            f"{bound:.4f} ms): " + ", ".join(
+                f"{k[len(name) + 1:]} {v.median_s * 1e3:.4f}"
+                for k, v in probe_ms.items() if k.startswith(name + " "))
+            + f" | {card}")
+    vs, cs_, xs = _ell(1 << 14, 1 << 14, 16, g, dev)
+    small_path = spmv_kernel.take_plan(1 << 14, 16, 1, sm_count(0),
+                                       True).path
+    fns = {f"plan ({small_path}) m1": lambda: spmv_kernel.spmv_ell(vs, cs_,
+                                                                   xs)}
+    for m in (1, 2, 4, 8):
+        fns[f"vector m{m}"] = (lambda m=m: spmv_kernel.spmv_ell(
+            vs, cs_, xs, block_multiplier=m, path="vector"))
+    small = measure_group(fns, reps=100, flush_l2=True, cover_ms=2.0)
+    log("kernels-veceval", "spmv JAX size 2^14 x 16, C 2^14: " + ", ".join(
+        f"{k} {v.median_s * 1e3:.4f}" for k, v in small.items())
+        + f" | {card}")
+    rec = dict(max_abs_err=worst, ms=ms["kernel"], plain_ms=ms["plain"],
+               library_ms=ms["library"], bound_ms=bound, bound_by=bound_by)
+    log("kernels-veceval",
+        f"spmv rows=cols=2^22 nnz 16 fp32 ({plan_path} path): kernel_ms "
+        f"{rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} library_ms "
+        f"{rec['library_ms']:.4f} bound_ms {bound:.4f} ({bound_by}) | "
+        f"{card}")
+    return rec
 
 
 def kernels_spmv_onehot(g, hw, card):

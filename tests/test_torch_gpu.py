@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from repro_torch.configs import reduced_config
-from repro_torch.kernels.common import require_hopper
+from repro_torch.kernels.common import (require_hopper,
+                                       sm_count)
 from repro_torch.kernels.conv2d import kernel as conv_kernel
 from repro_torch.kernels.conv2d import ops as conv_ops
 from repro_torch.kernels.gemm import kernel as gemm_kernel
@@ -223,21 +224,118 @@ def test_stream_kernel_matches_plain(card, kind, shape, mult):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=0.0)
 
 
-@pytest.mark.parametrize("nnz,mult", [(1, 1), (13, 2), (16, 4), (33, 8)])
-def test_spmv_kernel_matches_plain(card, nnz, mult):
-    """1000 rows (not a multiple of any block), nnz below, at and past a
-    warp; each row within 1e-6 of the scale of its terms."""
-    rng = np.random.default_rng(nnz)
-    vals = torch.from_numpy(rng.standard_normal((1000, nnz)).astype(
+def _spmv_inputs(R, C, nnz, seed, out_of_range=True):
+    """A numpy-seeded ELL matrix with columns at -1 and at C among the
+    nonzeros (they add nothing); also the plain version's y over the
+    in-range nonzeros and each row's sum of |terms|."""
+    rng = np.random.default_rng(seed)
+    vals = torch.from_numpy(rng.standard_normal((R, nnz)).astype(
         np.float32))
-    cols = torch.from_numpy(rng.integers(0, 777, (1000, nnz)).astype(
-        np.int32))
-    x = torch.from_numpy(rng.random(777).astype(np.float32))
+    cols = torch.from_numpy(rng.integers(0, C, (R, nnz)).astype(np.int32))
+    if out_of_range and nnz:
+        cols[::7, 0] = -1
+        cols[3::7, -1] = C
+    x = torch.from_numpy(rng.random(C).astype(np.float32))
+    inside = (cols >= 0) & (cols < C)
+    kept, at = vals * inside, cols.clamp(0, C - 1)
+    want = spmv_ops.spmv_ell(kept, at, x)
+    return vals, cols, x, want, (kept * x[at]).abs().sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("nnz,mult", [
+    (1, 1), (13, 2), (16, 4), (33, 8),
+    *((k, m) for k in (4, 16, 64) for m in (1, 2, 4, 8) if (k, m) != (16, 4))])
+def test_spmv_kernel_matches_plain(card, nnz, mult):
+    """1000 rows (not a multiple of any tile), nnz below, at and past a
+    warp, columns at -1 and at C (they add nothing); each row within 1e-6
+    of the scale of its terms.  Through ops the plan's path (the general
+    one: no block would walk a second tile); K 4, 16 and 64 also on the
+    vector path forced, at every block multiplier (a ragged last
+    tile)."""
+    vals, cols, x, want, scale = _spmv_inputs(1000, 777, nnz, nnz)
+    sms = sm_count(require_hopper(card))
+    assert spmv_kernel.take_plan(1000, nnz, mult, sms, True).path == \
+        "general"
+    tv, tc, tx = vals.to(card), cols.to(card), x.to(card)
+    got = _counted(spmv_kernel.spmv_ell, lambda: spmv_ops.spmv_ell(
+        tv, tc, tx, block_multiplier=mult))
+    assert ((got.cpu() - want).abs() <= 1e-6 * scale).all()
+    if nnz % 4 == 0:
+        got = _counted(spmv_kernel.spmv_ell, lambda: spmv_kernel.spmv_ell(
+            tv, tc, tx, block_multiplier=mult, path="vector"))
+        assert ((got.cpu() - want).abs() <= 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("mult", [1, 2, 4, 8])
+@pytest.mark.parametrize("nnz", [16, 64])
+def test_spmv_kernel_plan_takes_the_vector_path(card, nnz, mult):
+    """At 70001 rows every block of the persistent grid walks several
+    tiles, so the plan itself takes the vector path through ops; columns
+    at -1 and at C; within 1e-6 of the row's scale."""
+    R = 70001
+    vals, cols, x, want, scale = _spmv_inputs(R, 20000, nnz, mult)
+    assert spmv_kernel.take_plan(R, nnz, mult, sm_count(require_hopper(
+        card)), True).path == "vector"
     got = _counted(spmv_kernel.spmv_ell, lambda: spmv_ops.spmv_ell(
         vals.to(card), cols.to(card), x.to(card), block_multiplier=mult))
-    want = spmv_ops.spmv_ell(vals, cols, x)
-    scale = (vals * x[cols]).abs().sum(-1, keepdim=True)
     assert ((got.cpu() - want).abs() <= 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("R", [1, 255, 4097])
+@pytest.mark.parametrize("nnz", [16, 64])
+def test_spmv_kernel_misaligned_view_takes_the_general_path(card, R, nnz):
+    """vals a view one float past a 16-byte boundary: the plan takes the
+    general path, forcing the vector path raises, and the result is the
+    plain version's (1e-6 of the row's scale)."""
+    vals, cols, x, want, scale = _spmv_inputs(R, 300, nnz, R)
+    buf = torch.empty(R * nnz + 1, device=card)
+    view = buf[1:].view(R, nnz)
+    view.copy_(vals)
+    tc, tx = cols.to(card), x.to(card)
+    with pytest.raises(ValueError):
+        spmv_kernel.spmv_ell(view, tc, tx, path="vector")
+    got = _counted(spmv_kernel.spmv_ell,
+                   lambda: spmv_ops.spmv_ell(view, tc, tx))
+    assert ((got.cpu() - want).abs() <= 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("path", ["vector", "general"])
+@pytest.mark.parametrize("mult", [1, 2, 4, 8])
+def test_spmv_kernel_repeats_its_bits(card, path, mult):
+    """Two calls on the same inputs give the same bits (no atomics, a
+    fixed order of sums), at 2^16 + 3 rows x 16 (a persistent block walks
+    several tiles)."""
+    vals, cols, x, want, scale = _spmv_inputs((1 << 16) + 3, 5000, 16, mult)
+    tv, tc, tx = vals.to(card), cols.to(card), x.to(card)
+    first = spmv_kernel.spmv_ell(tv, tc, tx, block_multiplier=mult,
+                                 path=path)
+    again = spmv_kernel.spmv_ell(tv, tc, tx, block_multiplier=mult,
+                                 path=path)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+    assert ((first.cpu() - want).abs() <= 1e-6 * scale).all()
+
+
+@pytest.mark.parametrize("mult", [1, 2, 4, 8])
+@pytest.mark.parametrize("nnz", [4, 16, 64, 128])
+def test_spmv_take_plan_matches_the_library(card, nnz, mult):
+    """The plan's ring is the library's (``spmv_take_smem_bytes``), and
+    after a launch the card holds the plan's blocks a SM (so the
+    persistent grid is one wave)."""
+    plan = spmv_kernel.take_plan(1 << 20, nnz, mult,
+                                 sm_count(require_hopper(card)), True)
+    assert plan.path == "vector"
+    lib = spmv_kernel.load_library()
+    assert lib.spmv_take_smem_bytes(nnz, plan.lanes, mult, plan.stages) == \
+        plan.smem
+    vals, cols, x, want, scale = _spmv_inputs(2 * plan.tile_rows + 1, 50,
+                                              nnz, 0)
+    got = spmv_kernel.spmv_ell(vals.to(card), cols.to(card), x.to(card),
+                               block_multiplier=mult, path="vector")
+    torch.cuda.synchronize()
+    assert ((got.cpu() - want).abs() <= 1e-6 * scale).all()
+    assert lib.spmv_take_occupancy(plan.lanes, mult, plan.smem) >= \
+        plan.blocks_per_sm
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),

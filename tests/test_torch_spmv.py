@@ -145,3 +145,118 @@ def test_onehot_plan_covers_k_and_c(K, C):
     assert chunk % 4 == 0 and 4 <= chunk <= pt_kernel.ONEHOT_X_CHUNK
     assert chunk >= C or chunk == pt_kernel.ONEHOT_X_CHUNK
 
+
+
+SMS = 132                 # an H100 SXM's SMs
+
+
+def _rows_covered(plan, R):
+    """How many times each row is taken: every tile t of ``tile_rows``
+    rows, the vector path's block b walking tiles b, b + grid, ... as
+    csrc/spmv.cu does, the general path's block b its one tile."""
+    tiles = -(-R // plan.tile_rows)
+    if plan.path == "vector":
+        walk = np.arange(plan.grid)[:, None] + plan.grid * np.arange(
+            -(-tiles // plan.grid) + 1)[None, :]
+        taken = walk[walk < tiles]
+    else:
+        taken = np.arange(plan.grid)
+    counts = np.zeros(tiles + 1, np.int64)
+    np.add.at(counts, np.minimum(taken, tiles), 1)
+    assert counts[tiles] == 0 or plan.path == "general"
+    per_tile = counts[:tiles]
+    rows = np.minimum(plan.tile_rows, R - np.arange(tiles) * plan.tile_rows)
+    return per_tile, rows
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("mult", [1, 2, 4, 8])
+@pytest.mark.parametrize("R", [0, 1, 1000, 1 << 22])
+@pytest.mark.parametrize("K", [1, 4, 13, 16, 17, 32, 64])
+def test_take_plan_covers_rows_and_fits(K, R, mult, aligned):
+    """The take kernel's plan: the vector path applies only for K a
+    multiple of 4 with aligned operands (lanes the power of two at or
+    above K / 4) and is the plan's where some block walks a second tile,
+    else the general path (lanes the power of two at or above K, at most
+    32); on either path the tiles take every row exactly once; the
+    persistent grid is never more than ``sms`` x its blocks a SM, each
+    block's ring fits 227 KB and the blocks of an SM the shared-memory
+    budget."""
+    plan = pt_kernel.take_plan(R, K, mult, SMS, aligned)
+    general = pt_kernel.take_plan(R, K, mult, SMS, aligned, "general")
+    plans = [general]
+    if K % 4 == 0 and aligned:
+        vector = pt_kernel.take_plan(R, K, mult, SMS, aligned, "vector")
+        plans.append(vector)
+        assert plan == (vector if -(-R // vector.tile_rows) > vector.grid
+                        else general)
+        assert plan.path == ("vector" if R == 1 << 22 else "general")
+    else:
+        with pytest.raises(ValueError):
+            pt_kernel.take_plan(R, K, mult, SMS, aligned, "vector")
+        assert plan == general
+    for p in plans:
+        per_tile, rows = _rows_covered(p, R)
+        assert (per_tile == 1).all() and rows.sum() == R and (rows > 0).all()
+    assert general.lanes == min(1 << max(K - 1, 0).bit_length(), 32)
+    assert general.tile_rows == 256 // general.lanes * mult
+    assert general.stages == general.smem == 0
+    if len(plans) == 2:
+        assert vector.lanes == min(1 << (K // 4 - 1).bit_length(), 32)
+        assert vector.tile_rows == pt_kernel.TAKE_CONSUMERS // vector.lanes \
+            * mult
+        assert 1 <= vector.grid <= SMS * vector.blocks_per_sm
+        assert vector.grid == max(min(-(-R // vector.tile_rows),
+                                      SMS * vector.blocks_per_sm), 1)
+        assert 2 <= vector.stages <= pt_kernel.TAKE_MAX_STAGES
+        assert vector.smem == pt_kernel.take_smem_bytes(
+            K, vector.lanes, mult, vector.stages)
+        assert vector.smem <= 227 * 1024
+        assert vector.blocks_per_sm * (vector.smem + 1024) <= 132 * 1024
+        assert 1 <= vector.blocks_per_sm <= \
+            pt_kernel.TAKE_BLOCKS_PER_SM[mult]
+
+
+@pytest.mark.parametrize("K,mult,path", [(128, 8, "vector"),
+                                         (256, 8, "general"),
+                                         (1024, 1, "vector"),
+                                         (1024, 2, "general"),
+                                         (4096, 1, "general")])
+def test_take_plan_takes_the_general_path_where_the_ring_overflows(
+        K, mult, path):
+    """Two stages of a tile that do not fit 227 KB leave the vector path
+    for the general one (and forcing it raises)."""
+    plan = pt_kernel.take_plan(1 << 20, K, mult, SMS, True)
+    assert plan.path == path
+    if path == "vector":
+        assert plan.smem <= 227 * 1024 and plan.stages >= 2
+    else:
+        with pytest.raises(ValueError):
+            pt_kernel.take_plan(1 << 20, K, mult, SMS, True, "vector")
+
+
+def test_take_plan_refuses_a_bad_multiplier_or_path():
+    with pytest.raises(ValueError):
+        pt_kernel.take_plan(1000, 16, 3, SMS, True)
+    with pytest.raises(ValueError):
+        pt_kernel.take_plan(1000, 16, 1, SMS, True, "scalar")
+
+
+def test_take_constants_match_the_source():
+    """The plan's constants are the CUDA source's: consumer threads, the
+    most stages, a block's shared memory, the ring's bytes and the blocks
+    a SM the kernel's ``__launch_bounds__`` holds its registers to."""
+    src = pt_kernel.SOURCES[0].read_text()
+
+    def const(name):
+        return src.split(f"constexpr int {name} = ")[1].split(";")[0]
+
+    assert int(const("kTakeConsumers")) == pt_kernel.TAKE_CONSUMERS
+    assert int(const("kTakeMaxStages")) == pt_kernel.TAKE_MAX_STAGES
+    assert eval(const("kTakeSmemLimit")) == pt_kernel.TAKE_SMEM_LIMIT
+    assert int(const("kBlockReserved")) == pt_kernel.BLOCK_RESERVED
+    bounds = src.split("return rpg == 1 ? ")[1].split(";")[0]
+    b = pt_kernel.TAKE_BLOCKS_PER_SM
+    assert bounds == f"{b[1]} : rpg == 2 ? {b[2]} : rpg == 4 ? {b[4]} : {b[8]}"
+    ring = src.split("return stages * (")[1].split(";")[0]
+    assert ring == "2 * (kTakeConsumers / lanes) * rpg * K * 4 + 16)"
