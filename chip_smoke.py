@@ -17,8 +17,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              and of the copy instructions in the SpMV library (UBLKCP or
              LDGSTS required: the take kernel's bulk-copied ring).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
-             on the card, at granite-3-2b (H 64) and qwen3-1.7b (H 128)
-             shapes: decode (Sq 1) and a prefill chunk (Sq 32), ragged
+             on the card, at granite-3-2b (H 64), qwen3-1.7b (H 128),
+             phi3-medium-14b (10 KV heads) and grok-1-314b (G 6) shapes:
+             decode (Sq 1) and a prefill chunk (Sq 32), ragged
              kv_valid (0, 1, page boundaries, partial last pages, full),
              identity and permuted page maps, without and with softcap 30
              (the queries scaled by 30 for it: scores of ~30, where the
@@ -111,14 +112,17 @@ Phases (one line each; any failure exits nonzero and prints no result):
              the bf16 peak, whichever is larger); then the host time of a
              decode call.
    kernels-serve-dense — the dense-cache flash-decode kernel against its
-             plain version: H 32/64/128, G 1/2/4/8, kv_valid 0, 1, a tile
-             edge, ragged and the whole cache, Sq 1 and the per-query
-             lengths of a 32-column prefill row, softcap 0 and 30, fp32
+             plain version: H 32/64/128, G 1/2/4/8, and the served
+             groups G 6 (grok-1) and NKV 10 (phi3-medium), kv_valid 0, 1,
+             a tile edge, ragged and the whole cache, Sq 1 and the
+             per-query lengths of a 32-column prefill row, softcap 0 and
+             30 (the queries scaled by 30, as phase 3's), fp32
              (2e-4, the JAX test's) and bf16 (one bf16 ulp), the cache a
              strided view in every other case; queries with no valid key
              exactly 0.  Timed at qwen3-1.7b's static decode (B 8, S_cache
              2088, kv_valid 2080, 16/8 heads, H 128), granite-3-2b's 6c
-             shape (B 8, 552, 520, 32/8, H 64) and qwen3's at 64 slots,
+             shape (B 8, 552, 520, 32/8, H 64), qwen3's at 64 slots, and
+             the 6f and 6g shapes (B 8, 552, 520: 48/8 and 40/10, H 128),
              bf16: kernel, plain, library (F.scaled_dot_product_attention
              with the valid-length mask on the dense cache laid out heads
              first, a call the port never makes) and bound, with the KV
@@ -138,13 +142,15 @@ Phases (one line each; any failure exits nonzero and prints no result):
              granite-3-2b (H 64) and mamba2-780m, quantized, fp32, on the
              same mix: both engines' greedy tokens identical to each other
              and on the card and the CPU; the int8 GEMM launched (7 or 6) x
-             n_layers + 1 times a forward on the card.  Then the dense-cache
-             decode: reduced granite-3-2b and qwen3-1.7b (H 64), fp32, on the
-             same mix: the continuous engine with paged_kernel=False and
-             True and the static engine give identical greedy tokens, on the
-             card and the CPU; with False the flash-decode kernel launches
-             n_layers times a forward and the paged kernel never, with True
-             the reverse, and the static decode the flash-decode kernel.
+             n_layers + 1 times a forward on the card (reduced phi3.5-moe
+             too: 4 + 3 x 4 a layer).  Then the dense-cache decode: reduced
+             granite-3-2b, qwen3-1.7b, phi3.5-moe and grok-1 (softcap 30,
+             6/1 heads: G 6) (H 64), fp32, on the same mix: the continuous
+             engine with paged_kernel=False and True and the static engine
+             give identical greedy tokens, on the card and the CPU; with
+             False the flash-decode kernel launches n_layers times a
+             forward and the paged kernel never, with True the reverse,
+             and the static decode the flash-decode kernel.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
@@ -153,13 +159,14 @@ Phases (one line each; any failure exits nonzero and prints no result):
              random weights from a seeded generator.  (a)
              ``launch.serve.run(static=True)``: 8 prompts of 2048 tokens,
              32 new tokens each; the prefill runs the SSD kernel, 48
-             launches (one a layer).  (b) the ContinuousBatchingEngine, as
-             phase 6 runs granite (8 slots, 16 requests of 32-256 prompt
+             launches (one a layer).  (b) the ContinuousBatchingEngine on
+             8 requests drawn as phase 6's (8 slots, 32-256 prompt
              tokens, 32 new, prefill chunk 32): its prefill is the
              token-by-token recurrence, so 0 SSD launches.  Each prints
              tokens/s, step p50 (and the static prefill ms) from CUDA
-             events and peak memory.  (c) the first prompt of (a) through
-             the recurrence in one decode forward against the kernel's
+             events and peak memory.  (c) the first 1024 tokens of (a)'s
+             first prompt through the recurrence in one decode forward
+             against the kernel's
              prefill, in bf16 and then in fp32 (the same weights before
              rounding): each layer's max relative error of h and whether
              the first greedy token agrees, reported only.
@@ -188,6 +195,25 @@ Phases (one line each; any failure exits nonzero and prints no result):
              events and peak memory; (b) also the share of greedy tokens the
              two runs share (reported only: in bf16 the kernels round
              differently).
+6e. serve-moe — phi3.5-moe-42b-a6.6b at full width (32 layers, 16
+             experts top-2 of d_ff 6400), weight-only int8 drawn and
+             quantized layer by layer (the 84 GB bf16 tree is never
+             held): (a) ``launch.serve.run(static=True, int8=True)``, 8 x
+             512 prompt tokens, 32 new, the decode through the
+             flash-decode kernel; (b) the ContinuousBatchingEngine at
+             phase 6's request mix, through the paged kernel; every
+             forward launches the int8 GEMM 32 x (4 + 3 x 16) + 1 = 1665
+             times (one an expert and projection), checked on one decode
+             forward.  Prints prefill ms, step p50, tokens/s, the int8
+             tree's bytes and the peak after init and in serving.
+6f. serve-grok — grok-1-314b at full width (48/8 heads of 128: G 6,
+             softcap 30, 8 experts of d_ff 32768) cut to 4 of its 64
+             layers, int8: static 8 x 512 + 32 (the flash-decode kernel
+             at G 6, softcap 30), then 8 requests drawn as phase 6's (the
+             paged kernel; a 32-column chunk is 192 query rows).
+6g. serve-phi3m — phi3-medium-14b at full width in bf16 (40/10 heads:
+             B x NKV = 80), static 8 x 512 + 32 through the flash-decode
+             kernel.
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -280,6 +306,7 @@ from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.quant import matmul_q, quantize_params  # noqa: E402
+from repro_torch.models.quant import param_bytes as quant_bytes  # noqa: E402
 from repro_torch.optim import AdamWConfig  # noqa: E402
 from repro_torch.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.parity import card_step_matches_cpu  # noqa: E402
@@ -364,12 +391,32 @@ TRAIN_LOSS_RTOL = 2e-3
 # the ssm serving path: full-width mamba2-780m
 SSM_ARCH = "mamba2-780m"
 SSM_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
+# the continuous engine's requests (its prefill runs token by token) and
+# the recurrence check's prompt: cut from 16 and 2048 to keep the script
+# near its time budget
+SSM_MIX_REQUESTS = 8
+SSM_RECURRENCE_LEN = 1024
 # the int8 serving path: full-width granite-3-2b, weight-only int8
 INT8_ARCH = "granite-3-2b"
 INT8_STATIC = dict(slots=8, prompt_len=512, gen_len=32)
 # the dense-cache decode: full-width qwen3-1.7b at long prompts
 DENSE_ARCH = "qwen3-1.7b"
 DENSE_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
+# the moe family: phi3.5-moe-42b at full width in int8 (6e); grok-1-314b
+# at full width, cut to GROK_LAYERS of its 64 layers, in int8 (6f); and
+# the dense phi3-medium-14b at full width in bf16 (6g)
+MOE_ARCH = "phi3.5-moe-42b-a6.6b"
+GROK_ARCH = "grok-1-314b"
+GROK_LAYERS = 4
+PHI3M_ARCH = "phi3-medium-14b"
+MOE_STATIC = dict(slots=8, prompt_len=512, gen_len=32)
+# phi3.5-moe's d_model and expert d_ff; an expert's rows at its static
+# prefill: 8 groups x capacity ceil(2 x 512 / 16 x 1.25) = 80
+MOE_D, MOE_FF, MOE_ROWS = 4096, 6400, 640
+# phase 6's request mix (8 slots, 16 requests of 32-256 prompt tokens, 32
+# new, max_len 512, page 16, chunk 32), and grok-1's 8 of them
+MIX = dict(n_slots=8, max_len=512, page_size=16, prefill_chunk=32)
+MIX_NEW = 32
 
 
 def reset_launches(names):
@@ -569,7 +616,10 @@ def split_sweep(args, sq):
 def phase_kernel(card, hw):
     dev = torch.device("cuda")
     base = [0, 1, 16, 37, 256, 511, 777, 1024]       # ragged, 8 slots
-    shapes = [("granite", 8, 4, 64), ("qwen3", 8, 2, 128)]
+    # (arch, NKV, G, H): the served configs' head groups; phi3-medium's 10
+    # KV heads (B x NKV = 80, not a power of two) and grok-1's G 6
+    shapes = [("granite", 8, 4, 64), ("qwen3", 8, 2, 128),
+              ("phi3-medium", 10, 4, 128), ("grok-1", 8, 6, 128)]
     cases = []
     for arch, NKV, G, H in shapes:
         for sq in (1, 32):
@@ -1534,6 +1584,10 @@ def kernels_wq(g, hw, card):
     # 256), both layouts
     cases += [(4096, d, ff, False), (4096, d, V, True),
               (256, d, ff, False), (256, ff, d, False), (256, d, V, True)]
+    # an expert's gate and down at phi3.5-moe's static prefill (8 rows x
+    # capacity 80)
+    cases += [(k, MOE_D, MOE_FF, False) for k in (8, MOE_ROWS)]
+    cases += [(MOE_ROWS, MOE_FF, MOE_D, False)]
     worst, n = 0.0, 0
     for M, K, N, transposed in cases:
         for x_dtype in (torch.float32, torch.bfloat16):
@@ -1553,6 +1607,18 @@ def kernels_wq(g, hw, card):
             _wq_timed(g, hw, card, "prefill", 4096, d, ff, False, worst),
             _wq_timed(g, hw, card, "prefill logits", 4096, d, V, True,
                       worst)]
+    # the moe experts' products: phi3.5-moe's at decode (M 8) and at its
+    # static prefill (M 640: 8 rows x capacity 80), grok-1's at its static
+    # prefill (M 1280)
+    _wq_timed(g, hw, card, "phi3.5-moe expert decode", 8, MOE_D, MOE_FF,
+              False, worst)
+    _wq_timed(g, hw, card, "phi3.5-moe expert prefill", MOE_ROWS, MOE_D,
+              MOE_FF, False, worst)
+    _wq_timed(g, hw, card, "phi3.5-moe expert prefill down", MOE_ROWS,
+              MOE_FF, MOE_D, False, worst)
+    _wq_timed(g, hw, card, "grok-1 expert prefill", 2 * MOE_ROWS, 6144,
+              32768, False, worst)
+    torch.cuda.empty_cache()
     # fp32 x, the reduced configurations' and the parity checks' path, at
     # the decode shapes
     for K, N in ((d, ff), (ff, d)):
@@ -1654,6 +1720,9 @@ DECODE_VALID = (0, 1, 32, 1000, DECODE_S)
 DECODE_TIMED = (("qwen3-1.7b static decode", 8, 2088, 2080, 16, 8, 128),
                 ("granite-3-2b 6c static decode", 8, 552, 520, 32, 8, 64),
                 ("qwen3-1.7b decode at 64 slots", 64, 2088, 2080, 16, 8,
+                 128),
+                ("grok-1 6f static decode", 8, 552, 520, 48, 8, 128),
+                ("phi3-medium-14b 6g static decode", 8, 552, 520, 40, 10,
                  128))
 
 
@@ -1669,12 +1738,16 @@ def _decode_lens(sq, dev):
 
 
 def _decode_cases():
-    for H in (32, 64, 128):
-        for G in (1, 2, 4, 8):
-            for sq in (1, 32):
-                for softcap in (0.0, 30.0):
-                    for dtype in (torch.float32, torch.bfloat16):
-                        yield H, G, sq, softcap, dtype
+    """(H, G, NKV, sq, softcap, dtype): every H and power-of-two G at NKV
+    2, then the served configs' G 6 (grok-1: 48/8 heads) and NKV 10
+    (phi3-medium-14b: 40/10)."""
+    groups = [(H, G, 2) for H in (32, 64, 128) for G in (1, 2, 4, 8)]
+    groups += [(128, 6, 8), (64, 6, 2), (128, 4, 10)]
+    for H, G, NKV in groups:
+        for sq in (1, 32):
+            for softcap in (0.0, SOFTCAP):
+                for dtype in (torch.float32, torch.bfloat16):
+                    yield H, G, NKV, sq, softcap, dtype
 
 
 def kernels_flash_decode(g, hw, card):
@@ -1685,16 +1758,19 @@ def kernels_flash_decode(g, hw, card):
     static decode shapes."""
     dev = torch.device("cuda")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    B, NKV = len(DECODE_VALID), 2
+    B = len(DECODE_VALID)
     n = 0
-    for H, G, sq, softcap, dtype in _decode_cases():
-        q = torch.randn((B, sq, NKV * G, H), generator=g,
-                        device=dev).to(dtype)
+    for H, G, NKV, sq, softcap, dtype in _decode_cases():
+        # softcap 30 over queries scaled as phase 3's: scores of ~30, where
+        # the cap moves the output
+        q = (torch.randn((B, sq, NKV * G, H), generator=g, device=dev)
+             * (SOFTCAP_Q_SCALE if softcap else 1.0)).to(dtype)
         wide = torch.randn((2 * B, DECODE_S, NKV, H), generator=g,
                            device=dev).to(dtype)
         k, v = (wide[::2], wide[1::2]) if n % 2 else (wide[:B], wide[B:])
         lens = _decode_lens(sq, dev)
-        what = f"flash_decode H{H} G{G} Sq{sq} cap{softcap:g} {dtype}"
+        what = (f"flash_decode H{H} G{G} NKV{NKV} Sq{sq} cap{softcap:g} "
+                f"{dtype}")
         got = fa_kernel.flash_decode(q, k, v, lens, softcap=softcap)
         want = fa_ref.flash_decode(q, k, v, lens, softcap=softcap)
         rtol, atol = DECODE_TOL[dtype]
@@ -1704,8 +1780,11 @@ def kernels_flash_decode(g, hw, card):
             raise SystemExit(f"{what}: a query with no valid key is not 0")
         n += 1
     log("kernels-serve-dense", f"flash_decode: {n} cases ok (H 32/64/128, "
-                               f"G 1/2/4/8, Sq 1 and a 32-column prefill "
-                               f"row, softcap 0/30, fp32/bf16; kv_valid "
+                               f"G 1/2/4/8 at NKV 2; G 6 at NKV 8 and 2, "
+                               f"NKV 10 at G 4; Sq 1 and a 32-column "
+                               f"prefill row, softcap 0 and {SOFTCAP:g} "
+                               f"(queries x {SOFTCAP_Q_SCALE:g}), "
+                               f"fp32/bf16; kv_valid "
                                f"{list(DECODE_VALID)}), max abs err fp32 "
                                f"{worst[torch.float32]:.2e}, bf16 "
                                f"{worst[torch.bfloat16]:.2e}")
@@ -1893,9 +1972,12 @@ def parity_int8():
     quantized on the CPU; both engines agree token for token, on the card
     and on the CPU; every forward on the card launches the int8 GEMM once
     a q-pack matmul."""
-    for arch, per_layer in ((INT8_ARCH, 7), (SSM_ARCH, 6)):
-        cfg = (reduced_config(arch, head_dim=64) if arch == INT8_ARCH
-               else reduced_config(arch))
+    # per layer: 7 dense packs; 6 Mamba projections; 4 attention packs and
+    # 3 an expert (reduced phi3.5-moe: 4 experts)
+    for arch, per_layer in ((INT8_ARCH, 7), (SSM_ARCH, 6),
+                            (MOE_ARCH, 4 + 3 * 4)):
+        cfg = (reduced_config(arch) if arch == SSM_ARCH
+               else reduced_config(arch, head_dim=64))
         qparams = quantize_params(LM(cfg, device="cpu").init_params(
             torch.Generator(device="cpu").manual_seed(0)))
         rng = np.random.default_rng(2)
@@ -1924,16 +2006,19 @@ def parity_int8():
 
 
 def parity_dense():
-    """Reduced granite-3-2b and qwen3-1.7b in fp32 at H 64 (a width both
-    decode kernels take) on tests/test_serve_families.py's mix: the
-    continuous engine with the paged kernel off and on, and the static
-    engine, give identical greedy tokens on the card and on the CPU.  On
-    the card, with it off the flash-decode kernel launches n_layers times
-    a forward and the paged kernel never; with it on, the reverse; the
-    static decode steps launch the flash-decode kernel only."""
+    """Reduced granite-3-2b, qwen3-1.7b, phi3.5-moe-42b and grok-1-314b
+    (softcap 30, its heads set to 6/1 for grok's G 6) in fp32 at H 64 (a
+    width both decode kernels take) on tests/test_serve_families.py's
+    mix: the continuous engine with the paged kernel off and on, and the
+    static engine, give identical greedy tokens on the card and on the
+    CPU.  On the card, with it off the flash-decode kernel launches
+    n_layers times a forward and the paged kernel never; with it on, the
+    reverse; the static decode steps launch the flash-decode kernel
+    only."""
     pair = ("flash_decode", "paged_partials")
-    for arch in (INT8_ARCH, DENSE_ARCH):
-        cfg = reduced_config(arch, head_dim=64)
+    for arch, extra in ((INT8_ARCH, {}), (DENSE_ARCH, {}), (MOE_ARCH, {}),
+                        (GROK_ARCH, dict(n_heads=6, n_kv_heads=1))):
+        cfg = reduced_config(arch, head_dim=64, **extra)
         params = LM(cfg, device="cpu").init_params(
             torch.Generator(device="cpu").manual_seed(0))
         rng = np.random.default_rng(2)
@@ -1987,7 +2072,9 @@ def parity_dense():
         if not all(o == first for o in outs.values()):
             raise SystemExit(f"{arch} dense-cache parity: greedy tokens "
                              f"differ: {outs}")
-        log("parity", f"reduced {arch} fp32 (H 64, {cfg.n_layers} layers): "
+        log("parity", f"reduced {arch} fp32 (H 64, {cfg.n_heads}/"
+                      f"{cfg.n_kv_heads} heads, softcap "
+                      f"{cfg.attn_logit_softcap:g}, {cfg.n_layers} layers): "
                       f"{sum(map(len, first))} greedy tokens identical, "
                       f"continuous paged_kernel=False = True = static, card "
                       f"= CPU, over {len(prompts)} requests (a preemption, "
@@ -2014,49 +2101,140 @@ def parity_train_step():
 # ---------------------------------------------------------------------------
 # phase 6: serve at full width
 # ---------------------------------------------------------------------------
-def phase_serve(card, profile):
-    cfg = get_config("granite-3-2b")
-    model = LM(cfg)                                   # cuda, bf16
-    gen = torch.Generator(device=model.device).manual_seed(0)
-    params = model.init_params(gen)
-    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
-                                   page_size=16, prefill_chunk=32)
+SERVE_KERNELS = ("wq_gemm", "flash_decode", "paged_partials")
+
+
+def int8_per_forward(cfg) -> int:
+    """int8 GEMM launches a forward: a layer's 4 attention packs and 3 an
+    expert (moe) or 3 (a dense MLP), then the unembed."""
+    ffn = 3 * cfg.moe.num_experts if cfg.moe is not None else 3
+    return cfg.n_layers * (4 + ffn) + 1
+
+
+def _served_cfg(arch, layers=None):
+    return get_config(arch, **({} if layers is None
+                               else {"n_layers": layers}))
+
+
+def serve_static(phase, arch, card, *, int8, layers=None):
+    """``launch.serve.run(static=True)`` at MOE_STATIC (8 x 512 + 32): the
+    decode through the flash-decode kernel (n_layers launches a decode
+    forward, none in the prefill), the paged kernel never, the int8 GEMM
+    ``int8_per_forward`` x the forwards with ``int8`` (else never).
+    Returns the launches of SERVE_KERNELS."""
+    cfg = _served_cfg(arch, layers)
+    torch.cuda.empty_cache()
+    reset_launches(SERVE_KERNELS)
+    res = launch_serve.run(arch, static=True, int8=int8, layers=layers,
+                           **MOE_STATIC)
+    got = {n: launches_of(n) for n in SERVE_KERNELS}
+    decode_fwd = res["forwards"] - 1
+    want = {"wq_gemm": int8_per_forward(cfg) * res["forwards"] if int8
+            else 0, "flash_decode": cfg.n_layers * decode_fwd,
+            "paged_partials": 0}
+    if got != want:
+        raise SystemExit(f"{phase} {arch} static: launches {got}, expected "
+                         f"{want}")
+    _check_tokens(f"{arch} static", res["tokens"], MOE_STATIC["gen_len"],
+                  cfg.padded_vocab)
+    cut = "" if layers is None else f", cut to {layers} layers"
+    log(phase, f"(a) {arch} {'int8' if int8 else 'bf16'} full width{cut}, "
+               f"StaticBatchEngine via launch.serve.run: "
+               f"{MOE_STATIC['slots']} x {MOE_STATIC['prompt_len']} prompt "
+               f"tokens, {res['generated_tokens']} tokens | prefill "
+               f"{res['prefill_ms']:.3f} ms, decode step p50 "
+               f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_s']:.1f} "
+               f"tok/s over {res['run_ms']:.1f} ms | param_bytes "
+               f"{res['param_bytes'] / 1e9:.3f} GB (the bf16 tree "
+               f"{res['init_param_bytes'] / 1e9:.3f} GB, reckoned"
+               f"{', never allocated' if int8 else ''}), peak after init "
+               f"{res['init_peak_gib']:.2f} GiB | launches wq_gemm "
+               f"{got['wq_gemm']} = {int8_per_forward(cfg) if int8 else 0} "
+               f"x {res['forwards']} forwards, flash_decode "
+               f"{got['flash_decode']} = {cfg.n_layers} x {decode_fwd} "
+               f"decode forwards, paged_partials 0 | peak serving "
+               f"{res['peak_gib']:.2f} GiB | {card}")
+    del res
+    torch.cuda.empty_cache()
+    return got
+
+
+def serve_mix(phase, model, params, n_req, card, *, int8,
+              paged_kernel=True):
+    """The ContinuousBatchingEngine at phase 6's request mix (``n_req``
+    requests of 32-256 prompt tokens, 32 new; ``paged_kernel`` as the
+    engine's): the paged
+    kernel (or with ``paged_kernel=False`` the flash-decode kernel)
+    n_layers launches a forward and the other never, the int8 GEMM
+    ``int8_per_forward`` a forward with ``int8``.  Returns (the launches
+    of SERVE_KERNELS, the engine, each request's tokens)."""
+    cfg = model.cfg
+    eng = ContinuousBatchingEngine(model, params, paged_kernel=paged_kernel,
+                                   **MIX)
     rng = np.random.default_rng(0)
-    n_req, n_new = 16, 32
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
                for n in rng.integers(32, 257, size=n_req)]
-    rids = [eng.submit(p, n_new) for p in prompts]
+    rids = [eng.submit(p, MIX_NEW) for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    pa_kernel.paged_flash_decode.launches = 0
+    reset_launches(SERVE_KERNELS)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
     out = eng.run()
     end.record()
     end.synchronize()
-    launches = pa_kernel.paged_flash_decode.launches
+    got = {n: launches_of(n) for n in SERVE_KERNELS}
     run_ms = start.elapsed_time(end)
+    if sorted(out) != sorted(rids):
+        raise SystemExit(f"{phase} continuous: not every request finished")
+    _check_tokens(f"{cfg.arch_id} continuous", out, MIX_NEW,
+                  cfg.padded_vocab)
     st = eng.stats.summary()
-    reqs = eng.requests()
-    if sorted(r.rid for r in reqs) != sorted(rids):
-        raise SystemExit("not every request finished")
-    for rid in rids:
-        toks = out[rid]
-        if len(toks) != n_new or toks.min() < 0 or \
-                toks.max() >= cfg.padded_vocab:
-            raise SystemExit(f"request {rid}: bad tokens {toks.tolist()}")
-    if launches != cfg.n_layers * st["forwards"] or launches == 0:
-        raise SystemExit(f"kernel launches {launches} != {cfg.n_layers} x "
-                         f"{st['forwards']} forward passes")
-    admitted_late = sum(r.admit_step > 0 for r in reqs)
-    decode_ms = sorted(s.device_ms() for s in eng.stats.steps
-                       if s.n_decode and not s.n_prefill_tokens)
+    fwd = st["forwards"]
+    # attention launches: one a layer and forward (none for the ssm)
+    attn = cfg.n_layers * fwd if model.decode_state.paged else 0
+    want = {"wq_gemm": int8_per_forward(cfg) * fwd if int8 else 0,
+            "flash_decode": 0 if paged_kernel else attn,
+            "paged_partials": attn if paged_kernel else 0}
+    if got != want or fwd == 0:
+        raise SystemExit(f"{phase} continuous: launches {got}, expected "
+                         f"{want}")
+    decode_ms = sorted(s_.device_ms() for s_ in eng.stats.steps
+                       if s_.n_decode and not s_.n_prefill_tokens)
     p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    gen_tok = st["generated_tokens"]
+    attn_kernel = "paged_partials" if paged_kernel else "flash_decode"
+    log(phase, f"{cfg.arch_id} {'int8' if int8 else 'bf16'} full width "
+               f"({cfg.n_layers} layers), ContinuousBatchingEngine("
+               f"paged_kernel={paged_kernel}): {n_req} requests "
+               f"({sum(r.admit_step > 0 for r in eng.requests())} admitted "
+               f"mid-run), {gen_tok} tokens in {st['steps']} steps / {fwd} "
+               f"forwards | {gen_tok / (run_ms / 1e3):.1f} tok/s over "
+               f"{run_ms:.1f} ms | step p50 {st['step_ms_p50']:.3f} ms, "
+               f"pure-decode step p50 {p50:.3f} ms ({len(decode_ms)} steps)"
+               f" | launches {attn_kernel} {got[attn_kernel]} = "
+               f"{cfg.n_layers if attn else 0} x {fwd}, wq_gemm "
+               f"{got['wq_gemm']} = "
+               f"{int8_per_forward(cfg) if int8 else 0} x {fwd} | peak "
+               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
+               f"{card}")
+    return got, eng, [np.asarray(out[r]) for r in rids]
+
+
+def phase_serve(card, profile):
+    """Full-width granite-3-2b in bf16 through the continuous engine at
+    phase 6's mix (the paged kernel 40 launches a forward), then finite
+    logits of the expected shape from one forward.  Returns the paged
+    kernel's launches."""
+    cfg = get_config("granite-3-2b")
+    model = LM(cfg)                                   # cuda, bf16
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    got, eng, _ = serve_mix("serve", model, params, 16, card, int8=False)
     # finite logits of the expected shape on the card, through the kernel
     cache = model.init_cache(1, 512)
-    p0 = torch.as_tensor(prompts[0], device=model.device)[None]
+    p0 = torch.randint(1, cfg.vocab_size, (1, 100), device=model.device)
     logits, _ = model.forward(params, p0,
                               torch.arange(p0.shape[1],
                                            device=model.device)[None],
@@ -2064,19 +2242,10 @@ def phase_serve(card, profile):
     if logits.shape != (1, p0.shape[1], cfg.padded_vocab) or \
             not torch.isfinite(logits).all():
         raise SystemExit(f"bad logits {tuple(logits.shape)}")
-    gen_tok = st["generated_tokens"]
-    log("serve", f"granite-3-2b bf16 full width: {n_req} requests "
-                 f"({admitted_late} admitted mid-run), {gen_tok} tokens in "
-                 f"{st['steps']} steps / {st['forwards']} forward passes | "
-                 f"{gen_tok / (run_ms / 1e3):.1f} tok/s over {run_ms:.1f} "
-                 f"ms | step p50 {st['step_ms_p50']:.3f} ms, pure-decode "
-                 f"step p50 {p50:.3f} ms ({len(decode_ms)} steps) | kernel "
-                 f"launches {launches} = {cfg.n_layers} x "
-                 f"{st['forwards']} | peak {peak_gib:.2f} GiB | {card}")
     if profile:
         profile_decode(model, params, card, "granite-3-2b bf16",
                        eng._page_idx)
-    return launches
+    return got["paged_partials"]
 
 
 def profile_decode(model, params, card, what, page_idx=None):
@@ -2113,6 +2282,40 @@ def profile_decode(model, params, card, what, page_idx=None):
     busy = sum(r[1] for r in kernels)
     log("profile", f"{what} decode forward (8 x 1): {wall:.3f} ms between "
                    f"events, kernels busy {busy:.3f} ms "
+                   f"({100 * busy / wall:.1f}%), "
+                   f"{sum(r[2] for r in kernels)} kernel launches | {card}")
+    for key, ms, n in sorted(kernels, key=lambda r: -r[1])[:8]:
+        log("profile", f"  kernel {ms:.4f} ms/forward  x{n}  {key[:70]}")
+
+
+def profile_prefill(model, params, card, what, batch=8, seq=512):
+    """Kernel rows of one static prefill forward (``batch`` x ``seq``,
+    after a warm one) under torch.profiler, as ``profile_decode``."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator(device=model.device).manual_seed(1)
+    toks = torch.randint(1, model.cfg.vocab_size, (batch, seq), generator=g,
+                         device=model.device)
+    pos = torch.arange(seq, device=model.device)[None].expand(batch, seq)
+
+    def fwd():
+        model.forward(params, toks, pos, mode="prefill",
+                      cache=model.init_cache(batch, seq))
+
+    fwd()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fwd()
+        end.record()
+        end.synchronize()
+    wall = start.elapsed_time(end)
+    kernels, _ = _kernel_rows(prof, 1)
+    busy = sum(r[1] for r in kernels)
+    log("profile", f"{what} prefill forward ({batch} x {seq}): {wall:.3f} "
+                   f"ms between events, kernels busy {busy:.3f} ms "
                    f"({100 * busy / wall:.1f}%), "
                    f"{sum(r[2] for r in kernels)} kernel launches | {card}")
     for key, ms, n in sorted(kernels, key=lambda r: -r[1])[:8]:
@@ -2205,61 +2408,31 @@ def phase_serve_ssm(card, profile=False):
     del res
     torch.cuda.empty_cache()
 
-    # (b) the continuous engine, at phase 6's request mix
+    # (b) the continuous engine, SSM_MIX_REQUESTS requests drawn as phase
+    # 6's (its recurrent prefill runs token by token)
     model = LM(cfg)
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
-    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
-                                   page_size=16, prefill_chunk=32)
-    rng = np.random.default_rng(0)
-    n_req, n_new = 16, 32
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
-               for n in rng.integers(32, 257, size=n_req)]
-    rids = [eng.submit(p, n_new) for p in prompts]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     ssd_kernel.ssd_scan_fwd.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = eng.run()
-    end.record()
-    end.synchronize()
-    cont_launches = ssd_kernel.ssd_scan_fwd.launches
-    run_ms = start.elapsed_time(end)
-    if sorted(out) != sorted(rids):
-        raise SystemExit("continuous: not every request finished")
-    _check_tokens("continuous", out, n_new, cfg.padded_vocab)
-    if cont_launches:
-        raise SystemExit(f"continuous: {cont_launches} SSD launches, its "
-                         f"prefill is the recurrence")
-    st = eng.stats.summary()
-    decode_ms = sorted(s.device_ms() for s in eng.stats.steps
-                       if s.n_decode and not s.n_prefill_tokens)
-    p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
-    gen_tok = st["generated_tokens"]
-    log("serve-ssm", f"(b) {SSM_ARCH} bf16 full width, "
-                     f"ContinuousBatchingEngine: {n_req} requests "
-                     f"({sum(r.admit_step > 0 for r in eng.requests())} "
-                     f"admitted mid-run), {gen_tok} tokens in "
-                     f"{st['steps']} steps | {gen_tok / (run_ms / 1e3):.1f} "
-                     f"tok/s over {run_ms:.1f} ms | step p50 "
-                     f"{st['step_ms_p50']:.3f} ms, pure-decode step p50 "
-                     f"{p50:.3f} ms ({len(decode_ms)} steps) | SSD launches "
-                     f"0 (recurrent prefill) | peak "
-                     f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-                     f"| {card}")
+    _, eng, _ = serve_mix("serve-ssm", model, params, SSM_MIX_REQUESTS, card,
+                          int8=False)
+    if ssd_kernel.ssd_scan_fwd.launches:
+        raise SystemExit(f"continuous: {ssd_kernel.ssd_scan_fwd.launches} "
+                         f"SSD launches, its prefill is the recurrence")
     if profile:
         profile_decode(model, params, card, f"{SSM_ARCH} bf16")
     del eng, model, params
     torch.cuda.empty_cache()
 
-    # (c) the recurrence against the kernel's final state, one prompt; in
-    # bf16 as served, then in fp32 (the same weights before rounding)
+    # (c) the recurrence against the kernel's final state, the first
+    # SSM_RECURRENCE_LEN tokens of one prompt; in bf16 as served, then in
+    # fp32 (the same weights before rounding)
+    prompt0 = prompt0[:SSM_RECURRENCE_LEN]
     for cfg_c in (cfg, get_config(SSM_ARCH, param_dtype="float32",
                                   compute_dtype="float32")):
         rel, first = _recurrence_vs_kernel(cfg_c, prompt0)
-        log("serve-ssm", f"(c) one {S}-token prompt, {cfg_c.compute_dtype}: "
+        log("serve-ssm", f"(c) one {len(prompt0)}-token prompt, "
+                         f"{cfg_c.compute_dtype}: "
                          f"recurrence vs SSD-kernel prefill, max relative "
                          f"error of h: layer 0 {rel[0]:.2e}, median "
                          f"{statistics.median(rel):.2e}, max {max(rel):.2e} "
@@ -2298,7 +2471,7 @@ def phase_serve_int8(card, profile=False):
     never.  Returns the int8 GEMM's launches of (a) and (b)."""
     t0 = datetime.datetime.now()
     cfg = get_config(INT8_ARCH)
-    per_fwd = 7 * cfg.n_layers + 1
+    per_fwd = int8_per_forward(cfg)
     runs, total = {}, 0
     for int8 in (False, True):
         torch.cuda.empty_cache()
@@ -2342,50 +2515,11 @@ def phase_serve_int8(card, profile=False):
 
     # (b) the continuous engine in int8, at phase 6's request mix
     model = LM(cfg)
-    params = quantize_params(model.init_params(
-        torch.Generator(device=model.device).manual_seed(0)))
-    eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
-                                   page_size=16, prefill_chunk=32)
-    rng = np.random.default_rng(0)
-    n_req, n_new = 16, 32
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
-               for n in rng.integers(32, 257, size=n_req)]
-    rids = [eng.submit(p, n_new) for p in prompts]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    wq_kernel.wq_gemm.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    out = eng.run()
-    end.record()
-    end.synchronize()
-    launches = wq_kernel.wq_gemm.launches
-    run_ms = start.elapsed_time(end)
-    if sorted(out) != sorted(rids):
-        raise SystemExit("continuous int8: not every request finished")
-    _check_tokens("continuous int8", out, n_new, cfg.padded_vocab)
-    st = eng.stats.summary()
-    if launches != per_fwd * st["forwards"] or launches == 0:
-        raise SystemExit(f"continuous int8: {launches} wq_gemm launches != "
-                         f"{per_fwd} x {st['forwards']} forwards")
-    decode_ms = sorted(s.device_ms() for s in eng.stats.steps
-                       if s.n_decode and not s.n_prefill_tokens)
-    p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
-    gen_tok = st["generated_tokens"]
-    log("serve-int8", f"(b) {INT8_ARCH} int8 full width, "
-                      f"ContinuousBatchingEngine: {n_req} requests "
-                      f"({sum(r.admit_step > 0 for r in eng.requests())} "
-                      f"admitted mid-run), {gen_tok} tokens in "
-                      f"{st['steps']} steps | {gen_tok / (run_ms / 1e3):.1f} "
-                      f"tok/s over {run_ms:.1f} ms | step p50 "
-                      f"{st['step_ms_p50']:.3f} ms, pure-decode step p50 "
-                      f"{p50:.3f} ms ({len(decode_ms)} steps) | wq_gemm "
-                      f"launches {launches} = {per_fwd} x {st['forwards']} "
-                      f"forwards | peak "
-                      f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB "
-                      f"| phase wall {_since(t0):.1f} s | {card}")
-    total += launches
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0), int8=True)
+    got, eng, _ = serve_mix("serve-int8", model, params, 16, card, int8=True)
+    log("serve-int8", f"(b) phase wall {_since(t0):.1f} s | {card}")
+    total += got["wq_gemm"]
     if profile:
         profile_decode(model, params, card, f"{INT8_ARCH} int8",
                        eng._page_idx)
@@ -2441,61 +2575,13 @@ def phase_serve_dense(card, profile=False):
     model = LM(cfg)
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
-    rng = np.random.default_rng(0)
-    n_req, n_new = 16, 32
-    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
-               for n in rng.integers(32, 257, size=n_req)]
     toks = {}
     for paged in (False, True):
-        eng = ContinuousBatchingEngine(model, params, n_slots=8, max_len=512,
-                                       page_size=16, prefill_chunk=32,
-                                       paged_kernel=paged)
-        rids = [eng.submit(p, n_new) for p in prompts]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches(pair)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = eng.run()
-        end.record()
-        end.synchronize()
-        got = tuple(launches_of(n) for n in pair)
-        run_ms = start.elapsed_time(end)
-        if sorted(out) != sorted(rids):
-            raise SystemExit(f"continuous paged_kernel={paged}: not every "
-                             f"request finished")
-        _check_tokens(f"continuous paged_kernel={paged}", out, n_new,
-                      cfg.padded_vocab)
-        st = eng.stats.summary()
-        per = cfg.n_layers * st["forwards"]
-        if got != ((0, per) if paged else (per, 0)):
-            raise SystemExit(f"continuous paged_kernel={paged}: "
-                             f"(flash_decode, paged_partials) launches "
-                             f"{got}, expected {cfg.n_layers} x "
-                             f"{st['forwards']} forwards of one of them")
-        decode_ms = sorted(s_.device_ms() for s_ in eng.stats.steps
-                           if s_.n_decode and not s_.n_prefill_tokens)
-        p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
-        gen_tok = st["generated_tokens"]
-        log("serve-dense", f"(b) {DENSE_ARCH} bf16 full width, "
-                           f"ContinuousBatchingEngine(paged_kernel={paged})"
-                           f": {n_req} requests "
-                           f"({sum(r.admit_step > 0 for r in eng.requests())}"
-                           f" admitted mid-run), {gen_tok} tokens in "
-                           f"{st['steps']} steps | "
-                           f"{gen_tok / (run_ms / 1e3):.1f} tok/s over "
-                           f"{run_ms:.1f} ms | step p50 "
-                           f"{st['step_ms_p50']:.3f} ms, pure-decode step "
-                           f"p50 {p50:.3f} ms ({len(decode_ms)} steps) | "
-                           f"flash_decode / paged_partials launches "
-                           f"{got[0]} / {got[1]} = {cfg.n_layers} x "
-                           f"{st['forwards']} forwards | peak "
-                           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
-                           f" GiB | {card}")
+        got, eng, toks[paged] = serve_mix("serve-dense", model, params, 16,
+                                          card, int8=False,
+                                          paged_kernel=paged)
         if not paged:
-            total += got[0]
-        toks[paged] = [np.asarray(out[r]) for r in rids]
+            total += got["flash_decode"]
         del eng
         torch.cuda.empty_cache()
     same = np.mean([np.mean(a == b) for a, b in zip(toks[False],
@@ -2511,6 +2597,102 @@ def phase_serve_dense(card, profile=False):
     del model, params
     torch.cuda.empty_cache()
     return total
+
+
+# ---------------------------------------------------------------------------
+# phases 6e-6g: the moe family (phi3.5-moe-42b int8, grok-1 depth-cut
+# int8) and phi3-medium-14b
+# ---------------------------------------------------------------------------
+def _int8_model(arch, layers=None):
+    """The full-width model (``layers``: depth cut) and its int8 tree,
+    drawn and quantized layer by layer; the peak after init in GiB."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = LM(_served_cfg(arch, layers))
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0), int8=True)
+    return model, params, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _add(total, got):
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def phase_serve_moe(card, profile=False):
+    """6e: phi3.5-moe-42b at full width, weight-only int8 drawn layer by
+    layer: (a) static 8 x 512 + 32 (decode through the flash-decode
+    kernel); (b) continuous at phase 6's mix (the paged kernel); one
+    decode forward launches the int8 GEMM exactly 32 x (4 + 3 x 16) + 1 =
+    1665 times.  Returns the launches of SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    phase = "serve-moe"
+    total = serve_static(phase, MOE_ARCH, card, int8=True)
+    model, params, init_peak = _int8_model(MOE_ARCH)
+    log(phase, f"(b) int8 tree {quant_bytes(params) / 1e9:.3f} GB, peak "
+               f"after init {init_peak:.2f} GiB")
+    got, eng, _ = serve_mix(phase, model, params, 16, card, int8=True)
+    _add(total, got)
+    # one pure decode forward (8 x 1, context 288, the dense-cache path):
+    # its int8 GEMM launches against the count reckoned from the config
+    cfg = model.cfg
+    cache = model.init_cache(8, 512)
+    cache["pos"].fill_(288)
+    reset_launches(("wq_gemm",))
+    model.forward(params, torch.ones((8, 1), dtype=torch.long,
+                                     device=model.device),
+                  torch.full((8, 1), 288, dtype=torch.long,
+                             device=model.device), cache=cache)
+    torch.cuda.synchronize()
+    per = launches_of("wq_gemm")
+    if per != int8_per_forward(cfg) or per != 1665:
+        raise SystemExit(f"{phase}: {per} wq_gemm launches in one decode "
+                         f"forward, expected {cfg.n_layers} x (4 + 3 x "
+                         f"{cfg.moe.num_experts}) + 1 = 1665")
+    log(phase, f"one decode forward (8 x 1): wq_gemm launches {per} = "
+               f"{cfg.n_layers} x (4 + 3 x {cfg.moe.num_experts}) + 1; "
+               f"phase wall {_since(t0):.1f} s | {card}")
+    _add(total, {"wq_gemm": per})
+    del cache
+    if profile:
+        profile_decode(model, params, card, f"{MOE_ARCH} int8",
+                       eng._page_idx)
+        profile_prefill(model, params, card, f"{MOE_ARCH} int8")
+    del eng, model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_grok(card):
+    """6f: grok-1-314b at full width (48/8 heads of 128: G 6; softcap 30;
+    8 experts of d_ff 32768), cut to GROK_LAYERS layers, int8: (a) static
+    8 x 512 + 32 (the flash-decode kernel at softcap 30, G 6); (b) 8
+    requests drawn as phase 6's, through the paged kernel (a 32-column chunk
+    is 192 query rows).  Returns the launches of SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    phase = "serve-grok"
+    total = serve_static(phase, GROK_ARCH, card, int8=True,
+                         layers=GROK_LAYERS)
+    model, params, init_peak = _int8_model(GROK_ARCH, GROK_LAYERS)
+    log(phase, f"(b) int8 tree {quant_bytes(params) / 1e9:.3f} GB, peak "
+               f"after init {init_peak:.2f} GiB")
+    got, eng, _ = serve_mix(phase, model, params, 8, card, int8=True)
+    _add(total, got)
+    log(phase, f"phase wall {_since(t0):.1f} s | {card}")
+    del eng, model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_phi3m(card):
+    """6g: phi3-medium-14b at full width in bf16 (40/10 heads: B x NKV =
+    80 in the flash-decode kernel's plan), static 8 x 512 + 32.  Returns
+    the launches of SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    got = serve_static("serve-phi3m", PHI3M_ARCH, card, int8=False)
+    log("serve-phi3m", f"phase wall {_since(t0):.1f} s | {card}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -2820,8 +3002,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile pure decode forwards (granite bf16 "
-                         "and int8, mamba2, qwen3 dense-cache) and train "
-                         "steps")
+                         "and int8, mamba2, qwen3 dense-cache, phi3.5-moe "
+                         "int8) and train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2852,6 +3034,9 @@ def main():
     launches["ssd_scan"] = phase_serve_ssm(card, args.profile)
     launches["wq_gemm"] = phase_serve_int8(card, args.profile)
     launches["flash_decode"] = phase_serve_dense(card, args.profile)
+    for got in (phase_serve_moe(card, args.profile), phase_serve_grok(card),
+                phase_serve_phi3m(card)):
+        _add(launches, got)
     launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))
     launches.update(phase_paper(card, hw))

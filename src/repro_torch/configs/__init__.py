@@ -10,12 +10,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import granite_3_2b, mamba2_780m, qwen3_1_7b
-from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.configs import (grok_1_314b, granite_3_2b, mamba2_780m,
+                                 phi3_5_moe_42b, phi3_medium_14b, qwen3_1_7b,
+                                 qwen3_4b)
+from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
-    m.CONFIG.arch_id: m.CONFIG for m in (granite_3_2b, qwen3_1_7b,
-                                         mamba2_780m)}
+    m.CONFIG.arch_id: m.CONFIG for m in (
+        phi3_5_moe_42b, grok_1_314b, qwen3_4b, phi3_medium_14b, granite_3_2b,
+        qwen3_1_7b, mamba2_780m)}
 ARCH_IDS: List[str] = list(REGISTRY)
 
 
@@ -28,8 +31,8 @@ def get_config(arch_id: str, **overrides) -> ModelConfig:
 
 def reduced_config(arch_id: str, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests: few layers, narrow
-    widths, small vocab, fp32 — keeping the GQA ratio, qk-norm and the
-    SSM's structure (expand, conv kernel)."""
+    widths, small vocab, fp32 — keeping the GQA ratio, qk-norm, the MoE
+    top-k and the SSM's structure (expand, conv kernel)."""
     cfg = get_config(arch_id)
     kw = dict(
         n_layers=min(cfg.n_layers, 4),
@@ -47,6 +50,15 @@ def reduced_config(arch_id: str, **overrides) -> ModelConfig:
         # keep the GQA ratio (scaled down) but stay >= 1
         kw["n_heads"] = 4
         kw["n_kv_heads"] = max(1, 4 * cfg.n_kv_heads // cfg.n_heads)
+    if cfg.moe is not None:
+        # capacity_factor = E makes the reduced config dropless so the
+        # prefill/decode == train-forward invariant holds exactly.
+        kw["moe"] = MoEConfig(
+            num_experts=min(cfg.moe.num_experts, 4),
+            top_k=cfg.moe.top_k,
+            expert_d_ff=256,
+            capacity_factor=float(min(cfg.moe.num_experts, 4)),
+        )
     if cfg.ssm is not None:
         kw["ssm"] = SSMConfig(
             d_state=16,
@@ -59,5 +71,5 @@ def reduced_config(arch_id: str, **overrides) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-__all__ = ["ModelConfig", "SSMConfig", "REGISTRY", "ARCH_IDS", "get_config",
-           "reduced_config"]
+__all__ = ["ModelConfig", "MoEConfig", "SSMConfig", "REGISTRY", "ARCH_IDS",
+           "get_config", "reduced_config"]

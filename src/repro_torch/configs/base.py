@@ -1,6 +1,6 @@
 """Model configuration schema (subset of ``repro.configs.base``).
 
-A copy of the fields the dense and ssm families read, serving and
+A copy of the fields the dense, moe and ssm families read, serving and
 training, with the same names and defaults so a config reads the same in
 both packages.
 """
@@ -13,6 +13,16 @@ from typing import Optional
 
 def pad_to_multiple(x: int, multiple: int) -> int:
     return int(math.ceil(x / multiple) * multiple)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0
+    top_k: int = 2
+    expert_d_ff: int = 0          # d_ff of each expert MLP
+    capacity_factor: float = 1.25  # dispatch capacity = ceil(topk*T/E * cf)
+    router_jitter: float = 0.0
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,7 +40,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # "dense" or "ssm" in this port so far
+    family: str                   # "dense", "moe" or "ssm" in this port so far
     n_layers: int
     d_model: int
     n_heads: int                  # query heads (0 for attention-free)
@@ -41,7 +51,11 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e4
     attn_logit_softcap: float = 0.0
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # a layer uses MoE when (layer_idx % moe_period) == moe_offset
+    moe_period: int = 0
+    moe_offset: int = 1
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     norm_eps: float = 1e-5
@@ -61,3 +75,9 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return pad_to_multiple(self.vocab_size, self.vocab_pad_multiple)
 
+    def layer_uses_moe(self, layer_idx: int) -> bool:
+        if self.moe is None:
+            return False
+        if self.moe_period <= 0:
+            return True
+        return (layer_idx % self.moe_period) == self.moe_offset

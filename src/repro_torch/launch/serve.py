@@ -8,19 +8,27 @@
       --int8 --static --slots 8 --prompt-len 512
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --static --slots 8 --prompt-len 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi3.5-moe-42b-a6.6b --int8 --static --slots 8 --prompt-len 512
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --int8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \\
+      --layers 4 --int8 --static --slots 8 --prompt-len 512
 
 The counterpart of ``repro.launch.serve`` for the families the port
-serves (dense, ssm).  By default requests go through the
+serves (dense, moe, ssm).  By default requests go through the
 ``ContinuousBatchingEngine``; ``--static`` selects the
 ``StaticBatchEngine`` baseline (one prefill forward over the batch, then
 a decode loop; the dense family's prefill is causal attention over the
 prompts and its decode the dense-cache flash-decode kernel, the ssm
 family's prefill the SSD kernel).  Weights are random, drawn
 from a seeded generator; prompts come from a seeded numpy generator as in
-the reference.  ``--int8`` quantizes the weights after init
-(``models.quant.quantize_params``, weight-only int8) and frees the
-unquantized tree before serving: every matmul of the served tree then
-runs the int8 GEMM kernel.  Runs on ``cuda`` unless
+the reference.  ``--int8`` draws the weights layer by layer and quantizes
+each before the next is drawn (``LM.init_params(int8=True)``, weight-only
+int8: the bits of ``models.quant.quantize_params`` of the whole tree, but
+the tree is never held in bf16, so phi3.5-moe-42b fits one card): every
+matmul of the served tree then runs the int8 GEMM kernel.  ``--layers``
+cuts the depth (a model too deep for the card, as grok-1-314b).  Runs on ``cuda`` unless
 ``--device`` names another device.  Times are device times from CUDA
 events; on the CPU none are reported.
 
@@ -38,7 +46,7 @@ import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.models.model import LM
-from repro_torch.models.quant import param_bytes, quantize_params
+from repro_torch.models.quant import param_bytes
 from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
 
 # option -> (the value that means "off", the ROADMAP item that ports it)
@@ -61,12 +69,15 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         slots: int = 4, requests: int = 0, prompt_len: int = 32,
         gen_len: int = 32, prefill_chunk: int = 8, page_size: int = 16,
         temperature: float = 0.0, static: bool = False, int8: bool = False,
-        device=None, **options) -> Dict[str, Any]:
+        layers: Optional[int] = None, device=None,
+        **options) -> Dict[str, Any]:
     """Serve ``requests`` (default 2 x ``slots``; ``slots`` with
     ``static``) random prompts and return what the launcher prints: the
-    prompts and generated tokens, counts, the bytes of the initialized
-    and of the served parameter tree (``init_param_bytes``,
-    ``param_bytes``: they differ with ``int8``), and on the card the
+    prompts and generated tokens, counts, the bytes of the tree in the
+    param dtype (``init_param_bytes``, reckoned from the shapes: with
+    ``int8`` it is never allocated) and of the served tree
+    (``param_bytes``), the device's peak after init (``init_peak_gib``),
+    and on the card the
     CUDA-event times (``run_ms``, ``tokens_per_s``, ``prefill_ms`` for
     ``static``, ``step_ms_p50``) and ``peak_gib``, the peak device memory
     of serving (after the quantization)."""
@@ -77,15 +88,19 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         if value != off:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (ROADMAP {item})")
-    cfg = reduced_config(arch) if reduced else get_config(arch)
+    depth = {} if layers is None else {"n_layers": layers}
+    cfg = (reduced_config(arch, **depth) if reduced
+           else get_config(arch, **depth))
     model = LM(cfg, device=device)
     dev = model.device
-    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-    init_bytes = param_bytes(params)
-    if int8:
-        params = quantize_params(params)     # the init tree is freed here
-    rng = np.random.default_rng(1)
     on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0),
+                               int8=int8)
+    init_peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                 if on_card else None)
+    rng = np.random.default_rng(1)
     if on_card:
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
@@ -121,8 +136,9 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     res: Dict[str, Any] = dict(
         arch=arch, family=cfg.family, engine="static" if static else
         "continuous", int8=int8, device=str(dev), requests=n_req,
-        prompts=prompts, tokens=tokens, init_param_bytes=init_bytes,
-        param_bytes=param_bytes(params),
+        prompts=prompts, tokens=tokens,
+        init_param_bytes=model.init_param_bytes(),
+        param_bytes=param_bytes(params), init_peak_gib=init_peak,
         generated_tokens=st["generated_tokens"], steps=st["steps"],
         forwards=st["forwards"], run_ms=None, tokens_per_s=None,
         prefill_ms=None, step_ms_p50=None, peak_gib=None)
@@ -179,7 +195,10 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                     help="torch device (default cuda; cpu runs the plain "
                          "versions of the kernels)")
     ap.add_argument("--int8", action="store_true",
-                    help="weight-only int8 (the int8 GEMM kernel)")
+                    help="weight-only int8 (the int8 GEMM kernel), drawn "
+                         "and quantized layer by layer")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="not ported (A7)")
     ap.add_argument("--mesh", default=None, help="not ported (A10)")
@@ -197,6 +216,7 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
               gen_len=args.gen_len, prefill_chunk=args.prefill_chunk,
               page_size=args.page_size, temperature=args.temperature,
               static=args.static, device=args.device, int8=args.int8,
+              layers=args.layers,
               prefix_cache=args.prefix_cache, mesh=args.mesh,
               sp_kv=args.sp_kv, open_loop=args.open_loop,
               speculative=args.speculative, chunk_policy=args.chunk_policy)

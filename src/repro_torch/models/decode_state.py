@@ -1,5 +1,5 @@
-"""DecodeState protocol (dense and ssm families): the slotted cache and
-its row primitives.
+"""DecodeState protocol (dense, moe and ssm families): the slotted cache
+and its row primitives.
 
 Counterpart of ``repro.models.decode_state``.  An adapter lays the
 whole per-slot decode state out as a dict of tensors whose every leaf
@@ -82,7 +82,8 @@ class DecodeStateAdapter:
 
 
 class AttentionDecodeState(DecodeStateAdapter):
-    """dense: layer-stacked K/V plus one position counter per slot."""
+    """dense and moe: layer-stacked K/V plus one position counter per
+    slot."""
 
     prefix_cachable = True
     paged = True
@@ -111,12 +112,15 @@ class SSMDecodeState(DecodeStateAdapter):
         return mamba2.state_specs()
 
 
-_ADAPTERS = {"dense": AttentionDecodeState(), "ssm": SSMDecodeState()}
+_ADAPTERS = {"dense": AttentionDecodeState(), "moe": AttentionDecodeState(),
+             "ssm": SSMDecodeState()}
+# the reference's families the port has not ported yet
+NOT_PORTED = ("hybrid", "vlm", "audio")
 
 
 def get_adapter(family: str) -> DecodeStateAdapter:
     if family not in _ADAPTERS:
         raise NotImplementedError(
-            f"family {family!r} is not ported yet; the port serves "
-            f"{sorted(_ADAPTERS)}")
+            f"family {family!r} is not ported yet (the port serves "
+            f"{sorted(_ADAPTERS)}; not yet {', '.join(NOT_PORTED)})")
     return _ADAPTERS[family]

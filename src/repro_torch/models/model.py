@@ -1,23 +1,27 @@
-"""The LM (dense and ssm families): parameters, forward modes, slotted
-cache.
+"""The LM (dense, moe and ssm families): parameters, forward modes,
+slotted cache.
 
-Counterpart of ``repro.models.model.LM`` for the dense and ssm families.
-The parameters are a dict with the JAX tree's keys — ``embed.table``,
-``final_norm.scale``, ``unembed.table`` when untied — except that the
-layer stack is a list of per-layer dicts (dense: ``stack[i]`` holds
-``ln1``, ``attn``, ``ln2``, ``mlp``; ssm: ``ln1``, ``mamba``) instead of
-leaves with a leading layer axis.  Weights are random, drawn from an
-explicit ``torch.Generator``.
+Counterpart of ``repro.models.model.LM`` for the dense, moe and ssm
+families.  The parameters are a dict with the JAX tree's keys —
+``embed.table``, ``final_norm.scale``, ``unembed.table`` when untied —
+except that the layer stack is a list of per-layer dicts (dense:
+``stack[i]`` holds ``ln1``, ``attn``, ``ln2``, ``mlp``; moe: ``moe`` in
+place of ``mlp`` where ``cfg.layer_uses_moe(i)``; ssm: ``ln1``,
+``mamba``) instead of leaves with a leading layer axis.  Weights are
+random, drawn from an explicit ``torch.Generator``.
 
-Modes: ``train``, ``prefill`` and ``decode``, for both families.
-Prefill runs the prompt through (dense) causal ``chunked_attention``,
-writing its K/V to the cache, or (ssm) the SSD kernel, leaving each
-layer's final state in the cache.  Decode attends over the dense
-family's K/V cache through the paged kernel under a page map, else
+Modes: ``train``, ``prefill`` and ``decode``, for every family.
+Prefill runs the prompt through (dense, moe) causal
+``chunked_attention``, writing its K/V to the cache, or (ssm) the SSD
+kernel, leaving each layer's final state in the cache.  Decode attends
+over the K/V cache through the paged kernel under a page map, else
 through the dense-cache flash-decode kernel; the ssm advances its
-recurrent state.  A parameter tree
-from ``models.quant.quantize_params`` (int8 packs) runs every mode's
-matmuls through the int8 GEMM kernel.
+recurrent state.  The moe family is the dense one with ``models.moe``'s
+experts in place of the MLP, each mode calling them with its own (B, S)
+(the capacity depends on S).  A parameter tree from
+``models.quant.quantize_params`` or ``init_params(int8=True)`` (int8
+packs) runs every mode's matmuls through the int8 GEMM kernel, the
+experts one call an expert and projection.
 """
 from __future__ import annotations
 
@@ -27,7 +31,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import attention, blocks, decode_state, layers
+from repro_torch.models import (attention, blocks, decode_state, layers, moe,
+                                quant)
 from repro_torch.models.layers import dtype_of
 
 Params = Dict[str, Any]
@@ -57,46 +62,62 @@ class LM:
         return {"w": self._normal(gen, (d_in, d_out),
                                   d_in ** -0.5 if scale is None else scale)}
 
-    def init_params(self, generator: torch.Generator) -> Params:
+    def init_params(self, generator: Optional[torch.Generator], *,
+                    int8: bool = False) -> Params:
         """Random parameters with the reference's initializer scales,
-        drawn from ``generator`` (which must live on ``self.device``)."""
+        drawn from ``generator`` (which must live on ``self.device``).
+
+        ``int8``: the weight-only int8 tree, equal bit for bit to
+        ``quant.quantize_params(init_params(generator))`` but never held
+        in the param dtype: the embedding tables and each layer are drawn
+        and quantized before the next is drawn, so the peak is the int8
+        tree and one layer in the param dtype."""
         cfg = self.cfg
-        d, h = cfg.d_model, cfg.resolved_head_dim
-        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+        d = cfg.d_model
         g = generator
+        q = quant.quantize_params if int8 else (lambda tree: tree)
         p: Params = {
-            "embed": {"table": self._normal(g, (cfg.padded_vocab, d), 0.02)},
+            "embed": q({"table": self._normal(g, (cfg.padded_vocab, d),
+                                              0.02)}),
             "final_norm": {"scale": self._ones(d)},
         }
         if not cfg.tie_embeddings:
-            p["unembed"] = {"table": self._normal(g, (cfg.padded_vocab, d),
-                                                  0.02)}
-        if cfg.family == "ssm":
-            p["stack"] = [blocks.init_mamba_layer(g, cfg, self.device)
-                          for _ in range(cfg.n_layers)]
-            return p
-        stack = []
-        for _ in range(cfg.n_layers):
-            attn = {
-                "wq": self._dense(g, d, nq * h),
-                "wk": self._dense(g, d, nkv * h),
-                "wv": self._dense(g, d, nkv * h),
-                "wo": self._dense(g, nq * h, d, (nq * h) ** -0.5),
-            }
-            if cfg.qk_norm:
-                attn["q_norm"] = {"scale": self._ones(h)}
-                attn["k_norm"] = {"scale": self._ones(h)}
-            stack.append({
-                "ln1": {"scale": self._ones(d)},
-                "attn": attn,
-                "ln2": {"scale": self._ones(d)},
-                "mlp": {"gate": self._dense(g, d, cfg.d_ff),
-                        "up": self._dense(g, d, cfg.d_ff),
-                        "down": self._dense(g, cfg.d_ff, d,
-                                            cfg.d_ff ** -0.5)},
-            })
-        p["stack"] = stack
+            p["unembed"] = q({"table": self._normal(
+                g, (cfg.padded_vocab, d), 0.02)})
+        p["stack"] = [q(self._init_layer(g, i)) for i in range(cfg.n_layers)]
         return p
+
+    def _init_layer(self, g, i: int) -> Params:
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return blocks.init_mamba_layer(g, cfg, self.device)
+        d, h = cfg.d_model, cfg.resolved_head_dim
+        nq, nkv = cfg.n_heads, cfg.n_kv_heads
+        attn = {
+            "wq": self._dense(g, d, nq * h),
+            "wk": self._dense(g, d, nkv * h),
+            "wv": self._dense(g, d, nkv * h),
+            "wo": self._dense(g, nq * h, d, (nq * h) ** -0.5),
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = {"scale": self._ones(h)}
+            attn["k_norm"] = {"scale": self._ones(h)}
+        layer = {"ln1": {"scale": self._ones(d)}, "attn": attn,
+                 "ln2": {"scale": self._ones(d)}}
+        if cfg.layer_uses_moe(i):
+            layer["moe"] = moe.init_moe(g, cfg, self.device)
+        else:
+            layer["mlp"] = {"gate": self._dense(g, d, cfg.d_ff),
+                            "up": self._dense(g, d, cfg.d_ff),
+                            "down": self._dense(g, cfg.d_ff, d,
+                                                cfg.d_ff ** -0.5)}
+        return layer
+
+    def init_param_bytes(self) -> int:
+        """Bytes of ``init_params``' tree in the param dtype, reckoned
+        from the shapes on the meta device (nothing is allocated)."""
+        meta = LM(self.cfg, device="meta")
+        return quant.param_bytes(meta.init_params(None))
 
     # ------------------------------------------------------------------
     # cache (DecodeState protocol)
@@ -134,7 +155,8 @@ class LM:
         ``mode="train"``: the whole sequence (dense: causal attention
         through ``cfg.attention_impl``; ssm: the chunked SSD), each layer
         rematerialised as ``cfg.remat`` says; returns (fp32 logits (B, S,
-        V), None, aux) — aux is the zero auxiliary loss of both families.
+        V), None, aux) — aux is the sum of the layers' MoE load-balance
+        losses (fp32; 0 for the dense and ssm families).
 
         ``mode="prefill"``: the prompt from position 0 into a fresh
         ``cache`` (from ``init_cache``), in place.  dense: causal
@@ -162,22 +184,22 @@ class LM:
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], self.compute_dtype)
         if cfg.family == "ssm":
-            x = blocks.run_stack(x, params["stack"], cfg, mode=mode,
-                                 cache=cache, n_valid=n_valid)
+            x, _ = blocks.run_stack(x, params["stack"], cfg, mode=mode,
+                                    cache=cache, n_valid=n_valid)
             return self._logits(params, x), cache
         rope = layers.rope_tables(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
         if mode == "prefill":
-            x = blocks.run_stack(x, params["stack"], cfg, mode="prefill",
-                                 rope=rope, cache=cache)
+            x, _ = blocks.run_stack(x, params["stack"], cfg,
+                                    mode="prefill", rope=rope, cache=cache)
             cache["pos"].add_(tokens.shape[1])
             return self._logits(params, x), cache
         S_cache = cache["k"].shape[2]
         write = attention.decode_write(cache["pos"], tokens.shape[1],
                                        S_cache, n_valid)
-        x = blocks.run_stack(x, params["stack"], cfg, positions=positions,
-                             rope=rope, cache=cache, write=write,
-                             paged=paged)
+        x, _ = blocks.run_stack(x, params["stack"], cfg,
+                                positions=positions, rope=rope, cache=cache,
+                                write=write, paged=paged)
         cache["pos"].copy_(write.kv_valid)
         return self._logits(params, x), cache
 
@@ -186,9 +208,8 @@ class LM:
         x = layers.embed(tokens, params["embed"], self.compute_dtype)
         rope = (None if cfg.family == "ssm" else layers.rope_tables(
             positions, cfg.resolved_head_dim, cfg.rope_theta))
-        x = blocks.run_stack(x, params["stack"], cfg, mode="train",
-                             rope=rope, remat=cfg.remat)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = blocks.run_stack(x, params["stack"], cfg, mode="train",
+                                  rope=rope, remat=cfg.remat)
         return self._logits(params, x), None, aux
 
     def _logits(self, params, x):

@@ -33,8 +33,18 @@ _MOE_KEYS = ("gate", "up", "down")
 
 def quant_dense(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """(in, out) or (E, in, out): per-out-channel scales (reduce over the
-    contraction dim, keep leading expert dims)."""
-    q, scale = wq_ref.quantize(w)
+    contraction dim, keep leading expert dims).  An expert leaf is
+    quantized one expert at a time, so the quantizer's fp32 temporaries
+    are one expert's (a whole grok-1 leaf's would be ~6 GB each); the
+    bits are the whole leaf's."""
+    if w.dim() == 2:
+        q, scale = wq_ref.quantize(w)
+        return {"q": q, "scale": scale}
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty((w.shape[0], w.shape[-1]), dtype=torch.float32,
+                        device=w.device)
+    for e in range(w.shape[0]):
+        q[e], scale[e] = wq_ref.quantize(w[e])
     return {"q": q, "scale": scale}
 
 

@@ -32,11 +32,14 @@ def make_loss_fn(model: LM, *, z_loss: float = 0.0,
     cfg = model.cfg
 
     def loss_fn(params, batch):
-        logits, _, _ = model.forward(params, batch["tokens"],
-                                     batch["positions"], mode="train")
+        logits, _, aux = model.forward(params, batch["tokens"],
+                                       batch["positions"], mode="train")
         loss, metrics = losses.cross_entropy(
             logits, batch["labels"], cfg.vocab_size,
             mask=batch.get("loss_mask"), z_loss=z_loss)
+        if cfg.moe is not None:
+            loss = loss + cfg.moe.aux_loss_weight * aux
+            metrics["moe_aux"] = aux
         metrics["loss"] = loss
         return loss, metrics
 

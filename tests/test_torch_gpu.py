@@ -2,15 +2,20 @@
 kernel (paged attention, STREAM, ELL SpMV in both idioms, GEMM, conv2d,
 strided gather, tail mask, Qsim gate, flash attention, dense-cache flash
 decode, SSD scan, int8 GEMM) against its plain version on ragged shapes,
-with its launch counter checked, and the port's engines (dense and ssm,
-bf16/fp32 and int8 weights, the paged kernel on and off) and train step
-on the card against the same on the CPU.
+with its launch counter checked (the attention kernels also at the
+served head groups: grok-1's G 6, phi3-medium's 10 KV heads), the MoE
+on the card (fp32, and int8 through one int8 GEMM an expert), and the
+port's engines (dense, moe and ssm, bf16/fp32 and int8 weights, the
+paged kernel on and off) and train step on the card against the same
+on the CPU.
 Without a card they skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 This module imports no jax, so it runs where only PyTorch is installed.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -46,6 +51,7 @@ from repro_torch.kernels.tailmask import ops as tail_ops
 from repro_torch.kernels.wq_gemm import kernel as wq_kernel
 from repro_torch.kernels.wq_gemm import ops as wq_ops
 from repro_torch.kernels.wq_gemm import ref as wq_ref
+from repro_torch.models import moe
 from repro_torch.models.model import LM
 from repro_torch.models.quant import quantize_params
 from repro_torch.quantum import gates, qsim
@@ -66,12 +72,13 @@ def card():
     return dev
 
 
-def _paged_inputs(card, H, sq, permuted, dtype, valid, pps=32, seed=None):
+def _paged_inputs(card, H, sq, permuted, dtype, valid, pps=32, seed=None,
+                  NKV=2, G=4):
     """A 256-token table (8 tiles: every split count the plan can return
-    up to 8), a row per entry of ``valid``, 2 KV heads, G 4;
-    numpy-seeded."""
+    up to 8), a row per entry of ``valid``, NKV KV heads (2) of G query
+    heads each (4); numpy-seeded."""
     rng = np.random.default_rng(H + sq if seed is None else seed)
-    B, NKV, G = len(valid), 2, 4
+    B = len(valid)
     q = torch.from_numpy(rng.standard_normal((B, sq, NKV * G, H))).float()
     kp = torch.from_numpy(rng.standard_normal((B * pps, PAGE, NKV, H)))
     vp = torch.from_numpy(rng.standard_normal((B * pps, PAGE, NKV, H)))
@@ -573,12 +580,13 @@ def test_flash_decode_kernel_matches_plain(card, H, G, Sq, dtype, softcap):
 DECODE_SPLIT_S = 256        # 8 tiles of 32: every split count up to 8
 
 
-def _decode_inputs(card, dtype, H, G, Sq, valid, seed, q_scale=1.0):
+def _decode_inputs(card, dtype, H, G, Sq, valid, seed, q_scale=1.0,
+                   NKV=2):
     """B = len(valid) rows over a DECODE_SPLIT_S-token cache read through
-    a strided view (every other row of a wider one), 2 KV heads; query
-    c of a row attends to the ramp ending at the row's length."""
+    a strided view (every other row of a wider one), NKV KV heads (2);
+    query c of a row attends to the ramp ending at the row's length."""
     rng = np.random.default_rng(seed)
-    B, S, NKV = len(valid), DECODE_SPLIT_S, 2
+    B, S = len(valid), DECODE_SPLIT_S
     q = torch.from_numpy((rng.standard_normal((B, Sq, NKV * G, H))
                           * q_scale).astype(np.float32)).to(card, dtype)
     wide = torch.from_numpy(rng.standard_normal((2 * B, S, NKV, H)).astype(
@@ -683,8 +691,20 @@ def test_dense_cache_engines_on_card_match_cpu(card):
     static engine, equal on the card and on the CPU and to each other.
     With it off the flash-decode kernel launches once a layer a forward
     and the paged kernel never; with it on, the reverse."""
+    _engines_card_vs_cpu(card, reduced_config("qwen3-1.7b", head_dim=64))
+
+
+@pytest.mark.parametrize("arch,extra", [
+    ("phi3.5-moe-42b-a6.6b", {}),
+    ("grok-1-314b", dict(n_heads=6, n_kv_heads=1))])
+def test_moe_engines_on_card_match_cpu(card, arch, extra):
+    """The moe family as the dense test above: reduced phi3.5-moe and
+    grok-1 (softcap 30; 6/1 heads: G 6) at head_dim 64, fp32."""
+    _engines_card_vs_cpu(card, reduced_config(arch, head_dim=64, **extra))
+
+
+def _engines_card_vs_cpu(card, cfg):
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = reduced_config("qwen3-1.7b", head_dim=64)
     params = LM(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0))
     rng = np.random.default_rng(2)
@@ -984,15 +1004,18 @@ def test_wq_gemv_k_split_gives_the_same_bits_on_two_streams(card, x_dtype):
 
 
 @pytest.mark.parametrize("arch,per_layer", [("granite-3-2b", 7),
-                                            ("mamba2-780m", 6)])
+                                            ("mamba2-780m", 6),
+                                            ("phi3.5-moe-42b-a6.6b",
+                                             4 + 3 * 4)])
 def test_int8_engines_on_card_match_cpu(card, arch, per_layer):
     """Quantized reduced models in fp32: greedy tokens of the continuous
     and the static engine on the card equal the CPU's (and each
     other's); every forward on the card launches the int8 GEMM once a
-    q-pack matmul: per_layer x n_layers + 1 (the unembed)."""
+    q-pack matmul: per_layer x n_layers + 1 (the unembed; moe: 4
+    attention packs and 3 an expert a layer)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = reduced_config(arch, head_dim=64) if arch == "granite-3-2b" \
-        else reduced_config(arch)
+    cfg = reduced_config(arch) if arch == "mamba2-780m" \
+        else reduced_config(arch, head_dim=64)
     params = quantize_params(LM(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0)))
     rng = np.random.default_rng(2)
@@ -1027,3 +1050,127 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the moe slice: B1 and B3 at the served head groups, the MoE on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("softcap", [0.0, SOFTCAP])
+@pytest.mark.parametrize("sq", [1, 32])
+@pytest.mark.parametrize("NKV,G", [(8, 6), (10, 4)])
+@pytest.mark.parametrize("splits", [None, 1, 3, 8])
+def test_paged_kernel_at_served_groups(card, NKV, G, sq, softcap, splits):
+    """The paged kernel at grok-1's G 6 (decode R 6, a 32-column chunk
+    192 rows) and phi3-medium-14b's 10 KV heads, bf16, at the plan's
+    split and forced ones, without and with softcap 30 (queries x 30):
+    partials against the plain version (2e-3), the empty row neutral, a
+    second launch the same bits."""
+    args = _paged_inputs(card, 128, sq, True, torch.bfloat16,
+                         [0, 8, 17, 200, 256], seed=NKV + G + sq, NKV=NKV,
+                         G=G)
+    if softcap:
+        args[0] = args[0] * SOFTCAP_Q_SCALE
+    grouped, Sq = _grouped(args)
+    assert grouped[0].shape[1:3] == (NKV, G * sq)
+    call = lambda: pa_kernel.paged_flash_decode(              # noqa: E731
+        *grouped, sq=Sq, splits=splits, softcap=softcap)
+    got = _counted(pa_kernel.paged_flash_decode, call)
+    want = pa_ref.paged_partials(*grouped, sq=Sq, softcap=softcap)
+    torch.cuda.synchronize()
+    live = want[2] > 0
+    torch.testing.assert_close(got[0], want[0], rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got[2], want[2], rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got[1][live], want[1][live], rtol=2e-3,
+                               atol=2e-3)
+    assert (got[0][0] == 0).all() and (got[2][0] == 0).all()
+    again = call()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("softcap", [0.0, SOFTCAP])
+@pytest.mark.parametrize("Sq", [1, 32])
+@pytest.mark.parametrize("NKV,G", [(8, 6), (10, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_served_groups(card, dtype, NKV, G, Sq, softcap):
+    """The flash-decode kernel at G 6 (a block of 8 query rows holds 6)
+    and NKV 10 (B x NKV not a power of two), H 128, every forced split
+    and the plan's, softcap 30 over queries x 30: against
+    ``ref.flash_decode`` (fp32 2e-4; bf16 one ulp)."""
+    q, k, v, lens = _decode_inputs(
+        card, dtype, 128, G, Sq, [0, 1, 32, 77, DECODE_SPLIT_S],
+        seed=NKV + G + Sq, q_scale=SOFTCAP_Q_SCALE if softcap else 1.0,
+        NKV=NKV)
+    want = fa_ref.flash_decode(q, k, v, lens, softcap=softcap)
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (8e-3, 1e-4)
+    for splits in (None, *range(1, 9)):
+        got = _counted(fa_kernel.flash_decode, lambda: fa_kernel.flash_decode(
+            q, k, v, lens, softcap=softcap, splits=splits))
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{splits}: {m}")
+        assert bool((got[lens == 0] == 0).all())
+
+
+def _moe_case(capacity_factor):
+    cfg = reduced_config("phi3.5-moe-42b-a6.6b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+    p = moe.init_moe(torch.Generator().manual_seed(1), cfg, "cpu")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (3, 16, cfg.d_model)).astype(np.float32))
+    return cfg, p, x
+
+
+@pytest.mark.parametrize("capacity_factor", [4.0, 1.0])
+def test_moe_apply_on_card_matches_cpu(card, capacity_factor):
+    """fp32, TF32 off: y and aux of ``moe_apply`` on the card against the
+    CPU, dropless and with choices dropped (1e-4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, x = _moe_case(capacity_factor)
+    y, aux = moe.moe_apply(p, x, cfg)
+    yc, auxc = moe.moe_apply(_to(p, card), x.to(card), cfg)
+    torch.testing.assert_close(yc.cpu(), y, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(auxc.cpu(), aux, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("x_dtype,tol", [(torch.float32, 2e-4),
+                                         (torch.bfloat16, 2e-2)])
+def test_int8_moe_on_card_launches_one_gemm_an_expert(card, x_dtype, tol):
+    """An int8 expert tree: ``moe_apply`` on the card launches the int8
+    GEMM 3 x E times (one an expert and projection), against the CPU's
+    plain version on the same packs (fp32 x: 2e-4, the kernel test's;
+    bf16 x: 2e-2, three bf16 roundings of the activations); in a
+    gradient context the card raises (no fallback)."""
+    cfg, p, x = _moe_case(1.0)
+    qp = quantize_params(p)
+    want, _ = moe.moe_apply(qp, x.to(x_dtype), cfg, with_aux=False)
+    before = wq_kernel.wq_gemm.launches
+    got, _ = moe.moe_apply(_to(qp, card), x.to(card, x_dtype), cfg,
+                           with_aux=False)
+    torch.cuda.synchronize()
+    assert wq_kernel.wq_gemm.launches - before == 3 * cfg.moe.num_experts
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    with pytest.raises(NotImplementedError):
+        moe.moe_apply(_to(qp, card), x.to(card).requires_grad_(True), cfg)
+
+
+def test_int8_moe_decode_forward_launch_count(card):
+    """One decode forward of reduced phi3.5-moe in int8 on the card (8 x
+    1): the int8 GEMM launched n_layers x (4 + 3 x E) + 1 times, the
+    formula phase 6e holds the full width to (32 x (4 + 3 x 16) + 1 =
+    1665)."""
+    cfg = reduced_config("phi3.5-moe-42b-a6.6b", head_dim=64)
+    model = LM(cfg, device=card)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0),
+                               int8=True)
+    cache = model.init_cache(8, 64)
+    cache["pos"].fill_(20)
+    before = wq_kernel.wq_gemm.launches
+    logits, _ = model.forward(
+        params, torch.ones((8, 1), dtype=torch.long, device=card),
+        torch.full((8, 1), 20, dtype=torch.long, device=card), cache=cache)
+    torch.cuda.synchronize()
+    assert wq_kernel.wq_gemm.launches - before == \
+        cfg.n_layers * (4 + 3 * cfg.moe.num_experts) + 1
+    assert bool(torch.isfinite(logits).all())
