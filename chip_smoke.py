@@ -85,9 +85,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              h_final within 2e-3 (the JAX kernel test's tolerance) for every
              P (16, 32, 64), N (16 to 128) and chunk (16 to 256) it takes,
              at S 1, 200 and 2048 (b 8 at S 200), then at mamba2-780m's
-             layer (b 8, S 2048, 48 heads, P 64, N 128, chunk 256), where
-             kernel and plain are timed (no PyTorch call computes the SSD,
-             so no library time) and the bound is printed: the operations
+             layer (b 8, S 2048, 48 heads, P 64, N 128, chunk 256) and
+             jamba-v0.1-52b's (b 8, S 512, 128 heads, P 64, N 16, chunk
+             256), where kernel and plain are timed (no PyTorch call
+             computes the SSD, so no library time) and the bound is
+             printed: the operations
              at the fp32 CUDA-core rate (the record's), and three times
              them at the TF32 tensor-core rate (the kernel's 3xTF32), and
              the device time of each of the call's four kernels
@@ -105,9 +107,12 @@ Phases (one line each; any failure exits nonzero and prints no result):
              8192) and a static prefill (M 4096: 2048 -> 8192 and the
              logits through the (V, d) table), and the GEMV at four times
              the decode's bytes (8192 -> 8192: its streaming rate and fixed
-             cost), bf16 x: kernel, plain,
-             library (bf16 torch.matmul of the same weights dequantized
-             beforehand, a call the port never makes) and bound (int8
+             cost), and jamba-v0.1-52b's expert products (4096 -> 14336
+             and back at M 8 and M 640; its mamba B / C and dt
+             projections, N 16 and 128 at M 8 and 4096, are checked
+             only), bf16 x: kernel, plain, library (bf16 torch.matmul of
+             the same weights dequantized beforehand, a call the port
+             never makes) and bound (int8
              weights, x and y once at the memory rate, or the operations at
              the bf16 peak, whichever is larger); then the host time of a
              decode call.
@@ -150,7 +155,13 @@ Phases (one line each; any failure exits nonzero and prints no result):
              give identical greedy tokens, on the card and the CPU; with
              False the flash-decode kernel launches n_layers times a
              forward and the paged kernel never, with True the reverse,
-             and the static decode the flash-decode kernel.
+             and the static decode the flash-decode kernel.  Then reduced
+             jamba-v0.1-52b (one period: 1 attention and 7 mamba layers,
+             MoE on 4; H 64) in fp32 and in int8 (quantized on the CPU) on
+             the same mix and engines: tokens identical, the attention
+             kernels once a forward as above, the SSD kernel 7 times a
+             static prefill and never in the continuous engine, the int8
+             GEMM 107 times a forward in int8.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
@@ -214,6 +225,22 @@ Phases (one line each; any failure exits nonzero and prints no result):
 6g. serve-phi3m — phi3-medium-14b at full width in bf16 (40/10 heads:
              B x NKV = 80), static 8 x 512 + 32 through the flash-decode
              kernel.
+6h. serve-hybrid — jamba-v0.1-52b at full width (4 periods of 1 attention
+             and 7 mamba layers, 16 experts top-2 of d_ff 14336 on the odd
+             layers, no RoPE), weight-only int8 drawn and quantized
+             sub-layer by sub-layer (the 103 GB bf16 tree is never held;
+             the int8 tree under 53 GB and the peak after init under 70 GB,
+             checked): (a) ``launch.serve.run(static=True, int8=True)``,
+             8 x 512 + 32, the prefill through the SSD kernel (28
+             launches) and the decode through the flash-decode kernel (4 a
+             forward); (b) 8 requests drawn as phase 6's through the paged
+             kernel; one decode forward launches the int8 GEMM exactly
+             1001 times, checked; (c) 8 prompts of 64 tokens through both
+             engines: the share of greedy tokens alike; (d) those prompts
+             through one prefill-mode (SSD kernel) and one decode-mode
+             (recurrence) forward, in bf16 and in fp32 (one period at
+             full width): argmaxes alike, the logits' difference and the
+             top-2 gap (all reported only).
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -417,6 +444,17 @@ MOE_D, MOE_FF, MOE_ROWS = 4096, 6400, 640
 # new, max_len 512, page 16, chunk 32), and grok-1's 8 of them
 MIX = dict(n_slots=8, max_len=512, page_size=16, prefill_chunk=32)
 MIX_NEW = 32
+# the hybrid family: jamba-v0.1-52b at full width in int8 (6h), static at
+# MOE_STATIC and 8 requests drawn as phase 6's; its expert d_ff, its
+# mamba projections' widths (B and C: d_state 16; dt: 128 heads) and the
+# bounds its int8 tree and the peak after its init must stay under
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_FF = 14336
+HYBRID_MAMBA_N = (16, 128)
+HYBRID_INT8_MAX_GB = 53.0
+HYBRID_INIT_PEAK_MAX_GB = 70.0
+# (c)'s prompts: 8 of this length through both engines, this many new
+HYBRID_SHARE = dict(prompt_len=64, gen_len=16)
 
 
 def reset_launches(names):
@@ -1387,42 +1425,30 @@ def _ssd_kernel_call(x, dt, A, B, C, D, chunk):
 
 def _ssd_cases():
     """(b, S, h, P, N, chunk): every head dim, state dim and chunk the
-    kernel takes at S 1, 200 (b 8) and 2048; then mamba2-780m's layer."""
+    kernel takes at S 1, 200 (b 8) and 2048; then mamba2-780m's layer and
+    jamba-v0.1-52b's."""
     for P in ssd_kernel.HEAD_DIMS:
         for N in ssd_kernel.STATE_DIMS:
             for chunk in (16, 32, 64, 128, 256):
                 for S in (1, 200, 2048):
                     yield (8 if S == 200 else 1, S, 2, P, N, chunk)
     yield _ssd_full_shape()
+    yield _ssd_full_shape(HYBRID_ARCH, MOE_STATIC)
 
 
-def _ssd_full_shape():
-    cfg = get_config(SSM_ARCH)
+def _ssd_full_shape(arch=SSM_ARCH, static=SSM_STATIC):
+    """A layer's SSD call in ``arch``'s static prefill of ``static``."""
+    cfg = get_config(arch)
     s = cfg.ssm
     heads = s.expand * cfg.d_model // s.head_dim
-    return (SSM_STATIC["slots"], SSM_STATIC["prompt_len"], heads,
-            s.head_dim, s.d_state, s.chunk_size)
+    return (static["slots"], static["prompt_len"], heads, s.head_dim,
+            s.d_state, s.chunk_size)
 
 
-def kernels_ssd(g, hw, card):
-    """y and h_final of the kernel against ref.ssd_chunked on the same card
-    inputs, within SSD_TOL; then timed at mamba2-780m's layer shape."""
-    worst = 0.0
-    n = 0
-    for b, S, h, P, N, chunk in _ssd_cases():
-        args = _ssd_inputs(g, b, S, h, P, N)
-        y, hf = _ssd_kernel_call(*args, chunk)
-        w_y, w_h = ssd_ref.ssd_chunked(*args, chunk)
-        what = f"ssd b{b} S{S} h{h} P{P} N{N} chunk{chunk}"
-        worst = max(worst, check(f"{what} y", y, w_y, SSD_TOL, SSD_TOL),
-                    check(f"{what} h_final", hf, w_h, SSD_TOL, SSD_TOL))
-        n += 1
-        del args, y, hf, w_y, w_h
-    torch.cuda.empty_cache()
-    log("kernels-ssm", f"ssd_scan: {n} cases ok (mamba2-780m's layer shape "
-                       f"among them), max abs err of y and h_final "
-                       f"{worst:.2e}")
-    b, S, h, P, N, L = _ssd_full_shape()
+def _ssd_timed(g, hw, card, shape, err):
+    """Kernel and plain ms at one shape, its bound (the record's: fp32 on
+    the CUDA cores) and the 3xTF32 bound beside it."""
+    b, S, h, P, N, L = shape
     args = _ssd_inputs(g, b, S, h, P, N)
     nc = -(-S // L)
     # causal pairs only: C.B^T once per (row, chunk), and per head W.xdt,
@@ -1436,7 +1462,7 @@ def kernels_ssd(g, hw, card):
     rec = timed_record(what, {
         "kernel": lambda: _ssd_kernel_call(*args, L),
         "plain": lambda: ssd_ref.ssd_chunked(*args, L)},
-        flops, nbytes, torch.float32, hw, card, worst, "kernels-ssm")
+        flops, nbytes, torch.float32, hw, card, err, "kernels-ssm")
     # the kernel runs each product as three TF32 products on the tensor
     # cores: that bound beside the record's (fp32 on the CUDA cores)
     tf32_ms = max(3 * flops / hw.peak_flops_tf32,
@@ -1448,6 +1474,30 @@ def kernels_ssd(g, hw, card):
                        f"{card}")
     del args
     torch.cuda.empty_cache()
+    return rec
+
+
+def kernels_ssd(g, hw, card):
+    """y and h_final of the kernel against ref.ssd_chunked on the same card
+    inputs, within SSD_TOL; then timed at mamba2-780m's layer shape (the
+    record's) and jamba-v0.1-52b's."""
+    worst = 0.0
+    n = 0
+    for b, S, h, P, N, chunk in _ssd_cases():
+        args = _ssd_inputs(g, b, S, h, P, N)
+        y, hf = _ssd_kernel_call(*args, chunk)
+        w_y, w_h = ssd_ref.ssd_chunked(*args, chunk)
+        what = f"ssd b{b} S{S} h{h} P{P} N{N} chunk{chunk}"
+        worst = max(worst, check(f"{what} y", y, w_y, SSD_TOL, SSD_TOL),
+                    check(f"{what} h_final", hf, w_h, SSD_TOL, SSD_TOL))
+        n += 1
+        del args, y, hf, w_y, w_h
+    torch.cuda.empty_cache()
+    log("kernels-ssm", f"ssd_scan: {n} cases ok (mamba2-780m's and "
+                       f"jamba-v0.1-52b's layer shapes among them), max abs "
+                       f"err of y and h_final {worst:.2e}")
+    rec = _ssd_timed(g, hw, card, _ssd_full_shape(), worst)
+    _ssd_timed(g, hw, card, _ssd_full_shape(HYBRID_ARCH, MOE_STATIC), worst)
     return rec
 
 
@@ -1588,6 +1638,13 @@ def kernels_wq(g, hw, card):
     # capacity 80)
     cases += [(k, MOE_D, MOE_FF, False) for k in (8, MOE_ROWS)]
     cases += [(MOE_ROWS, MOE_FF, MOE_D, False)]
+    # jamba-v0.1-52b's experts at decode and its static prefill (the same
+    # capacity 80), and its mamba B / C (N 16) and dt (N 128) projections
+    # at decode and at the static prefill (M 8 x 512)
+    for M in (8, MOE_ROWS):
+        cases += [(M, MOE_D, HYBRID_FF, False), (M, HYBRID_FF, MOE_D, False)]
+    cases += [(M, MOE_D, n, False) for M in (8, 4096)
+              for n in HYBRID_MAMBA_N]
     worst, n = 0.0, 0
     for M, K, N, transposed in cases:
         for x_dtype in (torch.float32, torch.bfloat16):
@@ -1618,6 +1675,11 @@ def kernels_wq(g, hw, card):
               MOE_FF, MOE_D, False, worst)
     _wq_timed(g, hw, card, "grok-1 expert prefill", 2 * MOE_ROWS, 6144,
               32768, False, worst)
+    for M, where in ((8, "decode"), (MOE_ROWS, "prefill")):
+        _wq_timed(g, hw, card, f"jamba expert {where}", M, MOE_D, HYBRID_FF,
+                  False, worst)
+        _wq_timed(g, hw, card, f"jamba expert {where} down", M, HYBRID_FF,
+                  MOE_D, False, worst)
     torch.cuda.empty_cache()
     # fp32 x, the reduced configurations' and the parity checks' path, at
     # the decode shapes
@@ -1905,6 +1967,7 @@ def phase_parity():
     parity_ssm()
     parity_int8()
     parity_dense()
+    parity_hybrid()
 
 
 def engine_tokens(cfg, params_cpu, device, prompts, gens, wrapper):
@@ -2005,81 +2068,117 @@ def parity_int8():
                       f"{launched} = {per_fwd} x {fwd} forwards")
 
 
+PARITY_KERNELS = ("flash_decode", "paged_partials", "ssd_scan", "wq_gemm")
+
+
+def _engine_parity(cfg, params, *, int8=False):
+    """tests/test_serve_families.py's mix (2 slots, page 8, chunk 4, a
+    4-page budget: a preemption, a mid-run admission) through the
+    continuous engine with the paged kernel off and on, and through the
+    static engine, on the card and on the CPU: every run's greedy tokens
+    identical.  On the card, with it off the flash-decode kernel launches
+    once an attention layer a forward and the paged kernel never, with
+    it on the reverse; the static decode steps launch the flash-decode
+    kernel only, the static prefills the SSD kernel once a mamba layer
+    (the continuous engine prefills through the recurrence: none); with
+    ``int8`` the int8 GEMM ``int8_per_forward`` times a forward.  On the
+    CPU none launches.  Returns (the tokens, the card's counts)."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
+    gens = [5, 4, 6]
+    attn, mamba = attn_layers(cfg), mamba_layers(cfg)
+    per = int8_per_forward(cfg) if int8 else 0
+    outs, counts = {}, []
+
+    def require(what, device, want):
+        got = {n: launches_of(n) for n in PARITY_KERNELS}
+        if device != "cuda":
+            want = dict.fromkeys(PARITY_KERNELS, 0)
+        if got != want:
+            raise SystemExit(f"{cfg.arch_id} {what} on {device}: launches "
+                             f"{got}, expected {want}")
+        if device == "cuda":
+            counts.append(f"{what}: " + " / ".join(
+                str(got[n]) for n in PARITY_KERNELS))
+
+    for device in ("cuda", "cpu"):
+        model = LM(cfg, device=device)
+        p = _to(params, model.device)
+        for paged in (False, True):
+            reset_launches(PARITY_KERNELS)
+            eng = ContinuousBatchingEngine(
+                model, p, n_slots=2, max_len=32, page_size=8,
+                prefill_chunk=4, page_budget=4, paged_kernel=paged)
+            rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+            out = eng.run()
+            reqs = eng.requests()
+            if not (sum(r.n_preemptions for r in reqs) >= 1
+                    and any(r.admit_step > 0 for r in reqs)):
+                raise SystemExit(f"{cfg.arch_id} parity: the mix forced no "
+                                 f"preemption or no mid-run admission")
+            fwd = eng.stats.forwards
+            require(f"paged_kernel={paged} ({fwd} forwards)", device, {
+                "flash_decode": 0 if paged else attn * fwd,
+                "paged_partials": attn * fwd if paged else 0,
+                "ssd_scan": 0, "wq_gemm": per * fwd})
+            outs[device, paged] = [out[r].tolist() for r in rids]
+        reset_launches(PARITY_KERNELS)
+        static = StaticBatchEngine(model, p, max_len=32, batch=1)
+        outs[device, "static"] = [static.generate(pr[None], g)[0].tolist()
+                                  for pr, g in zip(prompts, gens)]
+        require("static", device, {
+            "flash_decode": attn * sum(g - 1 for g in gens),
+            "paged_partials": 0, "ssd_scan": mamba * len(prompts),
+            "wq_gemm": per * sum(gens)})
+    first = outs["cuda", False]
+    if not all(o == first for o in outs.values()):
+        raise SystemExit(f"{cfg.arch_id} engine parity: greedy tokens "
+                         f"differ: {outs}")
+    return first, counts
+
+
 def parity_dense():
     """Reduced granite-3-2b, qwen3-1.7b, phi3.5-moe-42b and grok-1-314b
     (softcap 30, its heads set to 6/1 for grok's G 6) in fp32 at H 64 (a
-    width both decode kernels take) on tests/test_serve_families.py's
-    mix: the continuous engine with the paged kernel off and on, and the
-    static engine, give identical greedy tokens on the card and on the
-    CPU.  On the card, with it off the flash-decode kernel launches
-    n_layers times a forward and the paged kernel never; with it on, the
-    reverse; the static decode steps launch the flash-decode kernel
-    only."""
-    pair = ("flash_decode", "paged_partials")
+    width both decode kernels take) through ``_engine_parity``."""
     for arch, extra in ((INT8_ARCH, {}), (DENSE_ARCH, {}), (MOE_ARCH, {}),
                         (GROK_ARCH, dict(n_heads=6, n_kv_heads=1))):
         cfg = reduced_config(arch, head_dim=64, **extra)
         params = LM(cfg, device="cpu").init_params(
             torch.Generator(device="cpu").manual_seed(0))
-        rng = np.random.default_rng(2)
-        prompts = [rng.integers(1, cfg.vocab_size, size=n)
-                   for n in (15, 15, 7)]
-        gens = [5, 4, 6]
-        outs, counts = {}, []
-        for device in ("cuda", "cpu"):
-            model = LM(cfg, device=device)
-            p = _to(params, model.device)
-            for paged in (False, True):
-                reset_launches(pair)
-                eng = ContinuousBatchingEngine(
-                    model, p, n_slots=2, max_len=32, page_size=8,
-                    prefill_chunk=4, page_budget=4, paged_kernel=paged)
-                rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
-                out = eng.run()
-                reqs = eng.requests()
-                if not (sum(r.n_preemptions for r in reqs) >= 1
-                        and any(r.admit_step > 0 for r in reqs)):
-                    raise SystemExit(f"{arch} dense parity: the mix forced "
-                                     f"no preemption or no mid-run "
-                                     f"admission")
-                per = cfg.n_layers * eng.stats.forwards
-                got = tuple(launches_of(n) for n in pair)
-                want = (((0, per) if paged else (per, 0))
-                        if device == "cuda" else (0, 0))
-                if got != want:
-                    raise SystemExit(f"{arch} paged_kernel={paged} on "
-                                     f"{device}: (flash_decode, "
-                                     f"paged_partials) launches {got}, "
-                                     f"expected {want}")
-                if device == "cuda":
-                    counts.append(f"paged_kernel={paged}: {got[0]} / "
-                                  f"{got[1]} over {eng.stats.forwards} "
-                                  f"forwards")
-                outs[device, paged] = [out[r].tolist() for r in rids]
-            reset_launches(pair)
-            static = StaticBatchEngine(model, p, max_len=32, batch=1)
-            outs[device, "static"] = [static.generate(pr[None], g)[0]
-                                      .tolist()
-                                      for pr, g in zip(prompts, gens)]
-            per = cfg.n_layers * sum(g - 1 for g in gens)
-            got = tuple(launches_of(n) for n in pair)
-            if got != ((per, 0) if device == "cuda" else (0, 0)):
-                raise SystemExit(f"{arch} static on {device}: (flash_decode,"
-                                 f" paged_partials) launches {got}")
-            if device == "cuda":
-                counts.append(f"static: {got[0]} / 0")
-        first = outs["cuda", False]
-        if not all(o == first for o in outs.values()):
-            raise SystemExit(f"{arch} dense-cache parity: greedy tokens "
-                             f"differ: {outs}")
+        first, counts = _engine_parity(cfg, params)
         log("parity", f"reduced {arch} fp32 (H 64, {cfg.n_heads}/"
                       f"{cfg.n_kv_heads} heads, softcap "
                       f"{cfg.attn_logit_softcap:g}, {cfg.n_layers} layers): "
                       f"{sum(map(len, first))} greedy tokens identical, "
                       f"continuous paged_kernel=False = True = static, card "
-                      f"= CPU, over {len(prompts)} requests (a preemption, "
-                      f"a mid-run admission); card launches (flash_decode / "
-                      f"paged_partials) {'; '.join(counts)}")
+                      f"= CPU, over 3 requests (a preemption, a mid-run "
+                      f"admission); card launches (flash_decode / "
+                      f"paged_partials / ssd_scan / wq_gemm) "
+                      f"{'; '.join(counts)}")
+
+
+def parity_hybrid():
+    """Reduced jamba-v0.1-52b (one period: attention at s4, 7 mamba
+    sub-layers, MoE on s1, s3, s5, s7) at H 64 through ``_engine_parity``,
+    in fp32 and then quantized to int8 on the CPU (the int8 GEMM
+    ``int8_per_forward`` = 107 times a forward)."""
+    cfg = reduced_config(HYBRID_ARCH, head_dim=64)
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator(device="cpu").manual_seed(0))
+    for int8 in (False, True):
+        first, counts = _engine_parity(
+            cfg, quantize_params(params) if int8 else params, int8=int8)
+        log("parity", f"reduced {HYBRID_ARCH} {'int8' if int8 else 'fp32'} "
+                      f"(H 64, {attn_layers(cfg)} attention and "
+                      f"{mamba_layers(cfg)} mamba layers, "
+                      f"{cfg.moe.num_experts} experts): "
+                      f"{sum(map(len, first))} greedy tokens "
+                      f"identical, continuous paged_kernel=False = True = "
+                      f"static, card = CPU, over 3 requests (a preemption, a "
+                      f"mid-run admission); card launches (flash_decode / "
+                      f"paged_partials / ssd_scan / wq_gemm) "
+                      f"{'; '.join(counts)}")
 
 
 def parity_train_step():
@@ -2101,14 +2200,29 @@ def parity_train_step():
 # ---------------------------------------------------------------------------
 # phase 6: serve at full width
 # ---------------------------------------------------------------------------
-SERVE_KERNELS = ("wq_gemm", "flash_decode", "paged_partials")
+SERVE_KERNELS = ("wq_gemm", "flash_decode", "paged_partials", "ssd_scan")
+
+
+def attn_layers(cfg) -> int:
+    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+
+
+def mamba_layers(cfg) -> int:
+    return cfg.n_layers - attn_layers(cfg)
 
 
 def int8_per_forward(cfg) -> int:
-    """int8 GEMM launches a forward: a layer's 4 attention packs and 3 an
-    expert (moe) or 3 (a dense MLP), then the unembed."""
-    ffn = 3 * cfg.moe.num_experts if cfg.moe is not None else 3
-    return cfg.n_layers * (4 + ffn) + 1
+    """int8 GEMM launches a forward: a layer's 4 attention packs or 6
+    mamba projections, then 3 an expert (an MoE layer) or 3 (a dense
+    MLP; an ssm layer has none), then the unembed."""
+    n = 1
+    for i in range(cfg.n_layers):
+        n += 4 if cfg.layer_kind(i) == "attn" else 6
+        if cfg.layer_uses_moe(i):
+            n += 3 * cfg.moe.num_experts
+        elif cfg.d_ff:
+            n += 3
+    return n
 
 
 def _served_cfg(arch, layers=None):
@@ -2118,10 +2232,12 @@ def _served_cfg(arch, layers=None):
 
 def serve_static(phase, arch, card, *, int8, layers=None):
     """``launch.serve.run(static=True)`` at MOE_STATIC (8 x 512 + 32): the
-    decode through the flash-decode kernel (n_layers launches a decode
-    forward, none in the prefill), the paged kernel never, the int8 GEMM
+    decode through the flash-decode kernel (one launch an attention layer
+    and decode forward, none in the prefill), the paged kernel never, the
+    SSD kernel once a mamba layer (the prefill), the int8 GEMM
     ``int8_per_forward`` x the forwards with ``int8`` (else never).
-    Returns the launches of SERVE_KERNELS."""
+    Returns the launches of SERVE_KERNELS, and the bytes of the served
+    tree and the peak after init in GiB."""
     cfg = _served_cfg(arch, layers)
     torch.cuda.empty_cache()
     reset_launches(SERVE_KERNELS)
@@ -2129,9 +2245,10 @@ def serve_static(phase, arch, card, *, int8, layers=None):
                            **MOE_STATIC)
     got = {n: launches_of(n) for n in SERVE_KERNELS}
     decode_fwd = res["forwards"] - 1
+    attn = attn_layers(cfg)
     want = {"wq_gemm": int8_per_forward(cfg) * res["forwards"] if int8
-            else 0, "flash_decode": cfg.n_layers * decode_fwd,
-            "paged_partials": 0}
+            else 0, "flash_decode": attn * decode_fwd,
+            "paged_partials": 0, "ssd_scan": mamba_layers(cfg)}
     if got != want:
         raise SystemExit(f"{phase} {arch} static: launches {got}, expected "
                          f"{want}")
@@ -2151,12 +2268,13 @@ def serve_static(phase, arch, card, *, int8, layers=None):
                f"{res['init_peak_gib']:.2f} GiB | launches wq_gemm "
                f"{got['wq_gemm']} = {int8_per_forward(cfg) if int8 else 0} "
                f"x {res['forwards']} forwards, flash_decode "
-               f"{got['flash_decode']} = {cfg.n_layers} x {decode_fwd} "
-               f"decode forwards, paged_partials 0 | peak serving "
-               f"{res['peak_gib']:.2f} GiB | {card}")
+               f"{got['flash_decode']} = {attn} x {decode_fwd} decode "
+               f"forwards, paged_partials 0, ssd_scan {got['ssd_scan']} | "
+               f"peak serving {res['peak_gib']:.2f} GiB | {card}")
+    sizes = res["param_bytes"], res["init_peak_gib"]
     del res
     torch.cuda.empty_cache()
-    return got
+    return got, sizes
 
 
 def serve_mix(phase, model, params, n_req, card, *, int8,
@@ -2164,8 +2282,9 @@ def serve_mix(phase, model, params, n_req, card, *, int8,
     """The ContinuousBatchingEngine at phase 6's request mix (``n_req``
     requests of 32-256 prompt tokens, 32 new; ``paged_kernel`` as the
     engine's): the paged
-    kernel (or with ``paged_kernel=False`` the flash-decode kernel)
-    n_layers launches a forward and the other never, the int8 GEMM
+    kernel (or with ``paged_kernel=False`` the flash-decode kernel) one
+    launch an attention layer and forward and the other never, the SSD
+    kernel never (a recurrent prefill runs token by token), the int8 GEMM
     ``int8_per_forward`` a forward with ``int8``.  Returns (the launches
     of SERVE_KERNELS, the engine, each request's tokens)."""
     cfg = model.cfg
@@ -2192,11 +2311,11 @@ def serve_mix(phase, model, params, n_req, card, *, int8,
                   cfg.padded_vocab)
     st = eng.stats.summary()
     fwd = st["forwards"]
-    # attention launches: one a layer and forward (none for the ssm)
-    attn = cfg.n_layers * fwd if model.decode_state.paged else 0
+    # attention launches: one an attention layer and forward
+    attn = attn_layers(cfg) * fwd
     want = {"wq_gemm": int8_per_forward(cfg) * fwd if int8 else 0,
             "flash_decode": 0 if paged_kernel else attn,
-            "paged_partials": attn if paged_kernel else 0}
+            "paged_partials": attn if paged_kernel else 0, "ssd_scan": 0}
     if got != want or fwd == 0:
         raise SystemExit(f"{phase} continuous: launches {got}, expected "
                          f"{want}")
@@ -2214,7 +2333,7 @@ def serve_mix(phase, model, params, n_req, card, *, int8,
                f"{run_ms:.1f} ms | step p50 {st['step_ms_p50']:.3f} ms, "
                f"pure-decode step p50 {p50:.3f} ms ({len(decode_ms)} steps)"
                f" | launches {attn_kernel} {got[attn_kernel]} = "
-               f"{cfg.n_layers if attn else 0} x {fwd}, wq_gemm "
+               f"{attn_layers(cfg)} x {fwd}, wq_gemm "
                f"{got['wq_gemm']} = "
                f"{int8_per_forward(cfg) if int8 else 0} x {fwd} | peak "
                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
@@ -2250,7 +2369,7 @@ def phase_serve(card, profile):
 
 def profile_decode(model, params, card, what, page_idx=None):
     """Kernels-busy share of pure batched decode forwards (8 rows, 288
-    tokens of context for the dense family; the ssm's state has no
+    tokens of context for the attention layers; the ssm's state has no
     length) under torch.profiler: kernel rows only, as in
     ``profile_train_step``."""
     from torch.profiler import ProfilerActivity, profile
@@ -2261,8 +2380,8 @@ def profile_decode(model, params, card, what, page_idx=None):
     paged = None if page_idx is None else PagedDecodeState(page_idx, 16)
 
     def step():
-        if "pos" in cache:
-            cache["pos"].fill_(288)
+        if model.decode_state.paged:
+            _pos(cache).fill_(288)
         model.forward(params, toks, pos, cache=cache, paged=paged)
 
     for _ in range(3):
@@ -2628,33 +2747,17 @@ def phase_serve_moe(card, profile=False):
     1665 times.  Returns the launches of SERVE_KERNELS."""
     t0 = datetime.datetime.now()
     phase = "serve-moe"
-    total = serve_static(phase, MOE_ARCH, card, int8=True)
+    total, _ = serve_static(phase, MOE_ARCH, card, int8=True)
     model, params, init_peak = _int8_model(MOE_ARCH)
     log(phase, f"(b) int8 tree {quant_bytes(params) / 1e9:.3f} GB, peak "
                f"after init {init_peak:.2f} GiB")
     got, eng, _ = serve_mix(phase, model, params, 16, card, int8=True)
     _add(total, got)
-    # one pure decode forward (8 x 1, context 288, the dense-cache path):
-    # its int8 GEMM launches against the count reckoned from the config
     cfg = model.cfg
-    cache = model.init_cache(8, 512)
-    cache["pos"].fill_(288)
-    reset_launches(("wq_gemm",))
-    model.forward(params, torch.ones((8, 1), dtype=torch.long,
-                                     device=model.device),
-                  torch.full((8, 1), 288, dtype=torch.long,
-                             device=model.device), cache=cache)
-    torch.cuda.synchronize()
-    per = launches_of("wq_gemm")
-    if per != int8_per_forward(cfg) or per != 1665:
-        raise SystemExit(f"{phase}: {per} wq_gemm launches in one decode "
-                         f"forward, expected {cfg.n_layers} x (4 + 3 x "
-                         f"{cfg.moe.num_experts}) + 1 = 1665")
-    log(phase, f"one decode forward (8 x 1): wq_gemm launches {per} = "
-               f"{cfg.n_layers} x (4 + 3 x {cfg.moe.num_experts}) + 1; "
-               f"phase wall {_since(t0):.1f} s | {card}")
-    _add(total, {"wq_gemm": per})
-    del cache
+    _add(total, {"wq_gemm": decode_forward_int8_launches(
+        phase, model, params, 1665,
+        f"{cfg.n_layers} x (4 + 3 x {cfg.moe.num_experts}) + 1")})
+    log(phase, f"phase wall {_since(t0):.1f} s | {card}")
     if profile:
         profile_decode(model, params, card, f"{MOE_ARCH} int8",
                        eng._page_idx)
@@ -2662,6 +2765,32 @@ def phase_serve_moe(card, profile=False):
     del eng, model, params
     torch.cuda.empty_cache()
     return total
+
+
+def _pos(cache):
+    """The cache's position counter (a hybrid's sits with its K/V)."""
+    return cache.get("attn", cache)["pos"]
+
+
+def decode_forward_int8_launches(phase, model, params, want, formula):
+    """One pure decode forward (8 x 1, context 288, the dense-cache path):
+    its int8 GEMM launches, which must equal ``want``, the count
+    ``int8_per_forward`` reckons from the config (``formula``)."""
+    cache = model.init_cache(8, 512)
+    _pos(cache).fill_(288)
+    reset_launches(("wq_gemm",))
+    model.forward(params, torch.ones((8, 1), dtype=torch.long,
+                                     device=model.device),
+                  torch.full((8, 1), 288, dtype=torch.long,
+                             device=model.device), cache=cache)
+    torch.cuda.synchronize()
+    per = launches_of("wq_gemm")
+    if per != int8_per_forward(model.cfg) or per != want:
+        raise SystemExit(f"{phase}: {per} wq_gemm launches in one decode "
+                         f"forward, expected {formula} = {want}")
+    log(phase, f"one decode forward (8 x 1): wq_gemm launches {per} = "
+               f"{formula}")
+    return per
 
 
 def phase_serve_grok(card):
@@ -2672,7 +2801,7 @@ def phase_serve_grok(card):
     is 192 query rows).  Returns the launches of SERVE_KERNELS."""
     t0 = datetime.datetime.now()
     phase = "serve-grok"
-    total = serve_static(phase, GROK_ARCH, card, int8=True,
+    total, _ = serve_static(phase, GROK_ARCH, card, int8=True,
                          layers=GROK_LAYERS)
     model, params, init_peak = _int8_model(GROK_ARCH, GROK_LAYERS)
     log(phase, f"(b) int8 tree {quant_bytes(params) / 1e9:.3f} GB, peak "
@@ -2690,9 +2819,124 @@ def phase_serve_phi3m(card):
     80 in the flash-decode kernel's plan), static 8 x 512 + 32.  Returns
     the launches of SERVE_KERNELS."""
     t0 = datetime.datetime.now()
-    got = serve_static("serve-phi3m", PHI3M_ARCH, card, int8=False)
+    got, _ = serve_static("serve-phi3m", PHI3M_ARCH, card, int8=False)
     log("serve-phi3m", f"phase wall {_since(t0):.1f} s | {card}")
     return got
+
+
+# ---------------------------------------------------------------------------
+# phase 6h: the hybrid family, jamba-v0.1-52b at full width in int8
+# ---------------------------------------------------------------------------
+def _share_prompts(cfg):
+    return np.random.default_rng(5).integers(
+        1, cfg.vocab_size, size=(8, HYBRID_SHARE["prompt_len"]))
+
+
+def hybrid_token_share(model, params):
+    """(c) 8 prompts of HYBRID_SHARE's length through the static engine
+    (the SSD kernel's prefill) and the continuous engine (the recurrent
+    prefill, the paged kernel), HYBRID_SHARE's new tokens each: the share
+    of greedy tokens the two give alike, and of first tokens."""
+    cfg, n = model.cfg, HYBRID_SHARE["gen_len"]
+    prompts = _share_prompts(cfg)
+    static = StaticBatchEngine(
+        model, params, max_len=HYBRID_SHARE["prompt_len"] + n + 8,
+        batch=8).generate(prompts, n_steps=n).cpu().numpy()
+    eng = ContinuousBatchingEngine(model, params, **MIX)
+    rids = [eng.submit(p, n) for p in prompts]
+    out = eng.run()
+    cont = np.stack([np.asarray(out[r]) for r in rids])
+    return float((cont == static).mean()), float(
+        (cont[:, 0] == static[:, 0]).mean())
+
+
+def hybrid_prefill_paths(model, params):
+    """(d) (c)'s prompts through one prefill-mode forward (the SSD kernel)
+    and one decode-mode forward from a zero state (the recurrence, as the
+    continuous engine prefills): at each prompt's last position, the
+    share of argmaxes alike, the median of the max |logit difference|
+    and the median gap between the two largest prefill-mode logits."""
+    toks = torch.as_tensor(_share_prompts(model.cfg), device=model.device)
+    B, S = toks.shape
+    pos = torch.arange(S, device=model.device)[None].expand(B, S)
+    last = [model.forward(params, toks, pos, mode=mode,
+                          cache=model.init_cache(B, S))[0][:, -1]
+            for mode in ("prefill", "decode")]
+    top2 = last[0].topk(2, dim=-1).values
+    return (float((last[0].argmax(-1) == last[1].argmax(-1)).float().mean()),
+            float((last[0] - last[1]).abs().amax(-1).median()),
+            float((top2[:, 0] - top2[:, 1]).median()))
+
+
+def _log_paths(phase, what, stats, card):
+    alike, diff, gap = stats
+    log(phase, f"(d) {what}: prefill-mode (SSD kernel) vs decode-mode "
+               f"(recurrence) forward of (c)'s prompts, last position: "
+               f"argmax alike {100 * alike:.1f}%, median max |logit "
+               f"difference| {diff:.3e}, median top-2 gap {gap:.4f} "
+               f"(reported only) | {card}")
+
+
+def phase_serve_hybrid(card, profile=False):
+    """6h: jamba-v0.1-52b at full width (4 periods of 1 attention and 7
+    mamba layers; 16 experts top-2 of d_ff 14336 on the odd layers),
+    weight-only int8 drawn and quantized sub-layer by sub-layer (the 103
+    GB bf16 tree is never held): (a) static 8 x 512 + 32 (the SSD kernel
+    28 launches in the prefill, the flash-decode kernel 4 a decode
+    forward); (b) 8 requests drawn as phase 6's through the paged kernel;
+    one decode forward launches the int8 GEMM exactly 4 x (7 + 42 + 9 +
+    3 x 4 x 16) + 1 = 1001 times; (c) the share of greedy tokens the two
+    engines give alike on one set of prompts (reported only: in bf16 the
+    recurrence and the SSD kernel round differently); (d) the logits
+    behind it, from one forward through each path, in bf16 and in fp32
+    (one period at full width).  The int8 tree must
+    stay under HYBRID_INT8_MAX_GB and the peak after init under
+    HYBRID_INIT_PEAK_MAX_GB.  Returns the launches of SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    phase = "serve-hybrid"
+    total, (int8_bytes, init_peak) = serve_static(phase, HYBRID_ARCH, card,
+                                                  int8=True)
+    if (int8_bytes / 1e9 >= HYBRID_INT8_MAX_GB
+            or init_peak * 2 ** 30 / 1e9 >= HYBRID_INIT_PEAK_MAX_GB):
+        raise SystemExit(f"{phase}: int8 tree {int8_bytes / 1e9:.3f} GB, "
+                         f"peak after init {init_peak:.2f} GiB: over "
+                         f"{HYBRID_INT8_MAX_GB} / {HYBRID_INIT_PEAK_MAX_GB} "
+                         f"GB")
+    model, params, init_peak = _int8_model(HYBRID_ARCH)
+    log(phase, f"(b) int8 tree {quant_bytes(params) / 1e9:.3f} GB, peak "
+               f"after init {init_peak:.2f} GiB")
+    got, eng, _ = serve_mix(phase, model, params, 8, card, int8=True)
+    _add(total, got)
+    _add(total, {"wq_gemm": decode_forward_int8_launches(
+        phase, model, params, 1001,
+        "4 x (4 + 3 + 7 x 6 + 3 x 3 + 4 x 3 x 16) + 1")})
+    same, first = hybrid_token_share(model, params)
+    log(phase, f"(c) 8 x {HYBRID_SHARE['prompt_len']} prompt tokens, "
+               f"{HYBRID_SHARE['gen_len']} new: greedy tokens equal between "
+               f"the static engine (SSD prefill) and the continuous engine "
+               f"(recurrent prefill): {100 * same:.1f}% of all, "
+               f"{100 * first:.1f}% of first tokens (reported only) | "
+               f"{card}")
+    _log_paths(phase, f"int8 weights, bf16, {model.cfg.n_layers} layers",
+               hybrid_prefill_paths(model, params), card)
+    if profile:
+        profile_decode(model, params, card, f"{HYBRID_ARCH} int8",
+                       eng._page_idx)
+    del eng, model, params
+    torch.cuda.empty_cache()
+    # the same in fp32, one period at full width (~52 GB of fp32 weights)
+    cfg = get_config(HYBRID_ARCH, n_layers=get_config(HYBRID_ARCH)
+                     .attn_period, param_dtype="float32",
+                     compute_dtype="float32")
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    _log_paths(phase, f"fp32, {cfg.n_layers} layers",
+               hybrid_prefill_paths(model, params), card)
+    log(phase, f"phase wall {_since(t0):.1f} s | {card}")
+    del model, params
+    torch.cuda.empty_cache()
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -3003,7 +3247,7 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also profile pure decode forwards (granite bf16 "
                          "and int8, mamba2, qwen3 dense-cache, phi3.5-moe "
-                         "int8) and train steps")
+                         "and jamba int8) and train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3035,7 +3279,8 @@ def main():
     launches["wq_gemm"] = phase_serve_int8(card, args.profile)
     launches["flash_decode"] = phase_serve_dense(card, args.profile)
     for got in (phase_serve_moe(card, args.profile), phase_serve_grok(card),
-                phase_serve_phi3m(card)):
+                phase_serve_phi3m(card),
+                phase_serve_hybrid(card, args.profile)):
         _add(launches, got)
     launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))

@@ -10,15 +10,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List
 
-from repro_torch.configs import (grok_1_314b, granite_3_2b, mamba2_780m,
-                                 phi3_5_moe_42b, phi3_medium_14b, qwen3_1_7b,
-                                 qwen3_4b)
+from repro_torch.configs import (grok_1_314b, granite_3_2b,
+                                 jamba_v0_1_52b, mamba2_780m, phi3_5_moe_42b,
+                                 phi3_medium_14b, qwen3_1_7b, qwen3_4b)
 from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
     m.CONFIG.arch_id: m.CONFIG for m in (
-        phi3_5_moe_42b, grok_1_314b, qwen3_4b, phi3_medium_14b, granite_3_2b,
-        qwen3_1_7b, mamba2_780m)}
+        jamba_v0_1_52b, phi3_5_moe_42b, grok_1_314b, qwen3_4b,
+        phi3_medium_14b, granite_3_2b, qwen3_1_7b, mamba2_780m)}
 ARCH_IDS: List[str] = list(REGISTRY)
 
 
@@ -32,10 +32,11 @@ def get_config(arch_id: str, **overrides) -> ModelConfig:
 def reduced_config(arch_id: str, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests: few layers, narrow
     widths, small vocab, fp32 — keeping the GQA ratio, qk-norm, the MoE
-    top-k and the SSM's structure (expand, conv kernel)."""
+    top-k, the SSM's structure (expand, conv kernel) and the hybrid
+    period (one whole period of layers)."""
     cfg = get_config(arch_id)
     kw = dict(
-        n_layers=min(cfg.n_layers, 4),
+        n_layers=min(cfg.n_layers, cfg.attn_period or 4),
         d_model=128,
         d_ff=0 if cfg.d_ff == 0 else 256,
         vocab_size=512,
@@ -50,6 +51,8 @@ def reduced_config(arch_id: str, **overrides) -> ModelConfig:
         # keep the GQA ratio (scaled down) but stay >= 1
         kw["n_heads"] = 4
         kw["n_kv_heads"] = max(1, 4 * cfg.n_kv_heads // cfg.n_heads)
+    if cfg.family == "hybrid":
+        kw["n_layers"] = cfg.attn_period  # one full period
     if cfg.moe is not None:
         # capacity_factor = E makes the reduced config dropless so the
         # prefill/decode == train-forward invariant holds exactly.

@@ -1,8 +1,8 @@
 """Model configuration schema (subset of ``repro.configs.base``).
 
-A copy of the fields the dense, moe and ssm families read, serving and
-training, with the same names and defaults so a config reads the same in
-both packages.
+A copy of the fields the dense, moe, ssm and hybrid families read,
+serving and training, with the same names and defaults so a config reads
+the same in both packages.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # "dense", "moe" or "ssm" in this port so far
+    family: str                   # dense | moe | ssm | hybrid in this port so far
     n_layers: int
     d_model: int
     n_heads: int                  # query heads (0 for attention-free)
@@ -53,7 +53,11 @@ class ModelConfig:
     attn_logit_softcap: float = 0.0
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
-    # a layer uses MoE when (layer_idx % moe_period) == moe_offset
+    # hybrid (Jamba): within each period of `attn_period` layers, layer index
+    # `attn_offset` is attention, the rest are Mamba; a layer uses MoE when
+    # (layer_idx % moe_period) == moe_offset.
+    attn_period: int = 0
+    attn_offset: int = 0
     moe_period: int = 0
     moe_offset: int = 1
     param_dtype: str = "bfloat16"
@@ -74,6 +78,13 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to_multiple(self.vocab_size, self.vocab_pad_multiple)
+
+    def layer_kind(self, layer_idx: int) -> str:
+        """Return 'attn' | 'mamba' for hybrid stacks."""
+        if self.family != "hybrid":
+            return "mamba" if self.family == "ssm" else "attn"
+        return ("attn" if (layer_idx % self.attn_period) == self.attn_offset
+                else "mamba")
 
     def layer_uses_moe(self, layer_idx: int) -> bool:
         if self.moe is None:

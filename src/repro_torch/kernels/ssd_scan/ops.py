@@ -34,8 +34,9 @@ def ssd_chunked(x, dt, A, B, C, D, chunk: int):
         return ref.ssd_chunked(x, dt, A, B, C, D, chunk)
     if _needs_grad(x, dt, A, B, C, D):
         raise NotImplementedError(
-            "SSD backward: the CUDA SSD scan has no gradient yet (ROADMAP "
-            "B4 follow-up, the SSD backward for mamba2 training)")
+            "SSD backward: the CUDA SSD scan has no gradient yet, so the "
+            "ssm and hybrid families train on the CPU only (ROADMAP B4 "
+            "follow-up, the SSD backward for mamba2 and jamba training)")
     b, _, h, _ = x.shape
     return K.ssd_scan_fwd(
         aligned(x), dt.contiguous(), aligned(B), aligned(C),

@@ -14,22 +14,25 @@
       --arch phi3.5-moe-42b-a6.6b --reduced --device cpu --int8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch grok-1-314b \\
       --layers 4 --int8 --static --slots 8 --prompt-len 512
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch jamba-v0.1-52b --int8 --static --slots 8 --prompt-len 512
 
 The counterpart of ``repro.launch.serve`` for the families the port
-serves (dense, moe, ssm).  By default requests go through the
+serves (dense, moe, ssm, hybrid).  By default requests go through the
 ``ContinuousBatchingEngine``; ``--static`` selects the
 ``StaticBatchEngine`` baseline (one prefill forward over the batch, then
-a decode loop; the dense family's prefill is causal attention over the
-prompts and its decode the dense-cache flash-decode kernel, the ssm
-family's prefill the SSD kernel).  Weights are random, drawn
+a decode loop; an attention layer's prefill is causal attention over the
+prompts and its decode the dense-cache flash-decode kernel, a mamba
+layer's prefill the SSD kernel).  Weights are random, drawn
 from a seeded generator; prompts come from a seeded numpy generator as in
 the reference.  ``--int8`` draws the weights layer by layer and quantizes
 each before the next is drawn (``LM.init_params(int8=True)``, weight-only
 int8: the bits of ``models.quant.quantize_params`` of the whole tree, but
-the tree is never held in bf16, so phi3.5-moe-42b fits one card): every
-matmul of the served tree then runs the int8 GEMM kernel.  ``--layers``
-cuts the depth (a model too deep for the card, as grok-1-314b).  Runs on ``cuda`` unless
-``--device`` names another device.  Times are device times from CUDA
+the tree is never held in bf16, so phi3.5-moe-42b and jamba-v0.1-52b fit
+one card): every matmul of the served tree then runs the int8 GEMM
+kernel.  ``--layers`` cuts the depth (a model too deep for the card, as
+grok-1-314b; a multiple of the period, 8, for jamba-v0.1-52b).  Runs on
+``cuda`` unless ``--device`` names another device.  Times are device times from CUDA
 events; on the CPU none are reported.
 
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP

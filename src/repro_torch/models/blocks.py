@@ -1,15 +1,17 @@
-"""The decoder layer (dense and moe), the mamba layer and the stack
-runner.
+"""The decoder layer (dense and moe), the mamba layer (ssm and hybrid)
+and the stack runner.
 
 Counterparts of ``repro.models.blocks.attn_layer``, ``mamba_layer`` and
 ``run_stack``: the reference scans over layer-stacked parameters; the
-port keeps one parameter dict per layer and runs the stack as a Python
-loop, choosing the layer by the config's family.  A decoder layer's FFN
-is the SwiGLU ``mlp`` or, where the layer holds ``moe``, the MoE, whose
-load-balance loss the stack sums in train mode.  In train
-mode ``remat="full"`` wraps each layer in a non-reentrant
-``torch.utils.checkpoint``: only the layer's input is kept, and the
-backward runs the layer's forward again — the reference's
+port keeps one parameter dict per layer (hybrid: per period, holding its
+sub-layers ``s0``…``s{attn_period-1}``) and runs the stack as a Python
+loop, choosing each layer's kind by the config (``layer_kind``).  A
+layer's FFN is the SwiGLU ``mlp`` or, where the layer holds ``moe``, the
+MoE, whose load-balance loss the stack sums in train mode; a mamba layer
+has one where ``d_ff > 0`` or it holds ``moe`` (hybrid).  In train mode
+``remat="full"`` wraps each layer (hybrid: each sub-layer) in a
+non-reentrant ``torch.utils.checkpoint``: only the layer's input is kept,
+and the backward runs the layer's forward again — the reference's
 ``jax.checkpoint`` with ``save_only_these_names("layer_input")``.
 """
 from __future__ import annotations
@@ -26,6 +28,74 @@ from repro_torch.models.layers import dtype_of
 REMAT_MODES = ("none", "full")
 
 
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _normal(generator, shape, scale, cfg, device):
+    w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                    device=device) * scale
+    return w.to(dtype_of(cfg.param_dtype))
+
+
+def _dense(generator, d_in, d_out, cfg, device, scale=None):
+    return {"w": _normal(generator, (d_in, d_out),
+                         d_in ** -0.5 if scale is None else scale, cfg,
+                         device)}
+
+
+def _norm(cfg, n, device):
+    return {"scale": torch.ones((n,), dtype=dtype_of(cfg.param_dtype),
+                                device=device)}
+
+
+def init_ffn(generator: torch.Generator, cfg, device, use_moe: bool):
+    """``{"moe": …}`` or the SwiGLU ``{"mlp": …}`` (gate, up, down drawn in
+    that order), with the reference's scales."""
+    if use_moe:
+        return {"moe": moe.init_moe(generator, cfg, device)}
+    d, f = cfg.d_model, cfg.d_ff
+    return {"mlp": {"gate": _dense(generator, d, f, cfg, device),
+                    "up": _dense(generator, d, f, cfg, device),
+                    "down": _dense(generator, f, d, cfg, device,
+                                   f ** -0.5)}}
+
+
+def init_attn_layer(generator: torch.Generator, cfg, device,
+                    use_moe: bool):
+    """Pre-norm attention (wq, wk, wv, wo; qk-norm scales) + FFN."""
+    d, h = cfg.d_model, cfg.resolved_head_dim
+    nq, nkv = cfg.n_heads, cfg.n_kv_heads
+    attn = {
+        "wq": _dense(generator, d, nq * h, cfg, device),
+        "wk": _dense(generator, d, nkv * h, cfg, device),
+        "wv": _dense(generator, d, nkv * h, cfg, device),
+        "wo": _dense(generator, nq * h, d, cfg, device, (nq * h) ** -0.5),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = _norm(cfg, h, device)
+        attn["k_norm"] = _norm(cfg, h, device)
+    layer = {"ln1": _norm(cfg, d, device), "attn": attn,
+             "ln2": _norm(cfg, d, device)}
+    layer.update(init_ffn(generator, cfg, device, use_moe))
+    return layer
+
+
+def init_mamba_layer(generator: torch.Generator, cfg, device,
+                     use_moe: bool = False):
+    """Pre-norm Mamba-2 block, then (``d_ff > 0`` or ``use_moe``: the
+    hybrid family) a pre-norm FFN; the ssm family's d_ff is 0, so its
+    block is the whole layer."""
+    layer = {"ln1": _norm(cfg, cfg.d_model, device),
+             "mamba": mamba2.init_mamba(generator, cfg, device)}
+    if cfg.d_ff > 0 or use_moe:
+        layer["ln2"] = _norm(cfg, cfg.d_model, device)
+        layer.update(init_ffn(generator, cfg, device, use_moe))
+    return layer
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
 def _mlp_or_moe(p, x, cfg, *, with_aux: bool):
     """The layer's FFN: returns (out, aux loss).  An MoE groups the tokens
     by batch row (G = B, Sg = S), as the reference's; the aux loss is
@@ -62,86 +132,105 @@ def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
     return x + f, aux
 
 
-def init_mamba_layer(generator: torch.Generator, cfg, device):
-    """Pre-norm + Mamba-2 block: the whole layer of the ssm family (its
-    d_ff is 0, so there is no FFN)."""
-    if cfg.d_ff:
-        raise NotImplementedError(
-            "a mamba layer with an FFN (hybrid / d_ff > 0) is not ported "
-            "yet (ROADMAP A6)")
-    return {
-        "ln1": {"scale": torch.ones((cfg.d_model,),
-                                    dtype=dtype_of(cfg.param_dtype),
-                                    device=device)},
-        "mamba": mamba2.init_mamba(generator, cfg, device),
-    }
-
-
 def mamba_layer(p, x, cfg, *, mode, state=None, n_valid=None):
-    """One pre-norm Mamba-2 layer.  ``state`` ({"h", "conv"} views of the
-    layer's slice of the recurrent state) and ``n_valid`` apply to decode
-    mode only.  Returns (x, the prefill state or None)."""
+    """One pre-norm Mamba-2 layer, then its FFN where it has one (``ln2``).
+    ``state`` ({"h", "conv"} views of the layer's slice of the recurrent
+    state) and ``n_valid`` apply to decode mode only.  Returns (x, the
+    prefill state or None, aux): the FFN's aux loss in train mode (0
+    without an MoE), else ``None``."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     y, new_state = mamba2.mamba_forward(
         p["mamba"], h, cfg, state=state if mode == "decode" else None,
         mode=mode, n_valid=n_valid if mode == "decode" else None)
-    return x + y, new_state
+    x = x + y
+    train = mode == "train"
+    if "ln2" not in p:
+        return x, new_state, (torch.zeros((), dtype=torch.float32,
+                                          device=x.device) if train
+                              else None)
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    f, aux = _mlp_or_moe(p, h, cfg, with_aux=train)
+    return x + f, new_state, aux
 
 
-def _mamba_stack(x, layer_params, cfg, *, mode, cache, n_valid, remat):
-    for i, p in enumerate(layer_params):
-        if mode == "train":
-            fn = functools.partial(mamba_layer, p, cfg=cfg, mode="train")
-            x = (checkpoint(fn, x, use_reentrant=False) if remat == "full"
-                 else fn(x))[0]
-        elif mode == "prefill":
-            x, st = mamba_layer(p, x, cfg, mode="prefill")
-            cache["h"][i].copy_(st["h"])
-            cache["conv"][i].copy_(st["conv"])
-        else:
-            x, _ = mamba_layer(p, x, cfg, mode="decode",
-                               state={"h": cache["h"][i],
-                                      "conv": cache["conv"][i]},
-                               n_valid=n_valid)
-    return x
+def _mamba_step(p, x, cfg, *, mode, state, n_valid):
+    """A mamba layer as the stack runs it: prefill copies the final state
+    and conv tail into the layer's ``state`` views.  Returns (x, aux)."""
+    x, st, aux = mamba_layer(p, x, cfg, mode=mode, state=state,
+                             n_valid=n_valid)
+    if mode == "prefill":
+        state["h"].copy_(st["h"])
+        state["conv"].copy_(st["conv"])
+    return x, aux
+
+
+# ---------------------------------------------------------------------------
+# stack
+# ---------------------------------------------------------------------------
+def sublayers(layer_params: Sequence, cfg):
+    """(params, kind, cache index) of every layer in order.  dense, moe
+    and ssm: one a stack entry, indexed by layer.  hybrid: a period's
+    ``s0``…``s{attn_period-1}``, kinds by ``cfg.layer_kind``; period i's
+    attention sub-layer takes attention slot i and its m-th mamba
+    sub-layer recurrent slot i x (attn_period - 1) + m."""
+    if cfg.family != "hybrid":
+        kind = cfg.layer_kind(0)
+        return [(p, kind, i) for i, p in enumerate(layer_params)]
+    n_mamba = cfg.attn_period - 1
+    out = []
+    for i, period in enumerate(layer_params):
+        m = 0
+        for j in range(cfg.attn_period):
+            if cfg.layer_kind(j) == "attn":
+                out.append((period[f"s{j}"], "attn", i))
+            else:
+                out.append((period[f"s{j}"], "mamba", i * n_mamba + m))
+                m += 1
+    return out
 
 
 def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
               mode: str = "decode", rope=None, positions=None, cache=None,
               write=None, paged=None, n_valid=None,
               remat: str = "none"):
-    """Run every layer over ``x``, by the config's family; returns (x,
-    aux): in train mode the sum of the layers' MoE load-balance losses
-    (0 without MoE), else ``None``.
+    """Run every layer over ``x``, kinds by the config; returns (x, aux):
+    in train mode the sum of the layers' MoE load-balance losses (0
+    without MoE), else ``None``.
 
-    dense and moe: prefill and decode modes' ``cache`` holds layer-stacked K/V
-    (n_layers, B, S_cache, NKV, H), indexed per layer as views.  ssm:
-    ``cache`` holds the layer-stacked recurrent state
-    (``mamba2.init_state``); prefill
-    writes each layer's final state into it and decode (``n_valid``:
-    ragged rows) updates it in place.  Train mode: ``remat`` in
-    ``REMAT_MODES``."""
+    Prefill and decode modes' ``cache``: dense and moe, layer-stacked K/V
+    (n_layers, B, S_cache, NKV, H), indexed per layer as views; ssm, the
+    layer-stacked recurrent state (``mamba2.init_state``); hybrid, both,
+    under ``"attn"`` (one entry a period) and ``"ssm"`` (one a mamba
+    sub-layer).  Prefill writes each mamba layer's final state into it
+    and decode (``n_valid``: ragged rows) updates it in place.  Train
+    mode: ``remat`` in ``REMAT_MODES``."""
     if remat not in REMAT_MODES:
         raise NotImplementedError(f"remat={remat!r}; the port has "
                                   f"{REMAT_MODES}")
-    if cfg.family == "ssm":
-        x = _mamba_stack(x, layer_params, cfg, mode=mode, cache=cache,
-                         n_valid=n_valid, remat=remat)
-        return x, (torch.zeros((), dtype=torch.float32, device=x.device)
-                   if mode == "train" else None)
-    if mode != "train":
-        for i, p in enumerate(layer_params):
-            x, _ = attn_layer(p, x, cfg, mode=mode, positions=positions,
-                              rope=rope,
-                              cache={"k": cache["k"][i],
-                                     "v": cache["v"][i]},
-                              write=write, paged=paged)
-        return x, None
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p in layer_params:
-        fn = functools.partial(attn_layer, p, cfg=cfg, mode="train",
-                               rope=rope)
-        x, a = (checkpoint(fn, x, use_reentrant=False) if remat == "full"
-                else fn(x))
-        aux = aux + a
+    train = mode == "train"
+    kv = ssm = None
+    if not train:
+        hybrid = cfg.family == "hybrid"
+        kv = cache["attn"] if hybrid else cache
+        ssm = cache["ssm"] if hybrid else cache
+    aux = (torch.zeros((), dtype=torch.float32, device=x.device) if train
+           else None)
+    for p, kind, c in sublayers(layer_params, cfg):
+        if kind == "attn":
+            fn = functools.partial(
+                attn_layer, p, cfg=cfg, mode=mode, rope=rope,
+                positions=positions, write=write, paged=paged,
+                cache=None if train else {"k": kv["k"][c],
+                                          "v": kv["v"][c]})
+        else:
+            fn = functools.partial(
+                _mamba_step, p, cfg=cfg, mode=mode, n_valid=n_valid,
+                state=None if train else {"h": ssm["h"][c],
+                                          "conv": ssm["conv"][c]})
+        if train and remat == "full":
+            x, a = checkpoint(fn, x, use_reentrant=False)
+        else:
+            x, a = fn(x)
+        if train:
+            aux = aux + a
     return x, aux

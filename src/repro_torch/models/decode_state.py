@@ -1,5 +1,5 @@
-"""DecodeState protocol (dense, moe and ssm families): the slotted cache
-and its row primitives.
+"""DecodeState protocol (dense, moe, ssm and hybrid families): the
+slotted cache and its row primitives.
 
 Counterpart of ``repro.models.decode_state``.  An adapter lays the
 whole per-slot decode state out as a dict of tensors whose every leaf
@@ -112,10 +112,35 @@ class SSMDecodeState(DecodeStateAdapter):
         return mamba2.state_specs()
 
 
+class HybridDecodeState(DecodeStateAdapter):
+    """hybrid (jamba): one attention K/V a period (and one position
+    counter a slot) under ``"attn"``, and one recurrent state a mamba
+    sub-layer, period-major, under ``"ssm"``.  The recurrent state cannot
+    be cut to a token prefix; the attention layers attend through the
+    paged cache, as the reference's do."""
+
+    token_addressable = False
+    paged = True
+
+    def init(self, model, batch: int, max_len: int) -> Params:
+        cfg = model.cfg
+        n = model.n_periods
+        return {
+            "attn": attention.init_cache(cfg, n, batch, max_len,
+                                         model.compute_dtype, model.device),
+            "ssm": mamba2.init_state(cfg, n * (cfg.attn_period - 1), batch,
+                                     model.compute_dtype, model.device),
+        }
+
+    def specs(self, model) -> Params:
+        return {"attn": attention.cache_specs(),
+                "ssm": mamba2.state_specs()}
+
+
 _ADAPTERS = {"dense": AttentionDecodeState(), "moe": AttentionDecodeState(),
-             "ssm": SSMDecodeState()}
+             "ssm": SSMDecodeState(), "hybrid": HybridDecodeState()}
 # the reference's families the port has not ported yet
-NOT_PORTED = ("hybrid", "vlm", "audio")
+NOT_PORTED = ("vlm", "audio")
 
 
 def get_adapter(family: str) -> DecodeStateAdapter:

@@ -1,27 +1,33 @@
-"""The LM (dense, moe and ssm families): parameters, forward modes,
-slotted cache.
+"""The LM (dense, moe, ssm and hybrid families): parameters, forward
+modes, slotted cache.
 
-Counterpart of ``repro.models.model.LM`` for the dense, moe and ssm
-families.  The parameters are a dict with the JAX tree's keys —
+Counterpart of ``repro.models.model.LM`` for the dense, moe, ssm and
+hybrid families.  The parameters are a dict with the JAX tree's keys —
 ``embed.table``, ``final_norm.scale``, ``unembed.table`` when untied —
 except that the layer stack is a list of per-layer dicts (dense:
 ``stack[i]`` holds ``ln1``, ``attn``, ``ln2``, ``mlp``; moe: ``moe`` in
 place of ``mlp`` where ``cfg.layer_uses_moe(i)``; ssm: ``ln1``,
-``mamba``) instead of leaves with a leading layer axis.  Weights are
-random, drawn from an explicit ``torch.Generator``.
+``mamba``; hybrid: one dict a period of ``attn_period`` layers, its
+sub-layers ``s0``…``s7`` an attention layer or a mamba layer with an
+FFN, as ``cfg.layer_kind`` says) instead of leaves with a leading layer
+(or period) axis.  Weights are random, drawn from an explicit
+``torch.Generator``.
 
 Modes: ``train``, ``prefill`` and ``decode``, for every family.
-Prefill runs the prompt through (dense, moe) causal
-``chunked_attention``, writing its K/V to the cache, or (ssm) the SSD
-kernel, leaving each layer's final state in the cache.  Decode attends
-over the K/V cache through the paged kernel under a page map, else
-through the dense-cache flash-decode kernel; the ssm advances its
-recurrent state.  The moe family is the dense one with ``models.moe``'s
-experts in place of the MLP, each mode calling them with its own (B, S)
-(the capacity depends on S).  A parameter tree from
-``models.quant.quantize_params`` or ``init_params(int8=True)`` (int8
-packs) runs every mode's matmuls through the int8 GEMM kernel, the
-experts one call an expert and projection.
+Prefill runs the prompt through causal ``chunked_attention`` in an
+attention layer, writing its K/V to the cache, and through the SSD
+kernel in a mamba layer, leaving its final state in the cache.  Decode
+attends over the K/V cache through the paged kernel under a page map,
+else through the dense-cache flash-decode kernel; a mamba layer advances
+its recurrent state.  The moe family is the dense one with
+``models.moe``'s experts in place of the MLP, each mode calling them
+with its own (B, S) (the capacity depends on S); the hybrid (jamba)
+interleaves 1 attention layer with 7 mamba layers a period, MoE on every
+other layer, and keeps both kinds of state (``HybridDecodeState``).  A
+parameter tree from ``models.quant.quantize_params`` or
+``init_params(int8=True)`` (int8 packs) runs every mode's matmuls
+through the int8 GEMM kernel, the experts one call an expert and
+projection.
 """
 from __future__ import annotations
 
@@ -31,8 +37,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
-from repro_torch.models import (attention, blocks, decode_state, layers, moe,
-                                quant)
+from repro_torch.models import attention, blocks, decode_state, layers, quant
 from repro_torch.models.layers import dtype_of
 
 Params = Dict[str, Any]
@@ -44,6 +49,13 @@ class LM:
         self.device = resolve_device(device)
         self.param_dtype = dtype_of(cfg.param_dtype)
         self.compute_dtype = dtype_of(cfg.compute_dtype)
+        self.n_periods = cfg.n_layers
+        if cfg.family == "hybrid":
+            if cfg.attn_period <= 0 or cfg.n_layers % cfg.attn_period:
+                raise ValueError(
+                    f"hybrid n_layers {cfg.n_layers} is not a multiple of "
+                    f"attn_period {cfg.attn_period}")
+            self.n_periods = cfg.n_layers // cfg.attn_period
         # the family's DecodeState adapter (raises for families not ported)
         self.decode_state = decode_state.get_adapter(cfg.family)
 
@@ -58,10 +70,6 @@ class LM:
     def _ones(self, n):
         return torch.ones((n,), dtype=self.param_dtype, device=self.device)
 
-    def _dense(self, gen, d_in, d_out, scale=None):
-        return {"w": self._normal(gen, (d_in, d_out),
-                                  d_in ** -0.5 if scale is None else scale)}
-
     def init_params(self, generator: Optional[torch.Generator], *,
                     int8: bool = False) -> Params:
         """Random parameters with the reference's initializer scales,
@@ -69,9 +77,10 @@ class LM:
 
         ``int8``: the weight-only int8 tree, equal bit for bit to
         ``quant.quantize_params(init_params(generator))`` but never held
-        in the param dtype: the embedding tables and each layer are drawn
-        and quantized before the next is drawn, so the peak is the int8
-        tree and one layer in the param dtype."""
+        in the param dtype: the embedding tables and each layer (hybrid:
+        each sub-layer of a period) are drawn and quantized before the
+        next is drawn, so the peak is the int8 tree and one layer in the
+        param dtype."""
         cfg = self.cfg
         d = cfg.d_model
         g = generator
@@ -84,34 +93,26 @@ class LM:
         if not cfg.tie_embeddings:
             p["unembed"] = q({"table": self._normal(
                 g, (cfg.padded_vocab, d), 0.02)})
-        p["stack"] = [q(self._init_layer(g, i)) for i in range(cfg.n_layers)]
+        p["stack"] = [self._init_layer(g, i, q)
+                      for i in range(self.n_periods)]
         return p
 
-    def _init_layer(self, g, i: int) -> Params:
-        cfg = self.cfg
+    def _init_layer(self, g, i: int, q) -> Params:
+        """Stack entry i, each layer passed through ``q`` as it is drawn:
+        a layer, or (hybrid) a period of sub-layers ``s0``…, attention
+        where ``cfg.layer_kind(j)`` says so, MoE where
+        ``cfg.layer_uses_moe(j)``."""
+        cfg, dev = self.cfg, self.device
         if cfg.family == "ssm":
-            return blocks.init_mamba_layer(g, cfg, self.device)
-        d, h = cfg.d_model, cfg.resolved_head_dim
-        nq, nkv = cfg.n_heads, cfg.n_kv_heads
-        attn = {
-            "wq": self._dense(g, d, nq * h),
-            "wk": self._dense(g, d, nkv * h),
-            "wv": self._dense(g, d, nkv * h),
-            "wo": self._dense(g, nq * h, d, (nq * h) ** -0.5),
-        }
-        if cfg.qk_norm:
-            attn["q_norm"] = {"scale": self._ones(h)}
-            attn["k_norm"] = {"scale": self._ones(h)}
-        layer = {"ln1": {"scale": self._ones(d)}, "attn": attn,
-                 "ln2": {"scale": self._ones(d)}}
-        if cfg.layer_uses_moe(i):
-            layer["moe"] = moe.init_moe(g, cfg, self.device)
-        else:
-            layer["mlp"] = {"gate": self._dense(g, d, cfg.d_ff),
-                            "up": self._dense(g, d, cfg.d_ff),
-                            "down": self._dense(g, cfg.d_ff, d,
-                                                cfg.d_ff ** -0.5)}
-        return layer
+            return q(blocks.init_mamba_layer(g, cfg, dev))
+        if cfg.family != "hybrid":
+            return q(blocks.init_attn_layer(g, cfg, dev,
+                                            cfg.layer_uses_moe(i)))
+        init = {"attn": blocks.init_attn_layer,
+                "mamba": blocks.init_mamba_layer}
+        return {f"s{j}": q(init[cfg.layer_kind(j)](
+            g, cfg, dev, cfg.layer_uses_moe(j)))
+            for j in range(cfg.attn_period)}
 
     def init_param_bytes(self) -> int:
         """Bytes of ``init_params``' tree in the param dtype, reckoned
@@ -152,29 +153,30 @@ class LM:
                 paged: Optional[attention.PagedDecodeState] = None):
         """tokens / positions (B, S).
 
-        ``mode="train"``: the whole sequence (dense: causal attention
-        through ``cfg.attention_impl``; ssm: the chunked SSD), each layer
+        ``mode="train"``: the whole sequence (attention: causal through
+        ``cfg.attention_impl``; mamba: the chunked SSD), each layer
         rematerialised as ``cfg.remat`` says; returns (fp32 logits (B, S,
         V), None, aux) — aux is the sum of the layers' MoE load-balance
-        losses (fp32; 0 for the dense and ssm families).
+        losses (fp32; 0 without MoE).
 
         ``mode="prefill"``: the prompt from position 0 into a fresh
-        ``cache`` (from ``init_cache``), in place.  dense: causal
-        attention over the prompt; its K/V go to cache positions [0, S)
-        and ``cache["pos"]`` advances by S.  ssm: the chunked SSD (the
-        CUDA kernel on the card); each layer's final recurrent state and
-        conv tail are written into ``cache``.  Returns (fp32 logits,
-        cache).
+        ``cache`` (from ``init_cache``), in place.  Attention layers:
+        causal attention over the prompt; its K/V go to cache positions
+        [0, S) and the position counter advances by S.  Mamba layers: the
+        chunked SSD (the CUDA kernel on the card); each layer's final
+        recurrent state and conv tail are written into ``cache``.
+        Returns (fp32 logits, cache).
 
         ``mode="decode"``: ``n_valid`` (B,) real tokens per row (``None``:
-        all S).  dense: writes the step's K/V into ``cache`` in place,
-        advances ``cache["pos"]`` by ``n_valid``; ``paged`` names the page
-        map of the cache's pool view and attends through the paged
-        kernel; ``None`` attends over the cache as it is (the reference's
-        ``_full_attention_with_cache``, outside any ``paged_decode``
-        context).  ssm: advances the recurrent state in
-        place through rows' valid columns only; ``positions`` and
-        ``paged`` are not read.  Returns (fp32 logits, cache)."""
+        all S).  Attention layers write the step's K/V into ``cache`` in
+        place, and the position counter advances by ``n_valid``;
+        ``paged`` names the page map of the cache's pool view and attends
+        through the paged kernel; ``None`` attends over the cache as it is
+        (the reference's ``_full_attention_with_cache``, outside any
+        ``paged_decode`` context).  Mamba layers advance the recurrent
+        state in place through rows' valid columns only (the ssm reads
+        neither ``positions`` nor ``paged``).  Returns (fp32 logits,
+        cache)."""
         if mode == "train":
             return self._forward_train(params, tokens, positions)
         if mode not in ("decode", "prefill"):
@@ -187,29 +189,37 @@ class LM:
             x, _ = blocks.run_stack(x, params["stack"], cfg, mode=mode,
                                     cache=cache, n_valid=n_valid)
             return self._logits(params, x), cache
-        rope = layers.rope_tables(positions, cfg.resolved_head_dim,
-                                  cfg.rope_theta)
+        # the attention layers' K/V and position counter
+        kv = cache["attn"] if cfg.family == "hybrid" else cache
+        rope = self._rope(positions)
         if mode == "prefill":
             x, _ = blocks.run_stack(x, params["stack"], cfg,
                                     mode="prefill", rope=rope, cache=cache)
-            cache["pos"].add_(tokens.shape[1])
+            kv["pos"].add_(tokens.shape[1])
             return self._logits(params, x), cache
-        S_cache = cache["k"].shape[2]
-        write = attention.decode_write(cache["pos"], tokens.shape[1],
-                                       S_cache, n_valid)
+        write = attention.decode_write(kv["pos"], tokens.shape[1],
+                                       kv["k"].shape[2], n_valid)
         x, _ = blocks.run_stack(x, params["stack"], cfg,
                                 positions=positions, rope=rope, cache=cache,
-                                write=write, paged=paged)
-        cache["pos"].copy_(write.kv_valid)
+                                write=write, paged=paged, n_valid=n_valid)
+        kv["pos"].copy_(write.kv_valid)
         return self._logits(params, x), cache
+
+    def _rope(self, positions):
+        """The forward's fp32 (cos, sin) tables, shared by every attention
+        layer; ``None`` without RoPE (the ssm, or ``rope_theta`` 0)."""
+        cfg = self.cfg
+        if cfg.family == "ssm" or cfg.rope_theta <= 0:
+            return None
+        return layers.rope_tables(positions, cfg.resolved_head_dim,
+                                  cfg.rope_theta)
 
     def _forward_train(self, params, tokens, positions):
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], self.compute_dtype)
-        rope = (None if cfg.family == "ssm" else layers.rope_tables(
-            positions, cfg.resolved_head_dim, cfg.rope_theta))
         x, aux = blocks.run_stack(x, params["stack"], cfg, mode="train",
-                                  rope=rope, remat=cfg.remat)
+                                  rope=self._rope(positions),
+                                  remat=cfg.remat)
         return self._logits(params, x), None, aux
 
     def _logits(self, params, x):

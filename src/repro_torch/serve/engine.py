@@ -8,20 +8,21 @@ mixed steps, and each step runs one batched (n_slots, 1) decode forward
 plus one batch-1 (1, prefill_chunk) forward per prefilling slot, both in
 decode mode.  It never branches on a family: the model's DecodeState
 adapter says what the state is.  For a family that attends through the
-paged cache (dense), the decode step walks the cache's pool view with
-the engine's identity page map (``PagedKVCache.page_index_array``,
-uploaded once) and a prefill row uses the row-local identity map
-(``page_idx=None``); with ``paged_kernel=False`` (the reference's
+paged cache (dense, moe, hybrid), the decode step walks the cache's pool
+view with the engine's identity page map
+(``PagedKVCache.page_index_array``, uploaded once) and a prefill row
+uses the row-local identity map (``page_idx=None``); with ``paged_kernel=False`` (the reference's
 bitwise-parity baseline) there is no page map, and both attend over the
 dense cache (the flash-decode kernel on the card).  A family without
-attention (ssm) gets no page map, and its recurrent prompt prefill runs
-token by token through the masked recurrence.
+attention (ssm) gets no page map.  A recurrent prompt prefill (the ssm's
+layers, the hybrid's mamba layers) runs token by token through the
+masked recurrence.
 
 ``StaticBatchEngine`` is the reference's run-to-completion baseline: one
-``mode="prefill"`` forward over the whole batch of prompts (dense: causal
-attention filling the K/V cache; ssm: the SSD kernel), then a decode
-loop, which enters no paged context: the dense family decodes through
-the dense-cache attention.  ``make_prefill_step`` /
+``mode="prefill"`` forward over the whole batch of prompts (attention
+layers: causal attention filling the K/V cache; mamba layers: the SSD
+kernel), then a decode loop, which enters no paged context: attention
+layers decode through the dense-cache attention.  ``make_prefill_step`` /
 ``make_serve_step`` are its two steps, as in the reference.
 
 Sampled tokens stay on the device between steps: ``prev_sampled``
@@ -39,9 +40,9 @@ Not ported yet (each raises ``NotImplementedError`` if asked for): the
 device mesh, speculative decoding, the prefix cache, the stall-free
 chunk policy, build-time trace analysis, the paged-kernel autotune, and
 ``StepCostModel`` (so ``EngineStats`` carries no modeled flops or
-bytes).  For a family whose state cannot be cut to a token prefix (ssm)
-``prefix_cache=True`` warns and serves with the pool off, as the
-reference does.
+bytes).  For a family whose state cannot be cut to a token prefix (ssm,
+hybrid) ``prefix_cache=True`` warns and serves with the pool off, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -162,7 +163,7 @@ class EngineStats:
 # continuous batching
 # ---------------------------------------------------------------------------
 class ContinuousBatchingEngine:
-    """Paged continuous-batching engine (dense family).
+    """Paged continuous-batching engine (every family the port serves).
 
     Usage::
 
@@ -393,10 +394,10 @@ class StaticBatchEngine:
 
     The reference's baseline, kept for correctness (temperature-0 parity
     with the continuous engine) and throughput comparison.  The prefill
-    is ``LM.forward(mode="prefill")`` over every prompt at once: for the
-    dense family causal attention that fills each layer's K/V cache, for
-    the ssm family the SSD kernel, one launch a layer.  The decode steps
-    run in no paged context: the dense family attends over the cache
+    is ``LM.forward(mode="prefill")`` over every prompt at once: in an
+    attention layer causal attention that fills the layer's K/V cache, in
+    a mamba layer the SSD kernel, one launch a layer.  The decode steps
+    run in no paged context: attention layers attend over the cache
     through the flash-decode kernel, one launch a layer.  ``stats.steps``
     holds the prefill as its first record and then one record a decode
     step, timed by CUDA events on the card.

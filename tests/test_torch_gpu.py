@@ -4,10 +4,12 @@ strided gather, tail mask, Qsim gate, flash attention, dense-cache flash
 decode, SSD scan, int8 GEMM) against its plain version on ragged shapes,
 with its launch counter checked (the attention kernels also at the
 served head groups: grok-1's G 6, phi3-medium's 10 KV heads), the MoE
-on the card (fp32, and int8 through one int8 GEMM an expert), and the
-port's engines (dense, moe and ssm, bf16/fp32 and int8 weights, the
-paged kernel on and off) and train step on the card against the same
-on the CPU.
+on the card (fp32, and int8 through one int8 GEMM an expert), the
+kernels at jamba-v0.1-52b's shapes (the SSD scan at 128 heads and N 16,
+the int8 GEMM at its experts and mamba projections), and the port's
+engines (dense, moe, ssm and hybrid, bf16/fp32 and int8 weights, the
+paged kernel on and off) and train step on the card against the same on
+the CPU.
 Without a card they skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -704,7 +706,11 @@ def test_moe_engines_on_card_match_cpu(card, arch, extra):
 
 
 def _engines_card_vs_cpu(card, cfg):
+    """The attention kernels launch once an attention layer a forward, the
+    SSD kernel once a mamba layer a static prefill."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    kinds = [cfg.layer_kind(i) for i in range(cfg.n_layers)]
+    attn, mamba = kinds.count("attn"), kinds.count("mamba")
     params = LM(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0))
     rng = np.random.default_rng(2)
@@ -724,19 +730,22 @@ def _engines_card_vs_cpu(card, cfg):
             res = eng.run()
             launched = (fa_kernel.flash_decode.launches - before[0],
                         pa_kernel.paged_flash_decode.launches - before[1])
-            per = cfg.n_layers * eng.stats.forwards
+            per = attn * eng.stats.forwards
             if dev.type == "cuda":
                 assert launched == ((0, per) if paged else (per, 0))
             else:
                 assert launched == (0, 0)
             outs[dev.type, paged] = [res[r].tolist() for r in rids]
-        before = fa_kernel.flash_decode.launches
+        before = (fa_kernel.flash_decode.launches,
+                  ssd_kernel.ssd_scan_fwd.launches)
         static = StaticBatchEngine(model, p, max_len=32, batch=1)
         outs[dev.type, "static"] = [static.generate(pr[None], g)[0].tolist()
                                     for pr, g in zip(prompts, gens)]
-        assert fa_kernel.flash_decode.launches - before == (
-            cfg.n_layers * sum(g - 1 for g in gens)
-            if dev.type == "cuda" else 0)
+        launched = (fa_kernel.flash_decode.launches - before[0],
+                    ssd_kernel.ssd_scan_fwd.launches - before[1])
+        assert launched == ((attn * sum(g - 1 for g in gens),
+                             mamba * len(prompts))
+                            if dev.type == "cuda" else (0, 0))
     first = outs["cuda", False]
     assert all(o == first for o in outs.values()), outs
 
@@ -773,12 +782,14 @@ def _ssd_args(card, b, S, h, P, N):
     (2, 300, 2, 64, 128, 256), (1, 2048, 2, 64, 128, 256),
     (2, 100, 1, 64, 32, 128), (1, 77, 2, 32, 128, 32),
     (1, 511, 2, 64, 128, 256), (1, 513, 2, 64, 128, 256),
-    (2, 767, 3, 32, 64, 256), (1, 1025, 2, 16, 32, 256)])
+    (2, 767, 3, 32, 64, 256), (1, 1025, 2, 16, 32, 256),
+    (8, 512, 128, 64, 16, 256)])
 def test_ssd_kernel_matches_plain(card, b, S, h, P, N, chunk):
     """y and h_final of the kernel against ``ref.ssd_chunked`` on the same
     card inputs (TF32 off): every P and N the kernel takes, chunks of 16
     to 256, S shorter than, not a multiple of (k * 256 +- 1 among them)
-    and a multiple of the chunk; the state before each chunk (the
+    and a multiple of the chunk, and jamba-v0.1-52b's static prefill
+    layer (b 8, S 512, 128 heads, P 64, N 16); the state before each chunk (the
     workspace after the state pass) against ``ref.state_pass``.  Both
     compute in fp32 grade (the kernel in 3xTF32) and differ in summation
     order: 2e-3, the JAX kernel test's tolerance.  A second launch gives
@@ -1174,3 +1185,74 @@ def test_int8_moe_decode_forward_launch_count(card):
     assert wq_kernel.wq_gemm.launches - before == \
         cfg.n_layers * (4 + 3 * cfg.moe.num_experts) + 1
     assert bool(torch.isfinite(logits).all())
+
+
+# ---------------------------------------------------------------------------
+# the hybrid slice: jamba-v0.1-52b's shapes, the hybrid engines
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M,K,N", [
+    (8, 4096, 14336), (8, 14336, 4096), (640, 4096, 14336),
+    (640, 14336, 4096), (8, 4096, 16), (4096, 4096, 16), (8, 4096, 128),
+    (4096, 4096, 128)])
+def test_wq_gemm_kernel_at_jamba_shapes(card, M, K, N, x_dtype):
+    """jamba-v0.1-52b's int8 products, weights at the initializer's scale:
+    an expert's gate / up (4096 -> 14336) and down at decode (M 8) and at
+    the static prefill (M 640: 8 rows x capacity 80), and the mamba B / C
+    (N 16) and dt (N 128) projections at decode and at the static prefill
+    (M 8 x 512).  fp32 out within 2e-4 of the plain version (the JAX
+    test's tolerance), bf16 x (served) and fp32 x (the parity checks')."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device=card).manual_seed(M + K + N)
+    x = torch.randn((M, K), generator=g, device=card).to(x_dtype)
+    q, s = wq_ref.quantize(torch.randn((K, N), generator=g, device=card)
+                           * K ** -0.5)
+    got = _counted(wq_kernel.wq_gemm, lambda: wq_ops.wq_gemm(
+        x, q, s, out_dtype=torch.float32))
+    want = wq_ref.wq_gemm(x, q, s, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_hybrid_engines_on_card_match_cpu(card):
+    """Reduced jamba-v0.1-52b (one period: 1 attention and 7 mamba layers,
+    MoE on 4) at head_dim 64, fp32, as the dense test above: the
+    attention kernels once a forward, the SSD kernel 7 times a static
+    prefill."""
+    _engines_card_vs_cpu(card, reduced_config("jamba-v0.1-52b",
+                                              head_dim=64))
+
+
+def test_int8_hybrid_engines_on_card_match_cpu(card):
+    """Reduced jamba-v0.1-52b quantized to int8, fp32 x: greedy tokens of
+    the continuous and the static engine equal on the card and on the CPU
+    (and each other's); every forward on the card launches the int8 GEMM
+    107 times (4 + 3 attention, 7 x 6 mamba, 3 x 3 dense MLP and 4 x 3 x
+    4 expert products, the unembed: the formula phase 6h holds the full
+    width to, 1001)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("jamba-v0.1-52b", head_dim=64)
+    params = quantize_params(LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)))
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
+    gens = [5, 4, 6]
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        model = LM(cfg, device=dev)
+        p = _to(params, dev)
+        before = wq_kernel.wq_gemm.launches
+        eng = ContinuousBatchingEngine(model, p, n_slots=2, max_len=32,
+                                       page_size=8, prefill_chunk=4,
+                                       page_budget=4)
+        rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+        res = eng.run()
+        static = StaticBatchEngine(model, p, max_len=32, batch=1)
+        st = [static.generate(pr[None], g)[0].tolist()
+              for pr, g in zip(prompts, gens)]
+        forwards = eng.stats.summary()["forwards"] + sum(gens)
+        assert wq_kernel.wq_gemm.launches - before == (
+            107 * forwards if dev.type == "cuda" else 0)
+        cont = [res[r].tolist() for r in rids]
+        assert cont == st
+        outs.append(cont)
+    assert outs[0] == outs[1]

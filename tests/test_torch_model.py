@@ -204,6 +204,6 @@ def test_unported_modes_and_families_raise():
     assert cache["pos"].tolist() == [3]
     assert cache["k"][:, :, :3].abs().sum() > 0
     assert cache["k"][:, :, 3:].abs().sum() == 0
-    hybrid = dataclasses.replace(get_config("granite-3-2b"), family="hybrid")
+    vlm = dataclasses.replace(get_config("granite-3-2b"), family="vlm")
     with pytest.raises(NotImplementedError):
-        LM(hybrid, device="cpu")
+        LM(vlm, device="cpu")

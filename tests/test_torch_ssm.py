@@ -117,12 +117,12 @@ def test_mamba_layer_matches_jax(ssm, mode):
     jy, jst, _ = jax_blocks.mamba_layer(
         jp, jnp.asarray(x), jmodel.cfg, mode=mode, state=jstate,
         n_valid=None if nv is None else jnp.asarray(nv))
-    y, st = blocks.mamba_layer(
+    y, st, aux = blocks.mamba_layer(
         params["stack"][1], torch.from_numpy(x), cfg, mode=mode,
         state=state, n_valid=None if nv is None else torch.from_numpy(nv))
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **TOL)
     if mode == "train":
-        assert st is None
+        assert st is None and float(aux) == 0.0
     else:
         got = state if mode == "decode" else st
         for k in ("h", "conv"):
