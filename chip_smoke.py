@@ -18,7 +18,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              LDGSTS required: the take kernel's bulk-copied ring).
 3. kernel  — the paged-attention kernel against its plain PyTorch version
              on the card, at granite-3-2b (H 64), qwen3-1.7b (H 128),
-             phi3-medium-14b (10 KV heads) and grok-1-314b (G 6) shapes:
+             phi3-medium-14b (10 KV heads), grok-1-314b (G 6),
+             whisper-base (G 1, H 64) and llama-3.2-vision-90b (G 8, H
+             128) shapes:
              decode (Sq 1) and a prefill chunk (Sq 32), ragged
              kv_valid (0, 1, page boundaries, partial last pages, full),
              identity and permuted page maps, without and with softcap 30
@@ -110,7 +112,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              cost), and jamba-v0.1-52b's expert products (4096 -> 14336
              and back at M 8 and M 640; its mamba B / C and dt
              projections, N 16 and 128 at M 8 and 4096, are checked
-             only), bf16 x: kernel, plain, library (bf16 torch.matmul of
+             only), and llama-3.2-vision-90b's MLP (8192 -> 28672 and
+             back) and (N, K) unembed (8192 -> 128256) at M 8 and its
+             cross K/V install (M 1601, 8192 -> 1024), bf16 x: kernel, plain, library (bf16 torch.matmul of
              the same weights dequantized beforehand, a call the port
              never makes) and bound (int8
              weights, x and y once at the memory rate, or the operations at
@@ -126,9 +130,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              strided view in every other case; queries with no valid key
              exactly 0.  Timed at qwen3-1.7b's static decode (B 8, S_cache
              2088, kv_valid 2080, 16/8 heads, H 128), granite-3-2b's 6c
-             shape (B 8, 552, 520, 32/8, H 64), qwen3's at 64 slots, and
+             shape (B 8, 552, 520, 32/8, H 64), qwen3's at 64 slots,
              the 6f and 6g shapes (B 8, 552, 520: 48/8 and 40/10, H 128),
-             bf16: kernel, plain, library (F.scaled_dot_product_attention
+             and the cross-attention decode over installed K/V, every key
+             valid (6i: B 8, 1601 image tokens, 64/8 heads of 128; 6j: B
+             8, 1500 frames, 8/8 of 64; each at Sq 1 and 32), bf16: kernel, plain, library (F.scaled_dot_product_attention
              with the valid-length mask on the dense cache laid out heads
              first, a call the port never makes) and bound, with the KV
              split the wrapper launched (kernel.decode_plan), and the
@@ -161,7 +167,17 @@ Phases (one line each; any failure exits nonzero and prints no result):
              the same mix and engines: tokens identical, the attention
              kernels once a forward as above, the SSD kernel 7 times a
              static prefill and never in the continuous engine, the int8
-             GEMM 107 times a forward in int8.
+             GEMM 107 times a forward in int8.  Then the cross-attention
+             families: reduced llama-3.2-vision-90b (one period: 4
+             attention layers and the gated cross layer over 16 image
+             tokens, G 4) and whisper-base (2 encoder and 2 decoder
+             layers over 24 frames, G 1), H 64, every gate_attn 0.5, fp32
+             and int8, on the same mix with a stub context a request:
+             tokens identical; the cross layers' decode one flash-decode
+             launch each a forward, the self-attention layers as above;
+             in int8 the GEMM's launches a forward, a static prefill (the
+             context's K/V and the encoder too) and an admission's
+             install, each counted from the config.
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
@@ -241,6 +257,26 @@ Phases (one line each; any failure exits nonzero and prints no result):
              (recurrence) forward, in bf16 and in fp32 (one period at
              full width): argmaxes alike, the logits' difference and the
              top-2 gap (all reported only).
+6i. serve-vlm — llama-3.2-vision-90b at full width (64/8 heads of 128,
+             d_ff 28672, 1601 image tokens) cut to 10 of its 100 layers (2
+             periods of 4 attention layers and a gated cross layer), int8
+             drawn layer by layer, every gate_attn set to 1.0 after the
+             draw (test data): (a) static 8 x 512 + 32 through
+             ``launch.serve.run`` with its stub image embeds (the decode
+             through the flash-decode kernel, 8 self and 2 cross launches
+             a forward); (b) 8 requests drawn as phase 6's, a stub image
+             each, through the paged kernel (self) and the flash-decode
+             kernel (cross); one decode forward launches the int8 GEMM 67
+             times and one install 4, checked; the int8 tree (10.66 GB;
+             all 100 layers reckoned on the meta device) under 11.5 GB and
+             the peak after init under 20 GB; the CUDA-event ms of one
+             admission's install.
+6j. serve-audio — whisper-base whole in bf16 (6 encoder and 6 decoder
+             layers, 8/8 heads of 64, 1500 frames): (a) static 8 x 128 +
+             64 over stub frames through ``launch.serve.run``; (b) 16
+             requests at phase 6's mix, stub frames each; the launches a
+             decode forward (6 self and 6 cross flash-decode), and the
+             CUDA-event ms of one install and of the encoder in it.
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -331,6 +367,9 @@ from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.data import SyntheticLMStream  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
+from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models.decode_state import (  # noqa: E402
+    get_adapter, stub_context)
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.quant import matmul_q, quantize_params  # noqa: E402
 from repro_torch.models.quant import param_bytes as quant_bytes  # noqa: E402
@@ -339,7 +378,7 @@ from repro_torch.train import init_train_state, make_train_step  # noqa: E402
 from repro_torch.train.parity import card_step_matches_cpu  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.quantum import gates  # noqa: E402
-from repro_torch.perf.measure import measure_group  # noqa: E402
+from repro_torch.perf.measure import measure, measure_group  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     ContinuousBatchingEngine, StaticBatchEngine)
 
@@ -455,6 +494,21 @@ HYBRID_INT8_MAX_GB = 53.0
 HYBRID_INIT_PEAK_MAX_GB = 70.0
 # (c)'s prompts: 8 of this length through both engines, this many new
 HYBRID_SHARE = dict(prompt_len=64, gen_len=16)
+# the cross-attention families: llama-3.2-vision-90b at full width in
+# int8, cut to VLM_LAYERS of its 100 layers (6i; the continuous run's
+# gate_attn set to VLM_GATE), static at MOE_STATIC and 8 requests drawn as
+# phase 6's; whisper-base whole in bf16 (6j), static at AUDIO_STATIC and
+# 16 requests at phase 6's mix.  The bounds 6i's int8 tree and its peak
+# after init must stay under
+VLM_ARCH = "llama-3.2-vision-90b"
+VLM_LAYERS = 10
+VLM_GATE = 1.0
+VLM_INT8_MAX_GB = 11.5
+# its d_model, d_ff, padded vocabulary, image tokens and K/V width
+VLM_D, VLM_FF, VLM_V, VLM_IMAGE, VLM_KV = 8192, 28672, 128256, 1601, 1024
+VLM_INIT_PEAK_MAX_GB = 20.0
+AUDIO_ARCH = "whisper-base"
+AUDIO_STATIC = dict(slots=8, prompt_len=128, gen_len=64)
 
 
 def reset_launches(names):
@@ -655,9 +709,11 @@ def phase_kernel(card, hw):
     dev = torch.device("cuda")
     base = [0, 1, 16, 37, 256, 511, 777, 1024]       # ragged, 8 slots
     # (arch, NKV, G, H): the served configs' head groups; phi3-medium's 10
-    # KV heads (B x NKV = 80, not a power of two) and grok-1's G 6
+    # KV heads (B x NKV = 80, not a power of two), grok-1's G 6, whisper's
+    # G 1 (MHA) and llama-3.2-vision's G 8
     shapes = [("granite", 8, 4, 64), ("qwen3", 8, 2, 128),
-              ("phi3-medium", 10, 4, 128), ("grok-1", 8, 6, 128)]
+              ("phi3-medium", 10, 4, 128), ("grok-1", 8, 6, 128),
+              ("whisper", 8, 1, 64), ("llama-vision", 8, 8, 128)]
     cases = []
     for arch, NKV, G, H in shapes:
         for sq in (1, 32):
@@ -1645,6 +1701,10 @@ def kernels_wq(g, hw, card):
         cases += [(M, MOE_D, HYBRID_FF, False), (M, HYBRID_FF, MOE_D, False)]
     cases += [(M, MOE_D, n, False) for M in (8, 4096)
               for n in HYBRID_MAMBA_N]
+    # llama-3.2-vision-90b's MLP and unembed at decode (M 8) and its cross
+    # K/V install over 1601 image tokens (8192 -> 1024)
+    cases += [(8, VLM_D, VLM_FF, False), (8, VLM_FF, VLM_D, False),
+              (8, VLM_D, VLM_V, True), (VLM_IMAGE, VLM_D, VLM_KV, False)]
     worst, n = 0.0, 0
     for M, K, N, transposed in cases:
         for x_dtype in (torch.float32, torch.bfloat16):
@@ -1680,6 +1740,13 @@ def kernels_wq(g, hw, card):
                   False, worst)
         _wq_timed(g, hw, card, f"jamba expert {where} down", M, HYBRID_FF,
                   MOE_D, False, worst)
+    torch.cuda.empty_cache()
+    for what, M, K, N, transposed in (
+            ("llama-3.2-vision decode", 8, VLM_D, VLM_FF, False),
+            ("llama-3.2-vision decode", 8, VLM_FF, VLM_D, False),
+            ("llama-3.2-vision decode unembed", 8, VLM_D, VLM_V, True),
+            ("llama-3.2-vision install", VLM_IMAGE, VLM_D, VLM_KV, False)):
+        _wq_timed(g, hw, card, what, M, K, N, transposed, worst)
     torch.cuda.empty_cache()
     # fp32 x, the reduced configurations' and the parity checks' path, at
     # the decode shapes
@@ -1774,18 +1841,37 @@ DECODE_TOL = {torch.float32: (2e-4, 2e-4), torch.bfloat16: (8e-3, 1e-4)}
 DECODE_S = 1040            # the check grid's cache: 32.5 tiles of 32 keys
 # rows: no valid key, one, a tile edge, ragged, the whole cache
 DECODE_VALID = (0, 1, 32, 1000, DECODE_S)
-# (what, B, S_cache, kv_valid, NQ, NKV, H): the static engine's decode at
-# phase 6d (qwen3-1.7b, 8 x 2048 prompt tokens + 32 new: the cache holds
-# 2088) and at phase 6c (granite-3-2b, 8 x 512 + 32: 552), bf16; then
-# qwen3's at 64 slots, whose 512 blocks fill the card (8 slots give 64
-# blocks on 132 SMs: what that costs)
-DECODE_TIMED = (("qwen3-1.7b static decode", 8, 2088, 2080, 16, 8, 128),
-                ("granite-3-2b 6c static decode", 8, 552, 520, 32, 8, 64),
+# (what, B, S_cache, kv_valid, NQ, NKV, H, Sq): the static engine's decode
+# at phase 6d (qwen3-1.7b, 8 x 2048 prompt tokens + 32 new: the cache
+# holds 2088) and at phase 6c (granite-3-2b, 8 x 512 + 32: 552), bf16;
+# then qwen3's at 64 slots, whose 512 blocks fill the card (8 slots give
+# 64 blocks on 132 SMs: what that costs); then the cross-attention decode
+# over installed K/V, every key valid and the capacity off the 32-token
+# tile (the last split ends in a partial tile): llama-3.2-vision's 1601
+# image tokens (64/8 heads of 128) and whisper's 1500 frames (8/8 of 64),
+# at a decode step (8 slots, Sq 1), at the continuous engine's prefill
+# chunk (``_prefill_row``: one slot, 32 columns) and at 8 rows of 32
+# columns (a check shape: no path launches it)
+DECODE_TIMED = (("qwen3-1.7b static decode", 8, 2088, 2080, 16, 8, 128, 1),
+                ("granite-3-2b 6c static decode", 8, 552, 520, 32, 8, 64,
+                 1),
                 ("qwen3-1.7b decode at 64 slots", 64, 2088, 2080, 16, 8,
-                 128),
-                ("grok-1 6f static decode", 8, 552, 520, 48, 8, 128),
+                 128, 1),
+                ("grok-1 6f static decode", 8, 552, 520, 48, 8, 128, 1),
                 ("phi3-medium-14b 6g static decode", 8, 552, 520, 40, 10,
-                 128))
+                 128, 1),
+                ("llama-3.2-vision 6i cross decode", 8, 1601, 1601, 64, 8,
+                 128, 1),
+                ("llama-3.2-vision 6i(b) cross prefill chunk", 1, 1601,
+                 1601, 64, 8, 128, 32),
+                ("llama-3.2-vision cross 8 x 32 columns (not launched)", 8,
+                 1601, 1601, 64, 8, 128, 32),
+                ("whisper-base 6j cross decode", 8, 1500, 1500, 8, 8, 64,
+                 1),
+                ("whisper-base 6j(b) cross prefill chunk", 1, 1500, 1500,
+                 8, 8, 64, 32),
+                ("whisper-base cross 8 x 32 columns (not launched)", 8,
+                 1500, 1500, 8, 8, 64, 32))
 
 
 DECODE_SWEEP = (1, 2, 4, 8)     # forced split counts, beside the plan's
@@ -1816,8 +1902,8 @@ def kernels_flash_decode(g, hw, card):
     """The flash-decode kernel against ref.flash_decode on the same card
     inputs, every case of ``_decode_cases`` over the DECODE_VALID rows, the
     cache a strided view (every other row of a wider one) in every other
-    case; queries with no valid key exactly 0.  Then timed at the two
-    static decode shapes."""
+    case; queries with no valid key exactly 0.  Then checked and timed
+    at the DECODE_TIMED shapes."""
     dev = torch.device("cuda")
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     B = len(DECODE_VALID)
@@ -1851,12 +1937,12 @@ def kernels_flash_decode(g, hw, card):
                                f"{worst[torch.float32]:.2e}, bf16 "
                                f"{worst[torch.bfloat16]:.2e}")
     recs = []
-    for what, B, S, valid, NQ, NKV, H in DECODE_TIMED:
+    for what, B, S, valid, NQ, NKV, H, Sq in DECODE_TIMED:
         q, k, v = (torch.randn(shape, generator=g, device=dev,
                                dtype=torch.bfloat16)
-                   for shape in ((B, 1, NQ, H), (B, S, NKV, H),
+                   for shape in ((B, Sq, NQ, H), (B, S, NKV, H),
                                  (B, S, NKV, H)))
-        lens = torch.full((B, 1), valid, dtype=torch.int32, device=dev)
+        lens = torch.full((B, Sq), valid, dtype=torch.int32, device=dev)
         want = fa_ref.flash_decode(q, k, v, lens)
         err = check(f"{what} shape", fa_kernel.flash_decode(q, k, v, lens)
                     .float(), want.float(), *DECODE_TOL[torch.bfloat16])
@@ -1874,9 +1960,9 @@ def kernels_flash_decode(g, hw, card):
         # the valid K/V once, q and out, the lengths; QK^T and PV
         nbytes = 2.0 * B * valid * NKV * H * 2 + 2.0 * q.numel() * 2 \
             + lens.numel() * 4
-        flops = 4.0 * B * valid * NQ * H
-        name = (f"flash_decode {what}: B{B} S_cache {S} kv_valid {valid} "
-                f"{NQ}/{NKV} heads H{H} bf16")
+        flops = 4.0 * B * Sq * valid * NQ * H
+        name = (f"flash_decode {what}: B{B} Sq{Sq} S_cache {S} kv_valid "
+                f"{valid} {NQ}/{NKV} heads H{H} bf16")
         recs.append(timed_record(name, {
             "kernel": lambda q=q, k=k, v=v, lens=lens:
                 fa_kernel.flash_decode(q, k, v, lens),
@@ -1886,7 +1972,7 @@ def kernels_flash_decode(g, hw, card):
             flops, nbytes, torch.bfloat16, hw, card, err,
             "kernels-serve-dense"))
         plan = fa_kernel.decode_plan(
-            B, 1, NQ, NKV, H, S, 2,
+            B, Sq, NQ, NKV, H, S, 2,
             torch.cuda.get_device_properties(0).multi_processor_count)
         # the sweep the plan's rule is read against, timed interleaved
         fns = {f"s{n}": (lambda n=n, q=q, k=k, v=v, lens=lens:
@@ -1968,6 +2054,7 @@ def phase_parity():
     parity_int8()
     parity_dense()
     parity_hybrid()
+    parity_cross()
 
 
 def engine_tokens(cfg, params_cpu, device, prompts, gens, wrapper):
@@ -2073,21 +2160,32 @@ PARITY_KERNELS = ("flash_decode", "paged_partials", "ssd_scan", "wq_gemm")
 
 def _engine_parity(cfg, params, *, int8=False):
     """tests/test_serve_families.py's mix (2 slots, page 8, chunk 4, a
-    4-page budget: a preemption, a mid-run admission) through the
-    continuous engine with the paged kernel off and on, and through the
-    static engine, on the card and on the CPU: every run's greedy tokens
-    identical.  On the card, with it off the flash-decode kernel launches
-    once an attention layer a forward and the paged kernel never, with
-    it on the reverse; the static decode steps launch the flash-decode
-    kernel only, the static prefills the SSD kernel once a mamba layer
-    (the continuous engine prefills through the recurrence: none); with
-    ``int8`` the int8 GEMM ``int8_per_forward`` times a forward.  On the
-    CPU none launches.  Returns (the tokens, the card's counts)."""
+    4-page budget and the pages a context pins: a preemption, a mid-run
+    admission; a cross-attention family's requests each with a stub
+    context drawn as the test's) through the continuous engine with the
+    paged kernel off and on, and through the static engine, on the card
+    and on the CPU: every run's greedy tokens identical.  On the card,
+    with it off the flash-decode kernel launches once an attention layer
+    a forward and the paged kernel never, with it on the paged kernel
+    once a self-attention layer; a cross layer's decode is one
+    flash-decode launch either way (the static prefill attends to the
+    context itself: none); the static decode steps launch the
+    flash-decode kernel only, the static prefills the SSD kernel once a
+    mamba layer (the continuous engine prefills through the recurrence:
+    none); with ``int8`` the int8 GEMM ``int8_per_forward`` times a
+    forward (a static prefill's count its own) and ``int8_per_install``
+    times an admission.  On the CPU none launches.  Returns (the tokens,
+    the card's counts)."""
     rng = np.random.default_rng(2)
     prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
     gens = [5, 4, 6]
-    attn, mamba = attn_layers(cfg), mamba_layers(cfg)
+    extras = [stub_context(cfg, rng, scale=0.05) for _ in prompts]
+    attn, cross, mamba = attn_layers(cfg), cross_layers(cfg), \
+        mamba_layers(cfg)
     per = int8_per_forward(cfg) if int8 else 0
+    per_prefill = int8_per_forward(cfg, prefill=True) if int8 else 0
+    per_install = int8_per_install(cfg) if int8 else 0
+    aux = -(-get_adapter(cfg.family).context_tokens(cfg) // 8)
     outs, counts = {}, []
 
     def require(what, device, want):
@@ -2108,8 +2206,10 @@ def _engine_parity(cfg, params, *, int8=False):
             reset_launches(PARITY_KERNELS)
             eng = ContinuousBatchingEngine(
                 model, p, n_slots=2, max_len=32, page_size=8,
-                prefill_chunk=4, page_budget=4, paged_kernel=paged)
-            rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+                prefill_chunk=4, page_budget=4 + 2 * aux,
+                paged_kernel=paged)
+            rids = [eng.submit(pr, g, extra=e)
+                    for pr, g, e in zip(prompts, gens, extras)]
             out = eng.run()
             reqs = eng.requests()
             if not (sum(r.n_preemptions for r in reqs) >= 1
@@ -2118,18 +2218,22 @@ def _engine_parity(cfg, params, *, int8=False):
                                  f"preemption or no mid-run admission")
             fwd = eng.stats.forwards
             require(f"paged_kernel={paged} ({fwd} forwards)", device, {
-                "flash_decode": 0 if paged else attn * fwd,
+                "flash_decode": (cross if paged else attn + cross) * fwd,
                 "paged_partials": attn * fwd if paged else 0,
-                "ssd_scan": 0, "wq_gemm": per * fwd})
+                "ssd_scan": 0,
+                "wq_gemm": per * fwd + per_install * _admissions(eng)})
             outs[device, paged] = [out[r].tolist() for r in rids]
         reset_launches(PARITY_KERNELS)
         static = StaticBatchEngine(model, p, max_len=32, batch=1)
-        outs[device, "static"] = [static.generate(pr[None], g)[0].tolist()
-                                  for pr, g in zip(prompts, gens)]
+        outs[device, "static"] = [
+            static.generate(pr[None], g, extra=None if e is None else
+                            {k: v[None] for k, v in e.items()})[0].tolist()
+            for pr, g, e in zip(prompts, gens, extras)]
+        decode_fwd = sum(g - 1 for g in gens)
         require("static", device, {
-            "flash_decode": attn * sum(g - 1 for g in gens),
+            "flash_decode": (attn + cross) * decode_fwd,
             "paged_partials": 0, "ssd_scan": mamba * len(prompts),
-            "wq_gemm": per * sum(gens)})
+            "wq_gemm": per_prefill * len(prompts) + per * decode_fwd})
     first = outs["cuda", False]
     if not all(o == first for o in outs.values()):
         raise SystemExit(f"{cfg.arch_id} engine parity: greedy tokens "
@@ -2181,6 +2285,50 @@ def parity_hybrid():
                       f"{'; '.join(counts)}")
 
 
+def set_gates(params, value):
+    """Every cross layer's ``gate_attn`` set to ``value``, in place (test
+    data: at its zero init tanh(0) drops the cross path from the output,
+    so the context would not matter)."""
+    if isinstance(params, list):
+        for p in params:
+            set_gates(p, value)
+    elif isinstance(params, dict):
+        for k, v in params.items():
+            if k == "gate_attn":
+                v.fill_(value)
+            else:
+                set_gates(v, value)
+    return params
+
+
+def parity_cross():
+    """Reduced llama-3.2-vision-90b (one period: 4 attention layers and
+    the gated cross layer over 16 image tokens; G 4) and whisper-base (2
+    encoder and 2 decoder layers over 24 audio frames; G 1, its
+    cross-attention ungated), at H 64, every gate_attn set to 0.5,
+    through ``_engine_parity`` in fp32 and then quantized to int8 on the
+    CPU."""
+    for arch in (VLM_ARCH, AUDIO_ARCH):
+        cfg = reduced_config(arch, head_dim=64)
+        params = set_gates(LM(cfg, device="cpu").init_params(
+            torch.Generator(device="cpu").manual_seed(0)), 0.5)
+        for int8 in (False, True):
+            first, counts = _engine_parity(
+                cfg, quantize_params(params) if int8 else params, int8=int8)
+            log("parity", f"reduced {arch} {'int8' if int8 else 'fp32'} "
+                          f"(H 64, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+                          f"{attn_layers(cfg)} self-attention and "
+                          f"{cross_layers(cfg)} cross layers"
+                          f"{', gate_attn 0.5' if cfg.cross_attn_period else ''}"
+                          f"): {sum(map(len, first))} greedy tokens "
+                          f"identical, continuous paged_kernel=False = "
+                          f"True = static, card = CPU, over 3 requests with "
+                          f"contexts (a preemption and its re-install, a "
+                          f"mid-run admission); card launches (flash_decode "
+                          f"/ paged_partials / ssd_scan / wq_gemm) "
+                          f"{'; '.join(counts)}")
+
+
 def parity_train_step():
     """One train step of reduced qwen3-1.7b (fp32, H 32, flash kernel on
     the card, its plain version on the CPU) through
@@ -2203,26 +2351,68 @@ def parity_train_step():
 SERVE_KERNELS = ("wq_gemm", "flash_decode", "paged_partials", "ssd_scan")
 
 
+def cross_layers(cfg) -> int:
+    """Cross-attention layers: the vlm's one a period, one an audio
+    decoder layer."""
+    if cfg.cross_attn_period:
+        return cfg.n_layers // cfg.cross_attn_period
+    return cfg.n_layers if cfg.is_encdec else 0
+
+
 def attn_layers(cfg) -> int:
-    return sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    """Self-attention layers (not the vlm's cross layers)."""
+    n = sum(cfg.layer_kind(i) == "attn" for i in range(cfg.n_layers))
+    return n - cross_layers(cfg) if cfg.cross_attn_period else n
 
 
 def mamba_layers(cfg) -> int:
-    return cfg.n_layers - attn_layers(cfg)
+    return sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
 
 
-def int8_per_forward(cfg) -> int:
+def _ffn_packs(cfg, i) -> int:
+    if cfg.layer_uses_moe(i):
+        return 3 * cfg.moe.num_experts
+    if not cfg.d_ff:
+        return 0
+    return 2 if cfg.mlp_type == "gelu" else 3
+
+
+def int8_per_forward(cfg, prefill: bool = False) -> int:
     """int8 GEMM launches a forward: a layer's 4 attention packs or 6
-    mamba projections, then 3 an expert (an MoE layer) or 3 (a dense
-    MLP; an ssm layer has none), then the unembed."""
+    mamba projections (the vlm's cross layer none), its cross-attention's
+    wq and wo (with ``prefill``, wk and wv of the context too: 4), then
+    3 an expert (an MoE layer), 3 (a SwiGLU MLP) or 2 (GELU; an ssm
+    layer has none), then the unembed; with ``prefill`` an enc-dec's
+    encoder layers too.  Decode mode, the continuous engine's every
+    forward, projects no context."""
+    xattn = 4 if prefill else 2
+    per = cfg.cross_attn_period
     n = 1
     for i in range(cfg.n_layers):
-        n += 4 if cfg.layer_kind(i) == "attn" else 6
-        if cfg.layer_uses_moe(i):
-            n += 3 * cfg.moe.num_experts
-        elif cfg.d_ff:
-            n += 3
+        if per and i % per == per - 1:
+            n += xattn
+        else:
+            n += 4 if cfg.layer_kind(i) == "attn" else 6
+            n += xattn if cfg.is_encdec else 0
+        n += _ffn_packs(cfg, i)
+    if prefill and cfg.is_encdec:
+        n += cfg.n_encoder_layers * (4 + _ffn_packs(cfg, 0))
     return n
+
+
+def int8_per_install(cfg) -> int:
+    """int8 GEMM launches of one admission's context install: each cross
+    layer's wk and wv over the context, after the encoder (audio)."""
+    n = 2 * cross_layers(cfg)
+    if cfg.is_encdec:
+        n += cfg.n_encoder_layers * (4 + _ffn_packs(cfg, 0))
+    return n
+
+
+def _admissions(eng) -> int:
+    """Admissions of an engine's run, re-admissions after preemption
+    included: each installs its request's context once."""
+    return sum(1 + r.n_preemptions for r in eng.requests())
 
 
 def _served_cfg(arch, layers=None):
@@ -2230,34 +2420,38 @@ def _served_cfg(arch, layers=None):
                                else {"n_layers": layers}))
 
 
-def serve_static(phase, arch, card, *, int8, layers=None):
-    """``launch.serve.run(static=True)`` at MOE_STATIC (8 x 512 + 32): the
-    decode through the flash-decode kernel (one launch an attention layer
-    and decode forward, none in the prefill), the paged kernel never, the
-    SSD kernel once a mamba layer (the prefill), the int8 GEMM
-    ``int8_per_forward`` x the forwards with ``int8`` (else never).
-    Returns the launches of SERVE_KERNELS, and the bytes of the served
-    tree and the peak after init in GiB."""
+def serve_static(phase, arch, card, *, int8, layers=None,
+                 shape=MOE_STATIC):
+    """``launch.serve.run(static=True)`` at ``shape`` (MOE_STATIC: 8 x 512
+    + 32): the decode through the flash-decode kernel (one launch an
+    attention layer, cross layers included, and decode forward; none in
+    the prefill), the paged kernel never, the SSD kernel once a mamba
+    layer (the prefill), the int8 GEMM ``int8_per_forward`` a forward
+    with ``int8`` (else never).  A cross-attention family's batched stub
+    context is the launcher's.  Returns the launches of SERVE_KERNELS, and
+    the result's ``param_bytes``, ``init_peak_gib`` and ``peak_gib``."""
     cfg = _served_cfg(arch, layers)
     torch.cuda.empty_cache()
     reset_launches(SERVE_KERNELS)
     res = launch_serve.run(arch, static=True, int8=int8, layers=layers,
-                           **MOE_STATIC)
+                           **shape)
     got = {n: launches_of(n) for n in SERVE_KERNELS}
     decode_fwd = res["forwards"] - 1
-    attn = attn_layers(cfg)
-    want = {"wq_gemm": int8_per_forward(cfg) * res["forwards"] if int8
-            else 0, "flash_decode": attn * decode_fwd,
+    attn = attn_layers(cfg) + cross_layers(cfg)
+    per = int8_per_forward(cfg) if int8 else 0
+    per_prefill = int8_per_forward(cfg, prefill=True) if int8 else 0
+    want = {"wq_gemm": per_prefill + per * decode_fwd,
+            "flash_decode": attn * decode_fwd,
             "paged_partials": 0, "ssd_scan": mamba_layers(cfg)}
     if got != want:
         raise SystemExit(f"{phase} {arch} static: launches {got}, expected "
                          f"{want}")
-    _check_tokens(f"{arch} static", res["tokens"], MOE_STATIC["gen_len"],
+    _check_tokens(f"{arch} static", res["tokens"], shape["gen_len"],
                   cfg.padded_vocab)
     cut = "" if layers is None else f", cut to {layers} layers"
     log(phase, f"(a) {arch} {'int8' if int8 else 'bf16'} full width{cut}, "
                f"StaticBatchEngine via launch.serve.run: "
-               f"{MOE_STATIC['slots']} x {MOE_STATIC['prompt_len']} prompt "
+               f"{shape['slots']} x {shape['prompt_len']} prompt "
                f"tokens, {res['generated_tokens']} tokens | prefill "
                f"{res['prefill_ms']:.3f} ms, decode step p50 "
                f"{res['step_ms_p50']:.3f} ms, {res['tokens_per_s']:.1f} "
@@ -2266,12 +2460,13 @@ def serve_static(phase, arch, card, *, int8, layers=None):
                f"{res['init_param_bytes'] / 1e9:.3f} GB, reckoned"
                f"{', never allocated' if int8 else ''}), peak after init "
                f"{res['init_peak_gib']:.2f} GiB | launches wq_gemm "
-               f"{got['wq_gemm']} = {int8_per_forward(cfg) if int8 else 0} "
-               f"x {res['forwards']} forwards, flash_decode "
+               f"{got['wq_gemm']} = {per_prefill} + {per} x {decode_fwd} "
+               f"forwards, flash_decode "
                f"{got['flash_decode']} = {attn} x {decode_fwd} decode "
                f"forwards, paged_partials 0, ssd_scan {got['ssd_scan']} | "
                f"peak serving {res['peak_gib']:.2f} GiB | {card}")
-    sizes = res["param_bytes"], res["init_peak_gib"]
+    sizes = {k: res[k] for k in ("param_bytes", "init_peak_gib",
+                                 "peak_gib")}
     del res
     torch.cuda.empty_cache()
     return got, sizes
@@ -2281,19 +2476,23 @@ def serve_mix(phase, model, params, n_req, card, *, int8,
               paged_kernel=True):
     """The ContinuousBatchingEngine at phase 6's request mix (``n_req``
     requests of 32-256 prompt tokens, 32 new; ``paged_kernel`` as the
-    engine's): the paged
-    kernel (or with ``paged_kernel=False`` the flash-decode kernel) one
-    launch an attention layer and forward and the other never, the SSD
-    kernel never (a recurrent prefill runs token by token), the int8 GEMM
-    ``int8_per_forward`` a forward with ``int8``.  Returns (the launches
-    of SERVE_KERNELS, the engine, each request's tokens)."""
+    engine's; a cross-attention family's requests each with a stub
+    context): the paged kernel (or with ``paged_kernel=False`` the
+    flash-decode kernel) one launch a self-attention layer and forward
+    and the other never, the flash-decode kernel one a cross layer and
+    forward, the SSD kernel never (a recurrent prefill runs token by
+    token), the int8 GEMM ``int8_per_forward`` a forward and
+    ``int8_per_install`` an admission with ``int8``.  Returns (the
+    launches of SERVE_KERNELS, the engine, each request's tokens)."""
     cfg = model.cfg
     eng = ContinuousBatchingEngine(model, params, paged_kernel=paged_kernel,
                                    **MIX)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
                for n in rng.integers(32, 257, size=n_req)]
-    rids = [eng.submit(p, MIX_NEW) for p in prompts]
+    ctx_rng = np.random.default_rng(1)
+    rids = [eng.submit(p, MIX_NEW, extra=stub_context(cfg, ctx_rng))
+            for p in prompts]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(SERVE_KERNELS)
@@ -2311,10 +2510,15 @@ def serve_mix(phase, model, params, n_req, card, *, int8,
                   cfg.padded_vocab)
     st = eng.stats.summary()
     fwd = st["forwards"]
-    # attention launches: one an attention layer and forward
-    attn = attn_layers(cfg) * fwd
-    want = {"wq_gemm": int8_per_forward(cfg) * fwd if int8 else 0,
-            "flash_decode": 0 if paged_kernel else attn,
+    # attention launches: one a self-attention layer and forward, the
+    # paged kernel's or the flash-decode kernel's; one a cross layer and
+    # forward, the flash-decode kernel's
+    attn, cross = attn_layers(cfg) * fwd, cross_layers(cfg) * fwd
+    admitted = _admissions(eng)
+    per = int8_per_forward(cfg) if int8 else 0
+    per_install = int8_per_install(cfg) if int8 else 0
+    want = {"wq_gemm": per * fwd + per_install * admitted,
+            "flash_decode": cross + (0 if paged_kernel else attn),
             "paged_partials": attn if paged_kernel else 0, "ssd_scan": 0}
     if got != want or fwd == 0:
         raise SystemExit(f"{phase} continuous: launches {got}, expected "
@@ -2324,18 +2528,23 @@ def serve_mix(phase, model, params, n_req, card, *, int8,
     p50 = decode_ms[len(decode_ms) // 2] if decode_ms else float("nan")
     gen_tok = st["generated_tokens"]
     attn_kernel = "paged_partials" if paged_kernel else "flash_decode"
+    xline = (f", flash_decode {got['flash_decode']} = "
+             f"{cross_layers(cfg)} cross x {fwd}"
+             if cross and paged_kernel else "")
     log(phase, f"{cfg.arch_id} {'int8' if int8 else 'bf16'} full width "
                f"({cfg.n_layers} layers), ContinuousBatchingEngine("
                f"paged_kernel={paged_kernel}): {n_req} requests "
                f"({sum(r.admit_step > 0 for r in eng.requests())} admitted "
-               f"mid-run), {gen_tok} tokens in {st['steps']} steps / {fwd} "
+               f"mid-run, {admitted} admissions), {gen_tok} tokens in "
+               f"{st['steps']} steps / {fwd} "
                f"forwards | {gen_tok / (run_ms / 1e3):.1f} tok/s over "
                f"{run_ms:.1f} ms | step p50 {st['step_ms_p50']:.3f} ms, "
                f"pure-decode step p50 {p50:.3f} ms ({len(decode_ms)} steps)"
                f" | launches {attn_kernel} {got[attn_kernel]} = "
-               f"{attn_layers(cfg)} x {fwd}, wq_gemm "
-               f"{got['wq_gemm']} = "
-               f"{int8_per_forward(cfg) if int8 else 0} x {fwd} | peak "
+               f"{attn_layers(cfg)}{'' if paged_kernel or not cross else f' + {cross_layers(cfg)}'}"
+               f" x {fwd}{xline}, wq_gemm "
+               f"{got['wq_gemm']} = {per} x {fwd} + {per_install} x "
+               f"{admitted} admissions | peak "
                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | "
                f"{card}")
     return got, eng, [np.asarray(out[r]) for r in rids]
@@ -2381,7 +2590,7 @@ def profile_decode(model, params, card, what, page_idx=None):
 
     def step():
         if model.decode_state.paged:
-            _pos(cache).fill_(288)
+            _pos(model, cache).fill_(288)
         model.forward(params, toks, pos, cache=cache, paged=paged)
 
     for _ in range(3):
@@ -2407,9 +2616,12 @@ def profile_decode(model, params, card, what, page_idx=None):
         log("profile", f"  kernel {ms:.4f} ms/forward  x{n}  {key[:70]}")
 
 
-def profile_prefill(model, params, card, what, batch=8, seq=512):
-    """Kernel rows of one static prefill forward (``batch`` x ``seq``,
-    after a warm one) under torch.profiler, as ``profile_decode``."""
+def profile_prefill(model, params, card, what, batch=8, seq=512,
+                    extra=None):
+    """One static prefill forward (``batch`` x ``seq``; a cross-attention
+    family's batched context in ``extra``): its first call in this
+    process and its warm median (``measure``, no cover: host-paced), then
+    its kernel rows under torch.profiler, as ``profile_decode``."""
     from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device=model.device).manual_seed(1)
     toks = torch.randint(1, model.cfg.vocab_size, (batch, seq), generator=g,
@@ -2418,10 +2630,13 @@ def profile_prefill(model, params, card, what, batch=8, seq=512):
 
     def fwd():
         model.forward(params, toks, pos, mode="prefill",
-                      cache=model.init_cache(batch, seq))
+                      cache=model.init_cache(batch, seq), extra=extra)
 
-    fwd()
-    torch.cuda.synchronize()
+    m = measure(fwd, reps=3, cover_ms=0.0)
+    log("profile", f"{what} prefill forward ({batch} x {seq}): its first call here "
+                   f"{m.first_s * 1e3:.3f} ms, warm median "
+                   f"{m.median_s * 1e3:.3f} ms (CUDA events, 3 reps) | "
+                   f"{card}")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -2754,9 +2969,9 @@ def phase_serve_moe(card, profile=False):
     got, eng, _ = serve_mix(phase, model, params, 16, card, int8=True)
     _add(total, got)
     cfg = model.cfg
-    _add(total, {"wq_gemm": decode_forward_int8_launches(
+    _add(total, decode_forward_launches(
         phase, model, params, 1665,
-        f"{cfg.n_layers} x (4 + 3 x {cfg.moe.num_experts}) + 1")})
+        f"{cfg.n_layers} x (4 + 3 x {cfg.moe.num_experts}) + 1"))
     log(phase, f"phase wall {_since(t0):.1f} s | {card}")
     if profile:
         profile_decode(model, params, card, f"{MOE_ARCH} int8",
@@ -2767,30 +2982,9 @@ def phase_serve_moe(card, profile=False):
     return total
 
 
-def _pos(cache):
-    """The cache's position counter (a hybrid's sits with its K/V)."""
-    return cache.get("attn", cache)["pos"]
-
-
-def decode_forward_int8_launches(phase, model, params, want, formula):
-    """One pure decode forward (8 x 1, context 288, the dense-cache path):
-    its int8 GEMM launches, which must equal ``want``, the count
-    ``int8_per_forward`` reckons from the config (``formula``)."""
-    cache = model.init_cache(8, 512)
-    _pos(cache).fill_(288)
-    reset_launches(("wq_gemm",))
-    model.forward(params, torch.ones((8, 1), dtype=torch.long,
-                                     device=model.device),
-                  torch.full((8, 1), 288, dtype=torch.long,
-                             device=model.device), cache=cache)
-    torch.cuda.synchronize()
-    per = launches_of("wq_gemm")
-    if per != int8_per_forward(model.cfg) or per != want:
-        raise SystemExit(f"{phase}: {per} wq_gemm launches in one decode "
-                         f"forward, expected {formula} = {want}")
-    log(phase, f"one decode forward (8 x 1): wq_gemm launches {per} = "
-               f"{formula}")
-    return per
+def _pos(model, cache):
+    """The cache's position counter (it sits with the attention K/V)."""
+    return blocks.kv_cache(model.cfg, cache)["pos"]
 
 
 def phase_serve_grok(card):
@@ -2894,8 +3088,8 @@ def phase_serve_hybrid(card, profile=False):
     HYBRID_INIT_PEAK_MAX_GB.  Returns the launches of SERVE_KERNELS."""
     t0 = datetime.datetime.now()
     phase = "serve-hybrid"
-    total, (int8_bytes, init_peak) = serve_static(phase, HYBRID_ARCH, card,
-                                                  int8=True)
+    total, sizes = serve_static(phase, HYBRID_ARCH, card, int8=True)
+    int8_bytes, init_peak = sizes["param_bytes"], sizes["init_peak_gib"]
     if (int8_bytes / 1e9 >= HYBRID_INT8_MAX_GB
             or init_peak * 2 ** 30 / 1e9 >= HYBRID_INIT_PEAK_MAX_GB):
         raise SystemExit(f"{phase}: int8 tree {int8_bytes / 1e9:.3f} GB, "
@@ -2907,9 +3101,9 @@ def phase_serve_hybrid(card, profile=False):
                f"after init {init_peak:.2f} GiB")
     got, eng, _ = serve_mix(phase, model, params, 8, card, int8=True)
     _add(total, got)
-    _add(total, {"wq_gemm": decode_forward_int8_launches(
+    _add(total, decode_forward_launches(
         phase, model, params, 1001,
-        "4 x (4 + 3 + 7 x 6 + 3 x 3 + 4 x 3 x 16) + 1")})
+        "4 x (4 + 3 + 7 x 6 + 3 x 3 + 4 x 3 x 16) + 1"))
     same, first = hybrid_token_share(model, params)
     log(phase, f"(c) 8 x {HYBRID_SHARE['prompt_len']} prompt tokens, "
                f"{HYBRID_SHARE['gen_len']} new: greedy tokens equal between "
@@ -2935,6 +3129,169 @@ def phase_serve_hybrid(card, profile=False):
                hybrid_prefill_paths(model, params), card)
     log(phase, f"phase wall {_since(t0):.1f} s | {card}")
     del model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phases 6i, 6j: the cross-attention families (llama-3.2-vision-90b int8,
+# depth-cut; whisper-base whole)
+# ---------------------------------------------------------------------------
+def install_cost(phase, model, params, card):
+    """One admission's context install into a slot's row (a stub context
+    from the host, its cross K/V; audio: the encoder first): CUDA-event
+    ms, and its int8 GEMM launches, which must be ``int8_per_install``
+    for an int8 tree.  Returns the B5 launches of one install."""
+    cfg = model.cfg
+    cache = model.init_cache(1, 64)
+    extra = stub_context(cfg, np.random.default_rng(3))
+    ms = measure(lambda: model.install_slot_context(params, cache, 0, extra),
+                 cover_ms=0.0).median_s * 1e3
+    reset_launches(("wq_gemm",))
+    model.install_slot_context(params, cache, 0, extra)
+    torch.cuda.synchronize()
+    per = launches_of("wq_gemm")
+    int8 = any(t.dtype == torch.int8 for t in tree_leaves(params))
+    if per != (int8_per_install(cfg) if int8 else 0):
+        raise SystemExit(f"{phase}: {per} wq_gemm launches in one install, "
+                         f"expected {int8_per_install(cfg) if int8 else 0}")
+    k = cache["cross_k"]
+    if not bool(torch.isfinite(k).all()) or not bool(k.abs().sum() > 0):
+        raise SystemExit(f"{phase}: the installed cross K is zero or not "
+                         f"finite")
+    line = ""
+    if cfg.is_encdec:
+        frames = torch.as_tensor(extra["audio_frames"][None],
+                                 device=model.device)
+        enc_ms = measure(lambda: model.encode_audio(params, frames),
+                         cover_ms=0.0).median_s * 1e3
+        line = f", of it the encoder {enc_ms:.3f} ms"
+    log(phase, f"one admission's install ({cross_layers(cfg)} cross layers "
+               f"over {get_adapter(cfg.family).context_tokens(cfg)} context "
+               f"tokens): {ms:.3f} ms{line} (perf.measure: CUDA events, "
+               f"no cover, median of 5); wq_gemm launches {per} | {card}")
+    return per
+
+
+def decode_forward_launches(phase, model, params, int8_want=0,
+                            formula="0"):
+    """One pure decode forward (8 x 1, context 288, the dense-cache path):
+    its launches of SERVE_KERNELS, which must be the flash-decode
+    kernel's one an attention layer, cross layers included, and the int8
+    GEMM's ``int8_want``, the count ``int8_per_forward`` reckons from the
+    config (``formula``) for an int8 tree."""
+    cfg = model.cfg
+    cache = model.init_cache(8, 512)
+    _pos(model, cache).fill_(288)
+    reset_launches(SERVE_KERNELS)
+    model.forward(params, torch.ones((8, 1), dtype=torch.long,
+                                     device=model.device),
+                  torch.full((8, 1), 288, dtype=torch.long,
+                             device=model.device), cache=cache)
+    torch.cuda.synchronize()
+    got = {n: launches_of(n) for n in SERVE_KERNELS}
+    attn = attn_layers(cfg) + cross_layers(cfg)
+    want = {"wq_gemm": int8_want, "flash_decode": attn,
+            "paged_partials": 0, "ssd_scan": 0}
+    if got != want or (int8_want and int8_want != int8_per_forward(cfg)):
+        raise SystemExit(f"{phase}: one decode forward launched {got}, "
+                         f"expected {want} (wq_gemm {formula})")
+    log(phase, f"one decode forward (8 x 1): launches wq_gemm "
+               f"{got['wq_gemm']} = {formula}, flash_decode "
+               f"{got['flash_decode']} = {attn_layers(cfg)} self + "
+               f"{cross_layers(cfg)} cross, paged_partials 0, ssd_scan 0")
+    return got
+
+
+def phase_serve_vlm(card, profile=False):
+    """6i: llama-3.2-vision-90b at full width (64/8 heads of 128: G 8;
+    d_ff 28672; 1601 image tokens), cut to VLM_LAYERS of its 100 layers
+    (2 periods of 4 attention layers and 1 gated cross layer), int8
+    drawn layer by layer: (a) static 8 x 512 + 32 through
+    ``launch.serve.run`` with the launcher's stub image embeds, every
+    gate_attn at its zero init (the cross layers run and launch all the
+    same; only launches and the token range are checked there), the
+    decode through the flash-decode kernel only (8 self and 2 cross
+    launches a forward); (b) every gate_attn set to VLM_GATE (test data),
+    8 requests drawn as phase 6's, each with its own stub image, through
+    the paged kernel (self) and the flash-decode kernel (cross);
+    one decode forward launches the int8 GEMM exactly 8 x 7 + 2 x 5 + 1
+    = 67 times, and one install 2 x 2.  The int8 tree must stay under
+    VLM_INT8_MAX_GB and the peak after init under VLM_INIT_PEAK_MAX_GB.
+    Returns the launches of SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    phase = "serve-vlm"
+    total, sizes = serve_static(phase, VLM_ARCH, card, int8=True,
+                                layers=VLM_LAYERS)
+    int8_bytes, init_peak = sizes["param_bytes"], sizes["init_peak_gib"]
+    full = LM(get_config(VLM_ARCH), device="meta")
+    full_int8 = quant_bytes(full.init_params(None, int8=True))
+    log(phase, f"int8 tree {int8_bytes / 1e9:.3f} GB at {VLM_LAYERS} "
+               f"layers (measured), {full_int8 / 1e9:.3f} GB at all "
+               f"{full.cfg.n_layers} (the bf16 tree "
+               f"{full.init_param_bytes() / 1e9:.3f} GB; both reckoned on "
+               f"the meta device: not one card) | (a) gate_attn at its "
+               f"zero init, (b) {VLM_GATE:g} (test data) | peak after init "
+               f"{init_peak:.2f} GiB, serving {sizes['peak_gib']:.2f} GiB "
+               f"| {card}")
+    if (int8_bytes / 1e9 >= VLM_INT8_MAX_GB
+            or init_peak * 2 ** 30 / 1e9 >= VLM_INIT_PEAK_MAX_GB):
+        raise SystemExit(f"{phase}: int8 tree {int8_bytes / 1e9:.3f} GB, "
+                         f"peak after init {init_peak:.2f} GiB: over "
+                         f"{VLM_INT8_MAX_GB} / {VLM_INIT_PEAK_MAX_GB} GB")
+    model, params, init_peak = _int8_model(VLM_ARCH, VLM_LAYERS)
+    set_gates(params, VLM_GATE)
+    log(phase, f"(b) int8 tree {quant_bytes(params) / 1e9:.3f} GB, peak "
+               f"after init {init_peak:.2f} GiB")
+    got, eng, _ = serve_mix(phase, model, params, 8, card, int8=True)
+    _add(total, got)
+    _add(total, decode_forward_launches(
+        phase, model, params, 67, "8 x (4 + 3) + 2 x (2 + 3) + 1"))
+    _add(total, {"wq_gemm": install_cost(phase, model, params, card)})
+    if profile:
+        profile_decode(model, params, card, f"{VLM_ARCH} int8 "
+                       f"{VLM_LAYERS} layers", eng._page_idx)
+    log(phase, f"phase wall {_since(t0):.1f} s | {card}")
+    del eng, model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_serve_audio(card, profile=False):
+    """6j: whisper-base whole (6 encoder and 6 decoder layers, d 512, 8/8
+    heads of 64: G 1; vocab 51865; 1500 audio frames) in bf16: (a) static
+    8 x 128 + 64 over 8 x 1500 stub frames through ``launch.serve.run``
+    (the encoder in the prefill; the decode through the flash-decode
+    kernel, 6 self and 6 cross launches a forward); (b) 16 requests at
+    phase 6's mix, each with its own stub frames, through the paged
+    kernel (self) and the flash-decode kernel (cross); the encoder's and
+    an install's CUDA-event ms a request; a static prefill's first and
+    warm times and its kernel rows.  Returns the launches of
+    SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    phase = "serve-audio"
+    total, _ = serve_static(phase, AUDIO_ARCH, card, int8=False,
+                            shape=AUDIO_STATIC)
+    model = LM(get_config(AUDIO_ARCH))
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    got, eng, _ = serve_mix(phase, model, params, 16, card, int8=False)
+    _add(total, got)
+    _add(total, {"wq_gemm": install_cost(phase, model, params, card)})
+    _add(total, decode_forward_launches(phase, model, params))
+    # (a)'s prefill again in this process: its first call against warm
+    # ones, and where a warm one spends its time
+    B, S = AUDIO_STATIC["slots"], AUDIO_STATIC["prompt_len"]
+    frames = torch.as_tensor(stub_context(
+        model.cfg, np.random.default_rng(3), batch=B)["audio_frames"],
+        device=model.device)
+    profile_prefill(model, params, card, f"{AUDIO_ARCH} bf16", batch=B,
+                    seq=S, extra={"audio_frames": frames})
+    if profile:
+        profile_decode(model, params, card, f"{AUDIO_ARCH} bf16",
+                       eng._page_idx)
+    log(phase, f"phase wall {_since(t0):.1f} s | {card}")
+    del eng, model, params
     torch.cuda.empty_cache()
     return total
 
@@ -3246,8 +3603,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile pure decode forwards (granite bf16 "
-                         "and int8, mamba2, qwen3 dense-cache, phi3.5-moe "
-                         "and jamba int8) and train steps")
+                         "and int8, mamba2, qwen3 dense-cache, phi3.5-moe, "
+                         "jamba and llama-3.2-vision int8, whisper-base) "
+                         "and train steps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -3280,7 +3638,9 @@ def main():
     launches["flash_decode"] = phase_serve_dense(card, args.profile)
     for got in (phase_serve_moe(card, args.profile), phase_serve_grok(card),
                 phase_serve_phi3m(card),
-                phase_serve_hybrid(card, args.profile)):
+                phase_serve_hybrid(card, args.profile),
+                phase_serve_vlm(card, args.profile),
+                phase_serve_audio(card, args.profile)):
         _add(launches, got)
     launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))

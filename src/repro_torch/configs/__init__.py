@@ -11,14 +11,17 @@ import dataclasses
 from typing import Dict, List
 
 from repro_torch.configs import (grok_1_314b, granite_3_2b,
-                                 jamba_v0_1_52b, mamba2_780m, phi3_5_moe_42b,
-                                 phi3_medium_14b, qwen3_1_7b, qwen3_4b)
+                                 jamba_v0_1_52b, llama_3_2_vision_90b,
+                                 mamba2_780m, phi3_5_moe_42b,
+                                 phi3_medium_14b, qwen3_1_7b, qwen3_4b,
+                                 whisper_base)
 from repro_torch.configs.base import ModelConfig, MoEConfig, SSMConfig
 
 REGISTRY: Dict[str, ModelConfig] = {
     m.CONFIG.arch_id: m.CONFIG for m in (
         jamba_v0_1_52b, phi3_5_moe_42b, grok_1_314b, qwen3_4b,
-        phi3_medium_14b, granite_3_2b, qwen3_1_7b, mamba2_780m)}
+        phi3_medium_14b, granite_3_2b, qwen3_1_7b, mamba2_780m,
+        llama_3_2_vision_90b, whisper_base)}
 ARCH_IDS: List[str] = list(REGISTRY)
 
 
@@ -32,8 +35,10 @@ def get_config(arch_id: str, **overrides) -> ModelConfig:
 def reduced_config(arch_id: str, **overrides) -> ModelConfig:
     """A tiny same-family config for CPU tests: few layers, narrow
     widths, small vocab, fp32 — keeping the GQA ratio, qk-norm, the MoE
-    top-k, the SSM's structure (expand, conv kernel) and the hybrid
-    period (one whole period of layers)."""
+    top-k, the SSM's structure (expand, conv kernel), the hybrid period
+    (one whole period of layers), the vlm's period (one period with its
+    cross-attention layer, 16 image tokens) and the enc-dec's two stacks
+    (2 encoder and 2 decoder layers over 24 audio frames)."""
     cfg = get_config(arch_id)
     kw = dict(
         n_layers=min(cfg.n_layers, cfg.attn_period or 4),
@@ -70,6 +75,13 @@ def reduced_config(arch_id: str, **overrides) -> ModelConfig:
             conv_kernel=cfg.ssm.conv_kernel,
             chunk_size=16,
         )
+    if cfg.n_encoder_layers:
+        kw["n_encoder_layers"] = 2
+        kw["n_layers"] = 2
+        kw["n_audio_ctx"] = 24
+    if cfg.cross_attn_period:
+        kw["n_layers"] = cfg.cross_attn_period  # one period incl. cross layer
+        kw["num_image_tokens"] = 16
     kw.update(overrides)
     return dataclasses.replace(cfg, **kw)
 

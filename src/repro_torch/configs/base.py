@@ -1,8 +1,8 @@
 """Model configuration schema (subset of ``repro.configs.base``).
 
-A copy of the fields the dense, moe, ssm and hybrid families read,
-serving and training, with the same names and defaults so a config reads
-the same in both packages.
+A copy of the fields every family of the reference reads (dense, moe,
+ssm, hybrid, vlm and audio), serving and training, with the same names
+and defaults so a config reads the same in both packages.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                   # dense | moe | ssm | hybrid in this port so far
+    family: str                   # dense | moe | ssm | hybrid | audio | vlm
     n_layers: int
     d_model: int
     n_heads: int                  # query heads (0 for attention-free)
@@ -60,6 +60,13 @@ class ModelConfig:
     attn_offset: int = 0
     moe_period: int = 0
     moe_offset: int = 1
+    # vlm: every `cross_attn_period`-th layer is a cross-attention layer
+    cross_attn_period: int = 0
+    num_image_tokens: int = 1601         # stub patch-embedding length
+    # audio enc-dec
+    n_encoder_layers: int = 0
+    n_audio_ctx: int = 1500              # stub frame-embedding length
+    mlp_type: str = "swiglu"             # swiglu | gelu
     param_dtype: str = "bfloat16"
     compute_dtype: str = "bfloat16"
     norm_eps: float = 1e-5
@@ -78,6 +85,10 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to_multiple(self.vocab_size, self.vocab_pad_multiple)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
 
     def layer_kind(self, layer_idx: int) -> str:
         """Return 'attn' | 'mamba' for hybrid stacks."""

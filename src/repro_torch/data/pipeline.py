@@ -6,8 +6,8 @@ keyed on (seed, step), so the batches are bitwise those of the reference
 stream, and a run resumed from a checkpoint continues the stream
 exactly.  The batches come back as torch tensors on the stream's device.
 Every family gets the plain batches, as in the reference; the vlm /
-audio extras (image embeddings, audio frames) are not ported, and those
-families raise.
+audio extras (image embeddings, audio frames) are not ported yet (their
+training is ROADMAP A9's), and those families raise.
 """
 from __future__ import annotations
 
@@ -36,7 +36,8 @@ class SyntheticLMStream:
         if cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
                 f"family {cfg.family!r}: the port's stream has no "
-                f"vlm / audio extras yet (ROADMAP A6)")
+                f"vlm / audio extras yet (ROADMAP A9: vlm and audio "
+                f"training)")
         self.cfg = cfg
         self.batch = batch
         self.seq_len = seq_len

@@ -16,22 +16,34 @@
       --layers 4 --int8 --static --slots 8 --prompt-len 512
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch jamba-v0.1-52b --int8 --static --slots 8 --prompt-len 512
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch llama-3.2-vision-90b --layers 10 --int8 --static --slots 8 \\
+      --prompt-len 512
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --static --slots 8 --prompt-len 128 --gen-len 64
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \\
+      --reduced --device cpu --slots 2 --requests 4 --prompt-len 16
 
-The counterpart of ``repro.launch.serve`` for the families the port
-serves (dense, moe, ssm, hybrid).  By default requests go through the
+The counterpart of ``repro.launch.serve`` for every family (dense, moe,
+ssm, hybrid, vlm, audio).  By default requests go through the
 ``ContinuousBatchingEngine``; ``--static`` selects the
 ``StaticBatchEngine`` baseline (one prefill forward over the batch, then
 a decode loop; an attention layer's prefill is causal attention over the
 prompts and its decode the dense-cache flash-decode kernel, a mamba
 layer's prefill the SSD kernel).  Weights are random, drawn
 from a seeded generator; prompts come from a seeded numpy generator as in
-the reference.  ``--int8`` draws the weights layer by layer and quantizes
+the reference, and so does a cross-attention family's stub context
+(``decode_state.stub_context``: vlm image embeddings, audio frames),
+drawn in the reference's order (batched before the static prompts, one
+after each continuous request's prompt), so a seed gives the JAX
+launcher's contexts and continuous prompts.  ``--int8`` draws the weights layer by layer and quantizes
 each before the next is drawn (``LM.init_params(int8=True)``, weight-only
 int8: the bits of ``models.quant.quantize_params`` of the whole tree, but
 the tree is never held in bf16, so phi3.5-moe-42b and jamba-v0.1-52b fit
 one card): every matmul of the served tree then runs the int8 GEMM
 kernel.  ``--layers`` cuts the depth (a model too deep for the card, as
-grok-1-314b; a multiple of the period, 8, for jamba-v0.1-52b).  Runs on
+grok-1-314b and llama-3.2-vision-90b; a multiple of the period: 8 for
+jamba-v0.1-52b, 5 for llama-3.2-vision-90b).  Runs on
 ``cuda`` unless ``--device`` names another device.  Times are device times from CUDA
 events; on the CPU none are reported.
 
@@ -48,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.models.decode_state import stub_context
 from repro_torch.models.model import LM
 from repro_torch.models.quant import param_bytes
 from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
@@ -115,10 +128,11 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         engine = StaticBatchEngine(model, params, max_len=max_len,
                                    batch=slots,
                                    sample_temperature=temperature)
+        extra = stub_context(cfg, rng, batch=slots)
         prompts = rng.integers(1, cfg.vocab_size, size=(slots, prompt_len))
         if on_card:
             start.record()
-        out = engine.generate(prompts, n_steps=gen_len)
+        out = engine.generate(prompts, n_steps=gen_len, extra=extra)
         tokens = {i: row for i, row in enumerate(out.cpu().numpy())}
         prompts = list(prompts)
         n_req = slots
@@ -128,13 +142,17 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
             model, params, n_slots=slots, max_len=max_len,
             page_size=page_size, prefill_chunk=prefill_chunk)
         n_req = requests or 2 * slots
-        prompts = [rng.integers(1, cfg.vocab_size, size=int(rng.integers(
-            max(1, prompt_len // 2), prompt_len + 1))) for _ in range(n_req)]
-        for prompt in prompts:
-            engine.submit(prompt, gen_len, temperature=temperature)
+        prompts = []
+        for _ in range(n_req):
+            prompts.append(rng.integers(1, cfg.vocab_size, size=int(
+                rng.integers(max(1, prompt_len // 2), prompt_len + 1))))
+            engine.submit(prompts[-1], gen_len, temperature=temperature,
+                          extra=stub_context(cfg, rng))
         if on_card:
             start.record()
         tokens = engine.run()
+    if on_card:
+        end.record()        # serving only: not the byte reckoning below
     st = engine.stats.summary()
     res: Dict[str, Any] = dict(
         arch=arch, family=cfg.family, engine="static" if static else
@@ -146,7 +164,6 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         forwards=st["forwards"], run_ms=None, tokens_per_s=None,
         prefill_ms=None, step_ms_p50=None, peak_gib=None)
     if on_card:
-        end.record()
         end.synchronize()
         res["run_ms"] = start.elapsed_time(end)
         res["tokens_per_s"] = st["generated_tokens"] / (res["run_ms"] / 1e3)

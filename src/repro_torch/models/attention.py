@@ -16,7 +16,13 @@ cache in place.  Where the reference enters a global ``paged_decode``
 context, the port passes a ``PagedDecodeState`` as an argument; ``None``
 (no context) selects the dense-cache path, as in the reference.  Prefill
 half: ``attn_prefill``, causal attention over a prompt through
-``chunked_attention`` that fills the cache's first S positions.
+``chunked_attention`` that fills the cache's first S positions.  Cross
+half (vlm, audio): ``project_cross_kv`` and ``cross_attn``, non-causal
+attention to a read-only context (image embeddings, encoder output)
+without RoPE; over the context itself through ``chunked_attention``, or
+over its installed K/V, which on the card is one launch of the
+flash-decode kernel with every key valid.  A gated cross-attention's
+output is scaled by ``tanh(gate_attn)``.
 """
 from __future__ import annotations
 
@@ -96,7 +102,10 @@ def _project_kv(params, x, cfg):
 
 def _out_proj(params, out):
     B, S = out.shape[:2]
-    return dense(out.reshape(B, S, -1), params["wo"])
+    y = dense(out.reshape(B, S, -1), params["wo"])
+    if "gate_attn" in params:               # gated cross-attention
+        y = torch.tanh(params["gate_attn"].to(y.dtype)) * y
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -207,20 +216,21 @@ def chunked_attention(q, k, v, *, causal: bool, softcap: float = 0.0,
     return out.transpose(1, 2).to(q.dtype)                   # (B,Sq,NQ,H)
 
 
-def attn_train(params, x, cfg, *, rope):
-    """Train-mode causal attention over the whole sequence.  ``rope`` is the
-    forward's fp32 (cos, sin) pair; ``cfg.attention_impl`` picks the jnp
-    flash port (``reference``) or the CUDA flash kernel (``pallas``)."""
+def attn_train(params, x, cfg, *, rope, causal: bool = True):
+    """Train-mode attention over the whole sequence, causal unless
+    ``causal=False`` (the audio encoder).  ``rope`` is the forward's fp32
+    (cos, sin) pair; ``cfg.attention_impl`` picks the jnp flash port
+    (``reference``) or the CUDA flash kernel (``pallas``)."""
     q = _project_q(params, x, cfg)
     k, v = _project_kv(params, x, cfg)
     if cfg.rope_theta > 0:
         q = layers.apply_rope(q, *rope)
         k = layers.apply_rope(k, *rope)
     if cfg.attention_impl == "pallas":
-        out = fa_ops.flash_attention(q, k, v, causal=True,
+        out = fa_ops.flash_attention(q, k, v, causal=causal,
                                      softcap=cfg.attn_logit_softcap)
     elif cfg.attention_impl == "reference":
-        out = chunked_attention(q, k, v, causal=True,
+        out = chunked_attention(q, k, v, causal=causal,
                                 softcap=cfg.attn_logit_softcap)
     else:
         raise ValueError(f"attention_impl {cfg.attention_impl!r}")
@@ -354,6 +364,38 @@ def _paged_attention_with_cache(q, k, v, ps: PagedDecodeState, *, positions,
     return pa_ops.paged_attention(
         q, k_pages, v_pages, page_idx, positions, kv_valid_len,
         page_size=ps.page_size, softcap=softcap)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (vlm, audio)
+# ---------------------------------------------------------------------------
+def project_cross_kv(params, ctx, cfg):
+    """K/V (B, T, NKV, H) of a read-only context ``ctx`` (B, T, d), no
+    RoPE: what the engine installs into a slot's row at admission and
+    decode steps then only read."""
+    return _project_kv(params, ctx, cfg)
+
+
+def cross_attn(params, x, cfg, *, ctx=None, cached_kv=None):
+    """Non-causal attention of x (B, S, d) to a static context, no RoPE.
+
+    ``ctx`` (B, T, d) (train, prefill): K/V projected from it, attended
+    through ``chunked_attention`` as in the reference; returns (y, (k,
+    v)) for the caller to cache.  ``cached_kv`` (k, v), each (B, T, NKV,
+    H) (decode mode): the installed K/V, every key valid, through the
+    flash-decode op over the cache in place with each query's valid
+    length T (on the card one kernel launch).  Returns (y, None)."""
+    q = _project_q(params, x, cfg)
+    softcap = cfg.attn_logit_softcap
+    if ctx is not None:
+        k, v = project_cross_kv(params, ctx, cfg)
+        out = chunked_attention(q, k, v, causal=False, softcap=softcap)
+        return _out_proj(params, out), (k, v)
+    k, v = cached_kv
+    lens = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
+                      device=q.device)
+    out = fa_ops.flash_decode(q, k, v, lens, softcap=softcap)
+    return _out_proj(params, out), None
 
 
 # ---------------------------------------------------------------------------

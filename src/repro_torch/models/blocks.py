@@ -1,17 +1,22 @@
-"""The decoder layer (dense and moe), the mamba layer (ssm and hybrid)
-and the stack runner.
+"""The decoder layer (dense, moe, audio), the mamba layer (ssm and
+hybrid), the cross-attention layer (vlm) and the stack runner.
 
-Counterparts of ``repro.models.blocks.attn_layer``, ``mamba_layer`` and
-``run_stack``: the reference scans over layer-stacked parameters; the
-port keeps one parameter dict per layer (hybrid: per period, holding its
-sub-layers ``s0``…``s{attn_period-1}``) and runs the stack as a Python
-loop, choosing each layer's kind by the config (``layer_kind``).  A
-layer's FFN is the SwiGLU ``mlp`` or, where the layer holds ``moe``, the
-MoE, whose load-balance loss the stack sums in train mode; a mamba layer
-has one where ``d_ff > 0`` or it holds ``moe`` (hybrid).  In train mode
-``remat="full"`` wraps each layer (hybrid: each sub-layer) in a
-non-reentrant ``torch.utils.checkpoint``: only the layer's input is kept,
-and the backward runs the layer's forward again — the reference's
+Counterparts of ``repro.models.blocks.attn_layer``, ``mamba_layer``,
+``cross_layer`` and ``run_stack``, and of the audio decoder layer of
+``repro.models.model.LM._period_step``: the reference scans over
+layer-stacked parameters; the port keeps one parameter dict per layer
+(hybrid and vlm: per period, holding its sub-layers ``s0``…, and the
+vlm's ``cross``) and runs the stack as a Python loop, choosing each
+layer's kind by the config (``sublayers``).  A layer's FFN is the MLP
+(SwiGLU, or GELU where ``cfg.mlp_type`` says so) or, where the layer
+holds ``moe``, the MoE, whose load-balance loss the stack sums in train
+mode; a mamba layer has one where ``d_ff > 0`` or it holds ``moe``
+(hybrid).  A decoder layer that holds ``xattn`` (whisper's) attends to
+the context between its self-attention and its FFN; the vlm's cross
+layer is that cross-attention (gated) and an FFN alone.  In train mode
+``remat="full"`` wraps each layer (hybrid, vlm: each sub-layer) in a
+non-reentrant ``torch.utils.checkpoint``: only the layer's input is
+kept, and the backward runs the layer's forward again — the reference's
 ``jax.checkpoint`` with ``save_only_these_names("layer_input")``.
 """
 from __future__ import annotations
@@ -49,20 +54,24 @@ def _norm(cfg, n, device):
 
 
 def init_ffn(generator: torch.Generator, cfg, device, use_moe: bool):
-    """``{"moe": …}`` or the SwiGLU ``{"mlp": …}`` (gate, up, down drawn in
-    that order), with the reference's scales."""
+    """``{"moe": …}`` or ``{"mlp": …}``: SwiGLU (gate, up, down drawn in
+    that order) or, where ``cfg.mlp_type`` is ``"gelu"``, up and down,
+    with the reference's scales."""
     if use_moe:
         return {"moe": moe.init_moe(generator, cfg, device)}
     d, f = cfg.d_model, cfg.d_ff
-    return {"mlp": {"gate": _dense(generator, d, f, cfg, device),
-                    "up": _dense(generator, d, f, cfg, device),
-                    "down": _dense(generator, f, d, cfg, device,
-                                   f ** -0.5)}}
+    mlp = {} if cfg.mlp_type == "gelu" else {
+        "gate": _dense(generator, d, f, cfg, device)}
+    mlp["up"] = _dense(generator, d, f, cfg, device)
+    mlp["down"] = _dense(generator, f, d, cfg, device, f ** -0.5)
+    return {"mlp": mlp}
 
 
-def init_attn_layer(generator: torch.Generator, cfg, device,
-                    use_moe: bool):
-    """Pre-norm attention (wq, wk, wv, wo; qk-norm scales) + FFN."""
+def init_attention(generator: torch.Generator, cfg, device,
+                   cross: bool = False):
+    """wq, wk, wv, wo (and qk-norm scales); ``cross``: the gated
+    cross-attention's 0-d ``gate_attn``, zero as in the reference, so an
+    initialised cross layer adds nothing until it is trained."""
     d, h = cfg.d_model, cfg.resolved_head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     attn = {
@@ -74,9 +83,40 @@ def init_attn_layer(generator: torch.Generator, cfg, device,
     if cfg.qk_norm:
         attn["q_norm"] = _norm(cfg, h, device)
         attn["k_norm"] = _norm(cfg, h, device)
-    layer = {"ln1": _norm(cfg, d, device), "attn": attn,
+    if cross:
+        attn["gate_attn"] = torch.zeros((), dtype=dtype_of(cfg.param_dtype),
+                                        device=device)
+    return attn
+
+
+def init_attn_layer(generator: torch.Generator, cfg, device,
+                    use_moe: bool):
+    """Pre-norm attention + FFN."""
+    d = cfg.d_model
+    layer = {"ln1": _norm(cfg, d, device),
+             "attn": init_attention(generator, cfg, device),
              "ln2": _norm(cfg, d, device)}
     layer.update(init_ffn(generator, cfg, device, use_moe))
+    return layer
+
+
+def init_decoder_layer(generator: torch.Generator, cfg, device):
+    """The audio decoder layer: an attention layer (GELU MLP) with a
+    pre-norm ungated cross-attention ``lnx`` + ``xattn``."""
+    layer = init_attn_layer(generator, cfg, device, use_moe=False)
+    layer["lnx"] = _norm(cfg, cfg.d_model, device)
+    layer["xattn"] = init_attention(generator, cfg, device)
+    return layer
+
+
+def init_cross_layer(generator: torch.Generator, cfg, device):
+    """The vlm's cross layer: pre-norm gated cross-attention (``lnx``,
+    ``xattn``), then a pre-norm FFN (``ln2``)."""
+    d = cfg.d_model
+    layer = {"lnx": _norm(cfg, d, device),
+             "xattn": init_attention(generator, cfg, device, cross=True),
+             "ln2": _norm(cfg, d, device)}
+    layer.update(init_ffn(generator, cfg, device, use_moe=False))
     return layer
 
 
@@ -107,17 +147,39 @@ def _mlp_or_moe(p, x, cfg, *, with_aux: bool):
     return layers.mlp(x, p["mlp"]), aux
 
 
+def _cross_block(p, x, cfg, *, mode, ctx, cache):
+    """``x + xattn(lnx(x))``.  Train and prefill modes attend to ``ctx``,
+    prefill also copying its K/V into ``cache`` ({"k", "v"}: this
+    layer's (B, T, NKV, H) cross K/V) in place; decode mode attends over
+    ``cache`` and never writes it."""
+    h = layers.rms_norm(x, p["lnx"], cfg.norm_eps)
+    if mode == "decode":
+        a, _ = attention.cross_attn(p["xattn"], h, cfg,
+                                    cached_kv=(cache["k"], cache["v"]))
+        return x + a
+    a, (k, v) = attention.cross_attn(p["xattn"], h, cfg, ctx=ctx)
+    if mode == "prefill":
+        cache["k"].copy_(k)
+        cache["v"].copy_(v)
+    return x + a
+
+
 def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
-               cache=None, write=None, paged=None):
-    """One pre-norm decoder layer.  Train mode attends causally over the
-    whole sequence; prefill mode does too and writes the prompt's K/V to
-    the start of this layer's ``cache`` ({"k", "v"}) in place; decode
-    mode writes the step's K/V in place and attends through the paged
-    kernel under ``paged``, else over the dense cache.  Returns (x, aux):
-    the FFN's aux loss in train mode, else ``None``."""
+               cache=None, write=None, paged=None, causal=True, ctx=None,
+               cross=None):
+    """One pre-norm decoder layer.  Train mode attends over the whole
+    sequence (causally unless ``causal=False``: the audio encoder);
+    prefill mode attends causally and writes the prompt's K/V to the
+    start of this layer's ``cache`` ({"k", "v"}) in place; decode mode
+    writes the step's K/V in place and attends through the paged kernel
+    under ``paged``, else over the dense cache.  A layer holding
+    ``xattn`` (the audio decoder's) then attends to the context:
+    ``ctx`` in train and prefill modes, its K/V ``cross`` ({"k", "v"})
+    in prefill (written) and decode (read) modes.  Returns (x, aux): the
+    FFN's aux loss in train mode, else ``None``."""
     h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
     if mode == "train":
-        a = attention.attn_train(p["attn"], h, cfg, rope=rope)
+        a = attention.attn_train(p["attn"], h, cfg, rope=rope, causal=causal)
     elif mode == "prefill":
         a = attention.attn_prefill(p["attn"], h, cfg, rope=rope, cache=cache)
     elif mode == "decode":
@@ -127,6 +189,19 @@ def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
     else:
         raise NotImplementedError(f"mode={mode!r}")
     x = x + a
+    if "xattn" in p:
+        x = _cross_block(p, x, cfg, mode=mode, ctx=ctx, cache=cross)
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    f, aux = _mlp_or_moe(p, h, cfg, with_aux=mode == "train")
+    return x + f, aux
+
+
+def cross_layer(p, x, cfg, *, mode="decode", ctx=None, cache=None):
+    """The vlm's gated cross-attention + FFN (Llama-3.2-Vision style):
+    ``ctx`` in train and prefill modes, the layer's cross K/V ``cache``
+    in prefill (written) and decode (read) modes.  Returns (x, aux) as
+    ``attn_layer``."""
+    x = _cross_block(p, x, cfg, mode=mode, ctx=ctx, cache=cache)
     h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
     f, aux = _mlp_or_moe(p, h, cfg, with_aux=mode == "train")
     return x + f, aux
@@ -168,11 +243,22 @@ def _mamba_step(p, x, cfg, *, mode, state, n_valid):
 # stack
 # ---------------------------------------------------------------------------
 def sublayers(layer_params: Sequence, cfg):
-    """(params, kind, cache index) of every layer in order.  dense, moe
-    and ssm: one a stack entry, indexed by layer.  hybrid: a period's
+    """(params, kind, cache index) of every layer in order.  dense, moe,
+    ssm and audio: one a stack entry, indexed by layer (an audio layer's
+    self and cross K/V both).  hybrid: a period's
     ``s0``…``s{attn_period-1}``, kinds by ``cfg.layer_kind``; period i's
     attention sub-layer takes attention slot i and its m-th mamba
-    sub-layer recurrent slot i x (attn_period - 1) + m."""
+    sub-layer recurrent slot i x (attn_period - 1) + m.  vlm: a period's
+    ``s0``…``s{per-2}``, attention layers in self slots i x (per - 1) +
+    j, then its ``cross`` layer in cross slot i."""
+    if cfg.family == "vlm":
+        per = cfg.cross_attn_period
+        out = []
+        for i, period in enumerate(layer_params):
+            out += [(period[f"s{j}"], "attn", i * (per - 1) + j)
+                    for j in range(per - 1)]
+            out.append((period["cross"], "cross", i))
+        return out
     if cfg.family != "hybrid":
         kind = cfg.layer_kind(0)
         return [(p, kind, i) for i, p in enumerate(layer_params)]
@@ -189,10 +275,25 @@ def sublayers(layer_params: Sequence, cfg):
     return out
 
 
+def kv_cache(cfg, cache):
+    """The attention layers' K/V and position counter within a family's
+    cache: the hybrid's ``"attn"``, the vlm's and audio's ``"self"``,
+    else the cache itself."""
+    if cfg.family == "hybrid":
+        return cache["attn"]
+    if cfg.family in ("vlm", "audio"):
+        return cache["self"]
+    return cache
+
+
+def _cross_views(cache, c):
+    return {"k": cache["cross_k"][c], "v": cache["cross_v"][c]}
+
+
 def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
               mode: str = "decode", rope=None, positions=None, cache=None,
-              write=None, paged=None, n_valid=None,
-              remat: str = "none"):
+              write=None, paged=None, n_valid=None, ctx=None,
+              causal: bool = True, remat: str = "none"):
     """Run every layer over ``x``, kinds by the config; returns (x, aux):
     in train mode the sum of the layers' MoE load-balance losses (0
     without MoE), else ``None``.
@@ -201,18 +302,22 @@ def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
     (n_layers, B, S_cache, NKV, H), indexed per layer as views; ssm, the
     layer-stacked recurrent state (``mamba2.init_state``); hybrid, both,
     under ``"attn"`` (one entry a period) and ``"ssm"`` (one a mamba
-    sub-layer).  Prefill writes each mamba layer's final state into it
-    and decode (``n_valid``: ragged rows) updates it in place.  Train
-    mode: ``remat`` in ``REMAT_MODES``."""
+    sub-layer); vlm and audio, the self-attention K/V under ``"self"``
+    and each cross layer's read-only K/V under ``"cross_k"`` /
+    ``"cross_v"``.  Prefill writes each mamba layer's final state and
+    each cross layer's K/V of ``ctx`` into it and decode (``n_valid``:
+    ragged rows) updates the rest in place.  ``ctx`` (B, T, d): the
+    context of the cross layers in train and prefill modes.  Train mode:
+    ``causal`` (False: the audio encoder), ``remat`` in
+    ``REMAT_MODES``."""
     if remat not in REMAT_MODES:
         raise NotImplementedError(f"remat={remat!r}; the port has "
                                   f"{REMAT_MODES}")
     train = mode == "train"
     kv = ssm = None
     if not train:
-        hybrid = cfg.family == "hybrid"
-        kv = cache["attn"] if hybrid else cache
-        ssm = cache["ssm"] if hybrid else cache
+        kv = kv_cache(cfg, cache)
+        ssm = cache["ssm"] if cfg.family == "hybrid" else cache
     aux = (torch.zeros((), dtype=torch.float32, device=x.device) if train
            else None)
     for p, kind, c in sublayers(layer_params, cfg):
@@ -220,8 +325,15 @@ def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
             fn = functools.partial(
                 attn_layer, p, cfg=cfg, mode=mode, rope=rope,
                 positions=positions, write=write, paged=paged,
+                causal=causal, ctx=ctx,
                 cache=None if train else {"k": kv["k"][c],
-                                          "v": kv["v"][c]})
+                                          "v": kv["v"][c]},
+                cross=(None if train or "xattn" not in p
+                       else _cross_views(cache, c)))
+        elif kind == "cross":
+            fn = functools.partial(
+                cross_layer, p, cfg=cfg, mode=mode, ctx=ctx,
+                cache=None if train else _cross_views(cache, c))
         else:
             fn = functools.partial(
                 _mamba_step, p, cfg=cfg, mode=mode, n_valid=n_valid,

@@ -1,5 +1,6 @@
-"""DecodeState protocol (dense, moe, ssm and hybrid families): the
-slotted cache and its row primitives.
+"""DecodeState protocol (every family: dense, moe, ssm, hybrid, vlm and
+audio): the slotted cache, its row primitives, and the admission-time
+install of a request's read-only context.
 
 Counterpart of ``repro.models.decode_state``.  An adapter lays the
 whole per-slot decode state out as a dict of tensors whose every leaf
@@ -8,12 +9,18 @@ through ``state_row`` / ``set_state_row`` / ``reset_state_slots``
 without knowing the family.  Unlike the reference's pure functions,
 these update in place: ``state_row`` returns *views* into the slotted
 state, so a batch-1 forward on a row writes straight into its slot and
-``set_state_row`` has nothing left to copy.
+``set_state_row`` has nothing left to copy.  The cross-attention families
+(vlm, audio) keep each cross layer's K/V of the request's context
+(image embeddings; the encoder's output over audio frames) beside the
+self-attention cache: the engine installs it into the slot's row at
+every (re-)admission (``install_context``) and decode steps only read
+it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.models import attention, mamba2
@@ -64,6 +71,38 @@ def reset_state_slots(state: Params, specs: Params,
     return _map(reset, state, specs)
 
 
+def ensure_request_context(arr):
+    """The one (T, d)-or-(1, T, d) per-request context shape rule, shared
+    by ``ContinuousBatchingEngine.submit`` (host side, numpy) and the
+    adapters' install (device side, torch).  A batched (B, T, d) array —
+    the static engine's convention — is refused, so an install can never
+    write B consecutive slots."""
+    if arr.ndim == 2:
+        arr = arr[None]
+    if arr.ndim != 3 or arr.shape[0] != 1:
+        raise ValueError(
+            f"per-request context must be (T, d) or (1, T, d); got "
+            f"{tuple(arr.shape)}")
+    return arr
+
+
+def stub_context(cfg, rng, batch: Optional[int] = None,
+                 scale: float = 0.02) -> Optional[Dict[str, np.ndarray]]:
+    """Random stub frontend context satisfying a family's required extra
+    inputs, drawn from the numpy generator ``rng`` as the reference's:
+    per-request (T, d) arrays, or batched (B, T, d) with ``batch`` (the
+    static engine's convention).  ``None`` for a family without
+    context (no draw is made)."""
+    adapter = get_adapter(cfg.family)
+    out = {}
+    for key in adapter.requires_extra:
+        t = adapter.context_tokens(cfg)
+        shape = ((t, cfg.d_model) if batch is None
+                 else (batch, t, cfg.d_model))
+        out[key] = (rng.standard_normal(shape) * scale).astype(np.float32)
+    return out or None
+
+
 class DecodeStateAdapter:
     """What the engine may ask of a family's decode state.
 
@@ -71,14 +110,22 @@ class DecodeStateAdapter:
     and position counters) that can be truncated or copied by token.
     ``prefix_cachable``: the prefix cache may share it between requests.
     ``paged``: the family attends through the paged KV cache, so the
-    engine hands the forward a page map."""
+    engine hands the forward a page map.  ``requires_extra``: the
+    context keys a request must bring (``submit(extra=…)``)."""
 
     token_addressable = True
     prefix_cachable = False
     paged = False
+    requires_extra: Tuple[str, ...] = ()
 
     def context_tokens(self, cfg) -> int:
         return 0
+
+    def install_context(self, model, params, row: Params,
+                        extra: Dict[str, Any]) -> None:
+        """Write a request's read-only context into its batch-1 ``row``
+        (views into the slot) at admission.  Default: the family has no
+        such state."""
 
 
 class AttentionDecodeState(DecodeStateAdapter):
@@ -137,15 +184,94 @@ class HybridDecodeState(DecodeStateAdapter):
                 "ssm": mamba2.state_specs()}
 
 
+class _CrossContextDecodeState(DecodeStateAdapter):
+    """vlm and audio: the self-attention K/V (one entry a self-attention
+    layer, one position counter a slot) under ``"self"``, attended
+    through the paged cache as the reference's; and read-only cross K/V
+    over the context, one entry a cross layer, under ``"cross_k"`` /
+    ``"cross_v"``, installed at admission.  The prompt's K/V depends on
+    the context, so a prefix key is seeded with its hash
+    (``cache.context_key``)."""
+
+    prefix_cachable = True
+    paged = True
+    axis = ""               # the cross K/V's token axis, by its spec name
+
+    def n_self(self, model) -> int:
+        return model.cfg.n_layers
+
+    def init(self, model, batch: int, max_len: int) -> Params:
+        cfg = model.cfg
+        shape = (model.n_periods, batch, self.context_tokens(cfg),
+                 cfg.n_kv_heads, cfg.resolved_head_dim)
+        state = {"self": attention.init_cache(
+            cfg, self.n_self(model), batch, max_len, model.compute_dtype,
+            model.device)}
+        for key in ("cross_k", "cross_v"):
+            state[key] = torch.zeros(shape, dtype=model.compute_dtype,
+                                     device=model.device)
+        return state
+
+    def specs(self, model) -> Params:
+        spec = (None, "batch", self.axis, "kv_heads", None)
+        return {"self": attention.cache_specs(), "cross_k": spec,
+                "cross_v": spec}
+
+    def context(self, model, params, ctx: torch.Tensor) -> torch.Tensor:
+        """What the cross layers attend to, from the request's (1, T, d)
+        context."""
+        return ctx
+
+    def install_context(self, model, params, row, extra):
+        """Project the context through every cross layer's K/V and copy
+        it into the row's ``cross_k`` / ``cross_v`` in place."""
+        (key,) = self.requires_extra
+        ctx = torch.as_tensor(extra[key]).to(model.device,
+                                             model.compute_dtype)
+        ctx = self.context(model, params, ensure_request_context(ctx))
+        for c, xattn in enumerate(model.cross_attention_params(params)):
+            k, v = attention.project_cross_kv(xattn, ctx, model.cfg)
+            row["cross_k"][c].copy_(k)
+            row["cross_v"][c].copy_(v)
+
+
+class VLMDecodeState(_CrossContextDecodeState):
+    """vlm: a period's (period - 1) self-attention layers, period-major,
+    and its cross layer's K/V over the image tokens."""
+
+    requires_extra = ("image_embeds",)
+    axis = "image_tokens"
+
+    def context_tokens(self, cfg) -> int:
+        return cfg.num_image_tokens
+
+    def n_self(self, model) -> int:
+        return model.n_periods * (model.cfg.cross_attn_period - 1)
+
+
+class AudioDecodeState(_CrossContextDecodeState):
+    """audio (whisper enc-dec): one self-attention K/V and one cross K/V
+    over the encoder's output a decoder layer; the encoder runs at
+    install, once a request."""
+
+    requires_extra = ("audio_frames",)
+    axis = "audio_ctx"
+
+    def context_tokens(self, cfg) -> int:
+        return cfg.n_audio_ctx
+
+    def context(self, model, params, ctx):
+        return model.encode_audio(params, ctx)[0]
+
+
 _ADAPTERS = {"dense": AttentionDecodeState(), "moe": AttentionDecodeState(),
-             "ssm": SSMDecodeState(), "hybrid": HybridDecodeState()}
-# the reference's families the port has not ported yet
-NOT_PORTED = ("vlm", "audio")
+             "ssm": SSMDecodeState(), "hybrid": HybridDecodeState(),
+             "vlm": VLMDecodeState(), "audio": AudioDecodeState()}
 
 
 def get_adapter(family: str) -> DecodeStateAdapter:
     if family not in _ADAPTERS:
-        raise NotImplementedError(
-            f"family {family!r} is not ported yet (the port serves "
-            f"{sorted(_ADAPTERS)}; not yet {', '.join(NOT_PORTED)})")
+        raise ValueError(
+            f"no DecodeState adapter registered for family {family!r}; "
+            f"known: {sorted(_ADAPTERS)}")
     return _ADAPTERS[family]

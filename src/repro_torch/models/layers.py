@@ -1,4 +1,5 @@
-"""Layer functions: norms, linear, embeddings, RoPE, SwiGLU MLP.
+"""Layer functions: norms, linear, embeddings, RoPE, the MLP (SwiGLU or
+GELU).
 
 Counterparts of ``repro.models.layers``, with its casts kept: the RMS
 scale sums in fp32 and is cast to the compute dtype, RoPE angles are
@@ -106,8 +107,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# MLP (SwiGLU)
+# MLP: SwiGLU where the params hold a gate, else GELU (whisper's)
 # ---------------------------------------------------------------------------
 def mlp(x: torch.Tensor, params: Params) -> torch.Tensor:
-    h = F.silu(dense(x, params["gate"])) * dense(x, params["up"])
+    if "gate" in params:
+        h = F.silu(dense(x, params["gate"])) * dense(x, params["up"])
+    else:
+        # jax.nn.gelu's default is the tanh approximation
+        h = F.gelu(dense(x, params["up"]), approximate="tanh")
     return dense(h, params["down"])

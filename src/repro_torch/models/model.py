@@ -1,17 +1,20 @@
-"""The LM (dense, moe, ssm and hybrid families): parameters, forward
-modes, slotted cache.
+"""The LM (every family: dense, moe, ssm, hybrid, vlm and audio):
+parameters, forward modes, slotted cache.
 
-Counterpart of ``repro.models.model.LM`` for the dense, moe, ssm and
-hybrid families.  The parameters are a dict with the JAX tree's keys —
-``embed.table``, ``final_norm.scale``, ``unembed.table`` when untied —
-except that the layer stack is a list of per-layer dicts (dense:
-``stack[i]`` holds ``ln1``, ``attn``, ``ln2``, ``mlp``; moe: ``moe`` in
-place of ``mlp`` where ``cfg.layer_uses_moe(i)``; ssm: ``ln1``,
-``mamba``; hybrid: one dict a period of ``attn_period`` layers, its
-sub-layers ``s0``…``s7`` an attention layer or a mamba layer with an
-FFN, as ``cfg.layer_kind`` says) instead of leaves with a leading layer
-(or period) axis.  Weights are random, drawn from an explicit
-``torch.Generator``.
+Counterpart of ``repro.models.model.LM``.  The parameters are a dict
+with the JAX tree's keys — ``embed.table``, ``final_norm.scale``
+(``unembed.table`` when untied) — except that a layer stack is a list of
+per-layer dicts (dense: ``stack[i]`` holds ``ln1``, ``attn``, ``ln2``,
+``mlp``; moe: ``moe`` in place of ``mlp`` where ``cfg.layer_uses_moe(i)``;
+ssm: ``ln1``, ``mamba``; hybrid: one dict a period of ``attn_period``
+layers, its sub-layers ``s0``…``s7`` an attention layer or a mamba layer
+with an FFN, as ``cfg.layer_kind`` says; vlm: one dict a period of
+``cross_attn_period`` layers, ``s0``…``s3`` attention layers and
+``cross`` a gated cross-attention layer; audio: a decoder layer with
+``lnx`` and ``xattn`` beside its attention and GELU MLP, and
+``encoder = {"stack": [...], "final_norm"}``) instead of leaves with a
+leading layer (or period) axis.  Weights are random, drawn from an
+explicit ``torch.Generator``.
 
 Modes: ``train``, ``prefill`` and ``decode``, for every family.
 Prefill runs the prompt through causal ``chunked_attention`` in an
@@ -23,11 +26,15 @@ its recurrent state.  The moe family is the dense one with
 ``models.moe``'s experts in place of the MLP, each mode calling them
 with its own (B, S) (the capacity depends on S); the hybrid (jamba)
 interleaves 1 attention layer with 7 mamba layers a period, MoE on every
-other layer, and keeps both kinds of state (``HybridDecodeState``).  A
-parameter tree from ``models.quant.quantize_params`` or
-``init_params(int8=True)`` (int8 packs) runs every mode's matmuls
-through the int8 GEMM kernel, the experts one call an expert and
-projection.
+other layer, and keeps both kinds of state (``HybridDecodeState``).  The
+cross-attention families take a context in ``extra`` in train and
+prefill modes (vlm: ``image_embeds``; audio: ``audio_frames``, which the
+encoder, ``encode_audio``, turns into the context); prefill writes each
+cross layer's K/V of it into the cache, and decode mode only reads it,
+or what ``install_slot_context`` put there.  A parameter tree from
+``models.quant.quantize_params`` or ``init_params(int8=True)`` (int8
+packs) runs every mode's matmuls through the int8 GEMM kernel, the
+experts one call an expert and projection.
 """
 from __future__ import annotations
 
@@ -50,13 +57,16 @@ class LM:
         self.param_dtype = dtype_of(cfg.param_dtype)
         self.compute_dtype = dtype_of(cfg.compute_dtype)
         self.n_periods = cfg.n_layers
-        if cfg.family == "hybrid":
-            if cfg.attn_period <= 0 or cfg.n_layers % cfg.attn_period:
+        period = {"hybrid": ("attn_period", cfg.attn_period),
+                  "vlm": ("cross_attn_period", cfg.cross_attn_period)}
+        if cfg.family in period:
+            name, per = period[cfg.family]
+            if per <= 0 or cfg.n_layers % per:
                 raise ValueError(
-                    f"hybrid n_layers {cfg.n_layers} is not a multiple of "
-                    f"attn_period {cfg.attn_period}")
-            self.n_periods = cfg.n_layers // cfg.attn_period
-        # the family's DecodeState adapter (raises for families not ported)
+                    f"{cfg.family} n_layers {cfg.n_layers} is not a "
+                    f"multiple of {name} {per}")
+            self.n_periods = cfg.n_layers // per
+        # the family's DecodeState adapter (raises for an unknown family)
         self.decode_state = decode_state.get_adapter(cfg.family)
 
     # ------------------------------------------------------------------
@@ -77,10 +87,10 @@ class LM:
 
         ``int8``: the weight-only int8 tree, equal bit for bit to
         ``quant.quantize_params(init_params(generator))`` but never held
-        in the param dtype: the embedding tables and each layer (hybrid:
-        each sub-layer of a period) are drawn and quantized before the
-        next is drawn, so the peak is the int8 tree and one layer in the
-        param dtype."""
+        in the param dtype: the embedding tables and each layer (hybrid,
+        vlm: each sub-layer of a period; audio: the encoder's layers
+        too) are drawn and quantized before the next is drawn, so the
+        peak is the int8 tree and one layer in the param dtype."""
         cfg = self.cfg
         d = cfg.d_model
         g = generator
@@ -95,16 +105,31 @@ class LM:
                 g, (cfg.padded_vocab, d), 0.02)})
         p["stack"] = [self._init_layer(g, i, q)
                       for i in range(self.n_periods)]
+        if cfg.is_encdec:
+            p["encoder"] = {
+                "stack": [q(blocks.init_attn_layer(g, cfg, self.device,
+                                                   use_moe=False))
+                          for _ in range(cfg.n_encoder_layers)],
+                "final_norm": {"scale": self._ones(d)}}
         return p
 
     def _init_layer(self, g, i: int, q) -> Params:
         """Stack entry i, each layer passed through ``q`` as it is drawn:
-        a layer, or (hybrid) a period of sub-layers ``s0``…, attention
-        where ``cfg.layer_kind(j)`` says so, MoE where
-        ``cfg.layer_uses_moe(j)``."""
+        a layer (audio: the decoder layer with its cross-attention), or a
+        period of sub-layers ``s0``… — hybrid: attention where
+        ``cfg.layer_kind(j)`` says so, MoE where ``cfg.layer_uses_moe(j)``;
+        vlm: attention layers, then the gated ``cross`` layer."""
         cfg, dev = self.cfg, self.device
         if cfg.family == "ssm":
             return q(blocks.init_mamba_layer(g, cfg, dev))
+        if cfg.family == "audio":
+            return q(blocks.init_decoder_layer(g, cfg, dev))
+        if cfg.family == "vlm":
+            per = cfg.cross_attn_period
+            period = {f"s{j}": q(blocks.init_attn_layer(g, cfg, dev, False))
+                      for j in range(per - 1)}
+            period["cross"] = q(blocks.init_cross_layer(g, cfg, dev))
+            return period
         if cfg.family != "hybrid":
             return q(blocks.init_attn_layer(g, cfg, dev,
                                             cfg.layer_uses_moe(i)))
@@ -143,6 +168,52 @@ class LM:
         return decode_state.reset_state_slots(cache, self.cache_specs(),
                                               slot_mask)
 
+    def install_slot_context(self, params: Params, cache: Params, slot: int,
+                             extra: Dict[str, Any]) -> Params:
+        """Admission-time write of a request's read-only context (the
+        cross K/V of its image embeddings or, the encoder run first, of
+        its audio frames: (T, d) or (1, T, d)) into row ``slot`` of the
+        cache, in place.  A no-op for a family without such state."""
+        self.decode_state.install_context(self, params,
+                                          self.cache_row(cache, slot), extra)
+        return cache
+
+    def cross_attention_params(self, params: Params):
+        """Each cross layer's ``xattn`` params, in cross-slot order."""
+        if self.cfg.family == "vlm":
+            return [period["cross"]["xattn"] for period in params["stack"]]
+        return [layer["xattn"] for layer in params["stack"]]
+
+    def encode_audio(self, params: Params, frames: torch.Tensor, *,
+                     remat: str = "none"):
+        """The whisper encoder over (B, T, d) frame embeddings: each layer
+        non-causal attention (RoPE at positions 0…T-1) and its GELU MLP,
+        in train mode, then the encoder's final norm.  Returns (the
+        encoder's output, aux: 0, its layers have no MoE).  Used by the
+        train and prefill forwards and by the audio adapter's install."""
+        cfg = self.cfg
+        enc = frames.to(self.compute_dtype)
+        pos = torch.arange(enc.shape[1], device=enc.device)[None].expand(
+            enc.shape[:2])
+        enc, aux = blocks.run_stack(enc, params["encoder"]["stack"], cfg,
+                                    mode="train", rope=self._rope(pos),
+                                    causal=False, remat=remat)
+        enc = layers.rms_norm(enc, params["encoder"]["final_norm"],
+                              cfg.norm_eps)
+        return enc, aux
+
+    def _context(self, params, mode, extra, remat="none"):
+        """(ctx, aux) of the cross layers in train and prefill modes: the
+        vlm's image embeddings, or the encoder over the audio frames
+        (aux its loss); (None, None) otherwise."""
+        fam = self.cfg.family
+        if mode == "decode" or fam not in ("vlm", "audio"):
+            return None, None
+        if fam == "vlm":
+            return extra["image_embeds"].to(self.compute_dtype), None
+        return self.encode_audio(params, extra["audio_frames"].to(
+            self.compute_dtype), remat=remat)
+
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
@@ -150,21 +221,26 @@ class LM:
                 positions: torch.Tensor, *, mode: str = "decode",
                 cache: Optional[Params] = None,
                 n_valid: Optional[torch.Tensor] = None,
-                paged: Optional[attention.PagedDecodeState] = None):
-        """tokens / positions (B, S).
+                paged: Optional[attention.PagedDecodeState] = None,
+                extra: Optional[Dict[str, torch.Tensor]] = None):
+        """tokens / positions (B, S); ``extra``: the vlm's
+        ``image_embeds`` or the audio's ``audio_frames`` (B, T, d), read in
+        train and prefill modes (decode mode reads the cross K/V in the
+        cache).
 
         ``mode="train"``: the whole sequence (attention: causal through
         ``cfg.attention_impl``; mamba: the chunked SSD), each layer
         rematerialised as ``cfg.remat`` says; returns (fp32 logits (B, S,
         V), None, aux) — aux is the sum of the layers' MoE load-balance
-        losses (fp32; 0 without MoE).
+        losses (fp32; 0 without MoE; audio: plus the encoder's).
 
         ``mode="prefill"``: the prompt from position 0 into a fresh
         ``cache`` (from ``init_cache``), in place.  Attention layers:
         causal attention over the prompt; its K/V go to cache positions
         [0, S) and the position counter advances by S.  Mamba layers: the
         chunked SSD (the CUDA kernel on the card); each layer's final
-        recurrent state and conv tail are written into ``cache``.
+        recurrent state and conv tail are written into ``cache``.  Cross
+        layers attend to the context and write its K/V into the cache.
         Returns (fp32 logits, cache).
 
         ``mode="decode"``: ``n_valid`` (B,) real tokens per row (``None``:
@@ -175,10 +251,11 @@ class LM:
         (the reference's ``_full_attention_with_cache``, outside any
         ``paged_decode`` context).  Mamba layers advance the recurrent
         state in place through rows' valid columns only (the ssm reads
-        neither ``positions`` nor ``paged``).  Returns (fp32 logits,
-        cache)."""
+        neither ``positions`` nor ``paged``).  Cross layers attend over
+        their K/V in the cache (from a prefill or an install), every key
+        valid, and write nothing.  Returns (fp32 logits, cache)."""
         if mode == "train":
-            return self._forward_train(params, tokens, positions)
+            return self._forward_train(params, tokens, positions, extra)
         if mode not in ("decode", "prefill"):
             raise NotImplementedError(
                 f"mode={mode!r}: the port runs train, prefill and decode "
@@ -190,11 +267,13 @@ class LM:
                                     cache=cache, n_valid=n_valid)
             return self._logits(params, x), cache
         # the attention layers' K/V and position counter
-        kv = cache["attn"] if cfg.family == "hybrid" else cache
+        kv = blocks.kv_cache(cfg, cache)
         rope = self._rope(positions)
         if mode == "prefill":
+            ctx, _ = self._context(params, mode, extra)
             x, _ = blocks.run_stack(x, params["stack"], cfg,
-                                    mode="prefill", rope=rope, cache=cache)
+                                    mode="prefill", rope=rope, cache=cache,
+                                    ctx=ctx)
             kv["pos"].add_(tokens.shape[1])
             return self._logits(params, x), cache
         write = attention.decode_write(kv["pos"], tokens.shape[1],
@@ -214,12 +293,15 @@ class LM:
         return layers.rope_tables(positions, cfg.resolved_head_dim,
                                   cfg.rope_theta)
 
-    def _forward_train(self, params, tokens, positions):
+    def _forward_train(self, params, tokens, positions, extra):
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], self.compute_dtype)
+        ctx, enc_aux = self._context(params, "train", extra, cfg.remat)
         x, aux = blocks.run_stack(x, params["stack"], cfg, mode="train",
-                                  rope=self._rope(positions),
+                                  rope=self._rope(positions), ctx=ctx,
                                   remat=cfg.remat)
+        if enc_aux is not None:
+            aux = aux + enc_aux
         return self._logits(params, x), None, aux
 
     def _logits(self, params, x):

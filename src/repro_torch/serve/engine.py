@@ -16,14 +16,20 @@ bitwise-parity baseline) there is no page map, and both attend over the
 dense cache (the flash-decode kernel on the card).  A family without
 attention (ssm) gets no page map.  A recurrent prompt prefill (the ssm's
 layers, the hybrid's mamba layers) runs token by token through the
-masked recurrence.
+masked recurrence.  A request of a cross-attention family (vlm, audio)
+brings its context in ``submit(extra=…)``; at every (re-)admission the
+engine installs it into the slot's cache row
+(``LM.install_slot_context``: the cross K/V, for audio after the
+encoder), and every forward after that reads it.
 
 ``StaticBatchEngine`` is the reference's run-to-completion baseline: one
 ``mode="prefill"`` forward over the whole batch of prompts (attention
 layers: causal attention filling the K/V cache; mamba layers: the SSD
-kernel), then a decode loop, which enters no paged context: attention
-layers decode through the dense-cache attention.  ``make_prefill_step`` /
-``make_serve_step`` are its two steps, as in the reference.
+kernel; cross layers: attention to the batched context, whose K/V they
+write into the cache), then a decode loop, which enters no paged
+context: attention layers, cross layers too, decode through the
+dense-cache attention.  ``make_prefill_step`` / ``make_serve_step`` are
+its two steps, as in the reference.
 
 Sampled tokens stay on the device between steps: ``prev_sampled``
 (n_slots,) feeds the next step's decode rows and ``out_buf``
@@ -53,6 +59,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.models import decode_state
 from repro_torch.models.attention import PagedDecodeState
 from repro_torch.models.model import LM
 from repro_torch.serve import sampling
@@ -69,11 +76,14 @@ _NOT_PORTED = {
 
 
 def make_prefill_step(model: LM) -> Callable:
-    """``(params, cache, tokens, positions) -> (next_tok (B,) int32,
-    cache)``: one ``mode="prefill"`` forward, greedy on the last column."""
-    def prefill_step(params, cache, tokens, positions):
+    """``(params, cache, tokens, positions, extra) -> (next_tok (B,) int32,
+    cache)``: one ``mode="prefill"`` forward, greedy on the last column;
+    ``extra``: the batched (B, T, d) context of a cross-attention family,
+    else ``None``."""
+    def prefill_step(params, cache, tokens, positions, extra=None):
         logits, cache = model.forward(params, tokens, positions,
-                                      mode="prefill", cache=cache)
+                                      mode="prefill", cache=cache,
+                                      extra=extra)
         return torch.argmax(logits[:, -1], dim=-1).to(torch.int32), cache
 
     return prefill_step
@@ -82,10 +92,11 @@ def make_prefill_step(model: LM) -> Callable:
 def make_serve_step(model: LM, *, sample_temperature: float = 0.0,
                     generator: Optional[torch.Generator] = None
                     ) -> Callable:
-    """One decode step: ``(params, cache, tokens (B, 1), positions) ->
-    (next_tok (B,) int32, cache)``.  Temperature > 0 draws from
-    ``generator`` (the reference keys its draw on the position)."""
-    def serve_step(params, cache, tokens, positions):
+    """One decode step: ``(params, cache, tokens (B, 1), positions,
+    extra=None) -> (next_tok (B,) int32, cache)``; decode mode reads no
+    ``extra`` (the cross K/V are in the cache).  Temperature > 0 draws
+    from ``generator`` (the reference keys its draw on the position)."""
+    def serve_step(params, cache, tokens, positions, extra=None):
         logits, cache = model.forward(params, tokens, positions,
                                       mode="decode", cache=cache)
         last = logits[:, -1]
@@ -315,6 +326,14 @@ class ContinuousBatchingEngine:
         if plan.reset_mask.any():
             self.model.reset_cache_slots(
                 self.cache, self._dev(plan.reset_mask, torch.bool))
+            for slot in np.nonzero(plan.reset_mask)[0]:
+                # install the request's read-only context into its row
+                # (the cross K/V; audio runs its encoder here, once an
+                # admission), a re-admission after preemption included
+                req = self.sched.active.get(int(slot))
+                if req is not None and req.extra:
+                    self.model.install_slot_context(
+                        self.params, self.cache, int(slot), req.extra)
         if plan.n_decode:
             self._decode_step(plan)
         for pf in plan.prefills:
@@ -341,10 +360,29 @@ class ContinuousBatchingEngine:
 
     # -- API ------------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
-               temperature: float = 0.0) -> int:
-        """Queue a request; returns its rid."""
+               temperature: float = 0.0,
+               extra: Optional[Dict[str, np.ndarray]] = None) -> int:
+        """Queue a request; returns its rid.  ``extra`` carries the
+        request's read-only context — (T, d) or (1, T, d) arrays:
+        ``image_embeds`` (vlm), ``audio_frames`` (audio) — which the
+        cross-attention families require and the others refuse."""
+        need = self.model.decode_state.requires_extra
+        missing = [k for k in need if extra is None or k not in extra]
+        if missing:
+            raise ValueError(
+                f"family {self.model.cfg.family!r} requires extra "
+                f"context {missing} at submit()")
+        unknown = [k for k in (extra or {}) if k not in need]
+        if unknown:
+            raise ValueError(
+                f"family {self.model.cfg.family!r} takes no extra "
+                f"context {unknown}; it requires exactly {list(need)}")
+        if extra is not None:
+            # batch-1 host arrays, the shape rule the install shares
+            extra = {k: decode_state.ensure_request_context(np.asarray(v))
+                     for k, v in extra.items()}
         req = self.sched.submit(np.asarray(prompt), max_new_tokens,
-                                temperature=temperature,
+                                temperature=temperature, extra=extra,
                                 step=self._step_idx)
         return req.rid
 
@@ -417,18 +455,24 @@ class StaticBatchEngine:
             model, sample_temperature=sample_temperature, generator=gen)
         self.stats = EngineStats()
 
-    def generate(self, prompt_tokens, n_steps: int) -> torch.Tensor:
+    def generate(self, prompt_tokens, n_steps: int,
+                 extra: Optional[Dict[str, object]] = None) -> torch.Tensor:
         """prompt_tokens (B, S) -> (B, n_steps) int32 tokens, on the
-        model's device."""
+        model's device.  ``extra``: a cross-attention family's batched
+        (B, T, d) context (arrays or tensors)."""
         toks = torch.as_tensor(np.asarray(prompt_tokens), dtype=torch.long,
                                device=self.device)
         B, S = toks.shape
         if B != self.batch:
             raise ValueError(f"batch {B} != the engine's {self.batch}")
+        if extra is not None:
+            extra = {k: torch.as_tensor(v, device=self.device)
+                     for k, v in extra.items()}
         cache = self.model.init_cache(B, self.max_len)
         positions = torch.arange(S, device=self.device)[None].expand(B, S)
         events = _events(self.device)
-        nxt, cache = self.prefill_fn(self.params, cache, toks, positions)
+        nxt, cache = self.prefill_fn(self.params, cache, toks, positions,
+                                     extra)
         _record(self.stats, events, n_decode=0, n_prefill_tokens=B * S)
         out = [nxt]
         for t in range(n_steps - 1):

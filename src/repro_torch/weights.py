@@ -3,9 +3,10 @@ back.
 
 ``params_from_numpy(tree)`` takes the reference ``LM``'s parameter tree
 with every leaf converted to numpy — ``embed.table``, ``final_norm.scale``
-(``unembed.table`` when untied) and ``stack.*`` with a leading layer
-axis — and returns the port's parameters: the same dicts with the stack
-split into one dict per layer.  ``params_to_numpy`` is the inverse: it
+(``unembed.table`` when untied), ``stack.*`` with a leading layer axis
+and, for the audio family, ``encoder.stack.*`` too — and returns the
+port's parameters: the same dicts with each stack split into one dict
+per layer.  ``params_to_numpy`` is the inverse: it
 restacks the per-layer dicts into ``(L, ...)`` leaves.  Dense weights
 stay (d_in, d_out), so both packages compute ``x @ w``.  A quantized tree
 (``models.quant``) crosses the same way: each q-pack's int8 ``q`` (L, K,
@@ -40,12 +41,22 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
 
 def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
     dev = resolve_device(device)
-    out = {k: tree_map(lambda a: tensor_from_numpy(a, dev), v)
-           for k, v in tree.items() if k != "stack"}
-    n_layers = int(np.shape(tree_leaves(tree["stack"])[0])[0])
-    out["stack"] = [tree_map(lambda a, i=i: tensor_from_numpy(a[i], dev),
-                             tree["stack"]) for i in range(n_layers)]
+    out = {}
+    for k, v in tree.items():
+        if k == "stack":
+            out[k] = _split_layers(v, dev)
+        elif k == "encoder":
+            out[k] = params_from_numpy(v, dev)
+        else:
+            out[k] = tree_map(lambda a: tensor_from_numpy(a, dev), v)
     return out
+
+
+def _split_layers(stacked, dev):
+    """Leaves with a leading layer axis -> a list of per-layer dicts."""
+    n_layers = int(np.shape(tree_leaves(stacked)[0])[0])
+    return [tree_map(lambda a, i=i: tensor_from_numpy(a[i], dev), stacked)
+            for i in range(n_layers)]
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -1068,15 +1068,18 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("softcap", [0.0, SOFTCAP])
 @pytest.mark.parametrize("sq", [1, 32])
-@pytest.mark.parametrize("NKV,G", [(8, 6), (10, 4)])
+@pytest.mark.parametrize("NKV,G,H", [(8, 6, 128), (10, 4, 128), (8, 1, 64),
+                                     (8, 8, 128)])
 @pytest.mark.parametrize("splits", [None, 1, 3, 8])
-def test_paged_kernel_at_served_groups(card, NKV, G, sq, softcap, splits):
+def test_paged_kernel_at_served_groups(card, NKV, G, H, sq, softcap,
+                                       splits):
     """The paged kernel at grok-1's G 6 (decode R 6, a 32-column chunk
-    192 rows) and phi3-medium-14b's 10 KV heads, bf16, at the plan's
-    split and forced ones, without and with softcap 30 (queries x 30):
-    partials against the plain version (2e-3), the empty row neutral, a
-    second launch the same bits."""
-    args = _paged_inputs(card, 128, sq, True, torch.bfloat16,
+    192 rows), phi3-medium-14b's 10 KV heads, whisper-base's G 1 (MHA, H
+    64) and llama-3.2-vision-90b's G 8 (a chunk 256 rows), bf16, at the
+    plan's split and forced ones, without and with softcap 30 (queries x
+    30): partials against the plain version (2e-3), the empty row
+    neutral, a second launch the same bits."""
+    args = _paged_inputs(card, H, sq, True, torch.bfloat16,
                          [0, 8, 17, 200, 256], seed=NKV + G + sq, NKV=NKV,
                          G=G)
     if softcap:
@@ -1120,6 +1123,39 @@ def test_flash_decode_at_served_groups(card, dtype, NKV, G, Sq, softcap):
         torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                    atol=atol, msg=lambda m: f"{splits}: {m}")
         assert bool((got[lens == 0] == 0).all())
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("Sq", [1, 32])
+@pytest.mark.parametrize("S,NQ,NKV,H", [(1601, 64, 8, 128),
+                                        (1500, 8, 8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_at_cross_capacities(card, dtype, S, NQ, NKV, H, Sq, B):
+    """The flash-decode kernel as a cross layer's decode runs it: every
+    query over all S installed keys, S off the 32-token tile
+    (llama-3.2-vision's 1601 image tokens, G 8; whisper's 1500 frames, G
+    1), so a split ends in a partial tile; the cache a layer's view of a
+    stacked one; B 1 at Sq 32 is the continuous engine's prefill chunk
+    (one slot a forward); at the plan's split and every forced one,
+    against ``ref.flash_decode`` (fp32 2e-4; bf16 one ulp)."""
+    rng = np.random.default_rng(S + Sq + B)
+    q = torch.from_numpy(rng.standard_normal((B, Sq, NQ, H)).astype(
+        np.float32)).to(card, dtype)
+    stacked = torch.from_numpy(rng.standard_normal(
+        (2, 2, B, S, NKV, H)).astype(np.float32)).to(card, dtype)
+    k, v = stacked[0, 1], stacked[1, 1]
+    lens = torch.full((B, Sq), S, dtype=torch.int32, device=card)
+    want = fa_ref.flash_decode(q, k, v, lens)
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (8e-3, 1e-4)
+    for splits in (None, *range(1, 9)):
+        got = _counted(fa_kernel.flash_decode, lambda: fa_kernel.flash_decode(
+            q, k, v, lens, splits=splits))
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{splits}: {m}")
+    full = _counted(fa_kernel.flash_decode, lambda: fa_ops.flash_decode(
+        q, k, v, torch.full((B,), S, dtype=torch.int32, device=card)))
+    torch.testing.assert_close(full.float(), want.float(), rtol=rtol,
+                               atol=atol)
 
 
 def _moe_case(capacity_factor):
@@ -1256,3 +1292,105 @@ def test_int8_hybrid_engines_on_card_match_cpu(card):
         assert cont == st
         outs.append(cont)
     assert outs[0] == outs[1]
+
+
+# ---------------------------------------------------------------------------
+# the cross-attention slice: llama-3.2-vision-90b and whisper-base
+# ---------------------------------------------------------------------------
+def _gated(params, value):
+    for k, v in (params.items() if isinstance(params, dict)
+                 else enumerate(params)):
+        if k == "gate_attn":
+            v.fill_(value)
+        elif isinstance(v, (dict, list)):
+            _gated(v, value)
+    return params
+
+
+@pytest.mark.parametrize("arch,per_fwd,per_install", [
+    ("llama-3.2-vision-90b", 4 * 7 + 5 + 1, 2),
+    ("whisper-base", 2 * (4 + 2 + 2) + 1, 2 * 6 + 2 * 2)])
+def test_int8_cross_decode_forward_launch_counts(card, arch, per_fwd,
+                                                 per_install):
+    """Reduced llama-3.2-vision-90b (4 attention layers and the gated
+    cross layer) and whisper-base (2 decoder layers, 2 encoder layers) in
+    int8 on the card, gate_attn 0.5: one install launches the int8 GEMM
+    per_install times (each cross layer's wk and wv over the context; the
+    encoder's 4 + 2 a layer first); one decode forward (8 x 1) per_fwd
+    times (a self-attention layer 4, a cross-attention 2: wq and wo, a
+    SwiGLU MLP 3, a GELU MLP 2, the unembed), the flash-decode kernel
+    once a layer (self and cross) on the dense-cache path, and with a
+    page map the paged kernel once a self-attention layer and the
+    flash-decode kernel once a cross layer; finite logits."""
+    from repro_torch.models.attention import PagedDecodeState
+    from repro_torch.models.decode_state import stub_context
+    cfg = reduced_config(arch, head_dim=64)
+    model = LM(cfg, device=card)
+    params = _gated(model.init_params(
+        torch.Generator(device=card).manual_seed(0), int8=True), 0.5)
+    n_cross = cfg.n_layers // (cfg.cross_attn_period or 1)
+    n_self = cfg.n_layers - (n_cross if cfg.cross_attn_period else 0)
+    cache = model.init_cache(8, 64)
+    for slot in range(8):
+        before = wq_kernel.wq_gemm.launches
+        model.install_slot_context(params, cache, slot, stub_context(
+            cfg, np.random.default_rng(slot)))
+        assert wq_kernel.wq_gemm.launches - before == per_install
+    toks = torch.ones((8, 1), dtype=torch.long, device=card)
+    pos = torch.full((8, 1), 20, dtype=torch.long, device=card)
+    page_idx = torch.arange(8 * 8, dtype=torch.int32,
+                            device=card).view(8, 8)
+    for paged in (None, PagedDecodeState(page_idx, 8)):
+        cache["self"]["pos"].fill_(20)
+        before = (wq_kernel.wq_gemm.launches,
+                  fa_kernel.flash_decode.launches,
+                  pa_kernel.paged_flash_decode.launches)
+        logits, _ = model.forward(params, toks, pos, cache=cache,
+                                  paged=paged)
+        torch.cuda.synchronize()
+        got = (wq_kernel.wq_gemm.launches - before[0],
+               fa_kernel.flash_decode.launches - before[1],
+               pa_kernel.paged_flash_decode.launches - before[2])
+        assert got == ((per_fwd, n_self + n_cross, 0) if paged is None
+                       else (per_fwd, n_cross, n_self))
+        assert bool(torch.isfinite(logits).all())
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-base"])
+def test_cross_engines_on_card_match_cpu(card, arch):
+    """Reduced llama-3.2-vision-90b and whisper-base at head_dim 64, fp32,
+    gate_attn 0.5, on tests/test_serve_families.py's mix with a stub
+    context a request (a preemption and its re-install, a mid-run
+    admission): the continuous engine (paged kernel off and on) and the
+    static engine give the same greedy tokens on the card as on the
+    CPU."""
+    from repro_torch.models.decode_state import stub_context
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch, head_dim=64)
+    params = _gated(LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0)), 0.5)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, cfg.vocab_size, size=n) for n in (15, 15, 7)]
+    gens = [5, 4, 6]
+    extras = [stub_context(cfg, rng, scale=0.05) for _ in prompts]
+    aux = -(-LM(cfg, device="cpu").decode_state.context_tokens(cfg) // 8)
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        model = LM(cfg, device=dev)
+        p = _to(params, dev)
+        for paged in (False, True):
+            eng = ContinuousBatchingEngine(
+                model, p, n_slots=2, max_len=32, page_size=8,
+                prefill_chunk=4, page_budget=4 + 2 * aux, paged_kernel=paged)
+            rids = [eng.submit(pr, g, extra=e)
+                    for pr, g, e in zip(prompts, gens, extras)]
+            res = eng.run()
+            assert sum(r.n_preemptions for r in eng.requests()) >= 1
+            outs[dev.type, paged] = [res[r].tolist() for r in rids]
+        static = StaticBatchEngine(model, p, max_len=32, batch=1)
+        outs[dev.type, "static"] = [
+            static.generate(pr[None], g, extra={k: v[None] for k, v in
+                                                e.items()})[0].tolist()
+            for pr, g, e in zip(prompts, gens, extras)]
+    first = outs["cuda", False]
+    assert all(o == first for o in outs.values()), outs

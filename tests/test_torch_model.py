@@ -191,7 +191,8 @@ def test_bfloat16_weights_carry_bit_exact():
 
 def test_unported_modes_and_families_raise():
     """The dense prefill mode runs (it fills the cache's first positions);
-    a family the port does not serve yet raises."""
+    a family that does not exist raises (the port serves all six of the
+    reference's)."""
     from repro_torch.configs import get_config
     import dataclasses
     _, _, model, params = _models("granite-3-2b")
@@ -204,6 +205,6 @@ def test_unported_modes_and_families_raise():
     assert cache["pos"].tolist() == [3]
     assert cache["k"][:, :, :3].abs().sum() > 0
     assert cache["k"][:, :, 3:].abs().sum() == 0
-    vlm = dataclasses.replace(get_config("granite-3-2b"), family="vlm")
-    with pytest.raises(NotImplementedError):
-        LM(vlm, device="cpu")
+    nope = dataclasses.replace(get_config("granite-3-2b"), family="nope")
+    with pytest.raises(ValueError, match="no DecodeState adapter"):
+        LM(nope, device="cpu")
