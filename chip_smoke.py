@@ -34,7 +34,12 @@ Phases (one line each; any failure exits nonzero and prints no result):
              (kernel.split_plan: splits x tokens, grid, block mode).  On
              the identity-map cases the kernel is also timed at 1, 2, 3, 4
              and 8 splits forced (the sweep the plan's rule is read
-             against).  Times come from repro_torch.perf.measure.
+             against).  Then the verify forward of speculative decoding
+             (spec_k 4): Sq 5, each row fed 0, 1, 3 or 5 tokens after its
+             position (the columns past the feed must come out finite),
+             at granite's and qwen3's heads, bf16 and fp32 K/V; the
+             granite bf16 case timed as the others.  Times come from
+             repro_torch.perf.measure.
 4. kernels-veceval — the STREAM, SpMV, GEMM and conv2d kernels against
              their plain versions on the card: ragged shapes, the JAX
              package's default sizes and the card sizes past the 50 MB L2.
@@ -140,7 +145,12 @@ Phases (one line each; any failure exits nonzero and prints no result):
              split the wrapper launched (kernel.decode_plan), and the
              kernel at 1, 2, 4 and 8 splits forced and the plan's, beside
              SDPA (the sweep the plan's rule is read against); the plan's
-             and SDPA also without the L2 flush.
+             and SDPA also without the L2 flush.  Then the verify width
+             of speculative decoding with ``paged_kernel=False``: Sq 5,
+             rows fed 0, 1, 3, 5 tokens (each query's length
+             ``attention.query_lens``), 32/8 H64 and 16/8 H128, softcap 0
+             and 30, fp32 and bf16; granite's bf16 shape timed beside
+             SDPA and its bound.
 5. parity  — the port on the card against the port on the CPU, reduced
              granite-3-2b in fp32 (TF32 off): greedy tokens identical; and
              one train step of reduced qwen3-1.7b with the flash kernel
@@ -178,6 +188,18 @@ Phases (one line each; any failure exits nonzero and prints no result):
              in int8 the GEMM's launches a forward, a static prefill (the
              context's K/V and the encoder too) and an admission's
              install, each counted from the config.
+             Then the serving features, every engine with check=True (the
+             shadow-state checker; no error finding): reduced granite,
+             mamba2, phi3.5-moe, jamba, llama-3.2-vision and whisper (H
+             64, fp32, gate_attn 0.5) with ``spec_decode=True, spec_k=4``
+             (drafts from the spec-off run's tokens, every other one
+             wrong: made, accepted and rejected on every family; the
+             recurrent families verify in two passes) against it off on
+             tests/test_serve_spec.py's mix, and ``prefix_cache=True``
+             against it off on tests/test_serve_prefix.py's (a shared
+             prefix), each with a preemption: identical greedy tokens, an
+             accept rate above 0, prefix hits for the families that can
+             share a prefix (none for ssm and hybrid).
 6. serve   — the serving path: full-width granite-3-2b in bf16 with random
              weights from a seeded generator, 16 requests through the
              ContinuousBatchingEngine (8 slots, mid-run admission).  The
@@ -277,6 +299,23 @@ Phases (one line each; any failure exits nonzero and prints no result):
              requests at phase 6's mix, stub frames each; the launches a
              decode forward (6 self and 6 cross flash-decode), and the
              CUDA-event ms of one install and of the encoder in it.
+6k. serve-features — the serving features at full width, every engine
+             with check=True (no error finding): (a) granite-3-2b bf16,
+             16 requests sharing a 256-token prefix plus 16-128 own
+             tokens at phase 6's mix, ``prefix_cache`` off then on:
+             identical tokens, prefix hits > 0; (b) granite-3-2b, 8
+             requests repeating a 32-token phrase 4-8 times, 64 new,
+             ``spec_decode`` off then on (spec_k 4): the paged kernel 40
+             launches a forward, verify forwards included; (c)
+             mamba2-780m at full width cut to 16 of its 48 layers (its
+             prefill runs token by token), as (b): the two-pass verify's
+             snapshot (its bytes checked against the config's), accept
+             rate; then again with drafts from the off run's tokens
+             (every other one wrong), so the replay runs at full width
+             whatever the drafter finds.  Each prints tokens/s, step p50
+             and p95, hits, drafts, verify and plain-decode steps, peak
+             memory; (b) and (c) the share of greedy tokens alike on and
+             off (reported only: bf16).
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -368,8 +407,10 @@ from repro_torch.data import SyntheticLMStream  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
+from repro_torch.models.attention import query_lens  # noqa: E402
 from repro_torch.models.decode_state import (  # noqa: E402
     get_adapter, stub_context)
+from repro_torch.models.layers import dtype_of  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.quant import matmul_q, quantize_params  # noqa: E402
 from repro_torch.models.quant import param_bytes as quant_bytes  # noqa: E402
@@ -608,7 +649,12 @@ def phase_sass():
 # phase 3: kernel vs plain
 # ---------------------------------------------------------------------------
 def make_case(*, B, NKV, G, H, page, max_len, sq, valid, permuted, seed,
-              dev, dtype=torch.bfloat16):
+              dev, dtype=torch.bfloat16, fed=None):
+    """``valid``: each row's kv_valid, its queries ending there; with
+    ``fed`` (the verify forward of speculative decoding), each row's
+    position before the step, its Sq queries at ``valid + c`` and its
+    kv_valid ``valid + fed`` (the columns past ``fed`` are discarded by
+    the engine, and must come out finite)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     pps = max_len // page
     P = B * pps
@@ -620,6 +666,10 @@ def make_case(*, B, NKV, G, H, page, max_len, sq, valid, permuted, seed,
     page_idx = ids.to(torch.int32).view(B, pps).contiguous()
     kv_valid = torch.tensor(valid, dtype=torch.int32, device=dev)
     pos0 = (kv_valid - sq).clamp_min(0).to(torch.int32)
+    if fed is not None:
+        pos0 = kv_valid
+        kv_valid = kv_valid + torch.tensor(fed, dtype=torch.int32,
+                                           device=dev)
     qg = q.view(B, sq, NKV, G, H).permute(0, 2, 3, 1, 4)
     qg = qg.reshape(B, NKV, G * sq, H).contiguous()
     return dict(q=q, qg=qg, kp=kp, vp=vp, page_idx=page_idx, pos0=pos0,
@@ -672,6 +722,11 @@ def _split_plan(c):
 
 SWEEP_SPLITS = (1, 2, 3, 4, 8)
 SOFTCAP, SOFTCAP_Q_SCALE = 30.0, 30.0
+# the verify forward (spec_k 4): 5 columns, each row's fed width (0: an
+# idle slot, 1: no draft, 3, 5: drafts) and its position before the step
+VERIFY_SQ = 5
+VERIFY_FED = (0, 1, 3, 5, 5, 3, 1, 0)
+VERIFY_BEFORE = (64, 97, 150, 203, 256, 288, 300, 0)
 
 
 def check_partials(name, args, sq, softcap):
@@ -728,6 +783,18 @@ def phase_kernel(card, hw):
     cases.append(("main-path decode: granite H64 Sq1 identity max_len512",
                   dict(B=8, NKV=8, G=4, H=64, page=16, max_len=512, sq=1,
                        valid=main_valid, permuted=False)))
+    # the verify forward of speculative decoding (6k (b): spec_k 4, 8
+    # slots, max_len 512): Sq 5, each row fed 0, 1, 3 or 5 tokens after
+    # its position; granite's and qwen3's heads, bf16 and fp32 K/V (the
+    # granite bf16 case timed)
+    for arch, NKV, G, H in (("granite", 8, 4, 64), ("qwen3", 8, 2, 128)):
+        for dtype in (torch.bfloat16, torch.float32):
+            cases.append((f"verify {arch} H{H} Sq{VERIFY_SQ} ragged "
+                          f"n_valid {list(VERIFY_FED)} "
+                          f"{str(dtype)[6:]} identity max_len512",
+                          dict(B=8, NKV=NKV, G=G, H=H, page=16, max_len=512,
+                               sq=VERIFY_SQ, valid=VERIFY_BEFORE,
+                               fed=VERIFY_FED, permuted=False, dtype=dtype)))
     worst, worst_cap, main = 0.0, 0.0, None
     for i, (name, kw) in enumerate(cases):
         c = make_case(**kw, seed=i, dev=dev)
@@ -740,6 +807,11 @@ def phase_kernel(card, hw):
         cap_args = (c["qg"] * SOFTCAP_Q_SCALE, *args[1:])
         worst_cap = max(worst_cap, check_partials(
             f"{name} softcap {SOFTCAP:g}", cap_args, c["sq"], SOFTCAP))
+        if name.startswith("verify") and not (
+                name.startswith("verify granite") and "bfloat16" in name):
+            log("kernel", f"{name}: ok max_abs_err {err:.2e} (checked, "
+                          f"not timed) | {_split_plan(c)} | {card}")
+            continue
         t = time_three({
             "kernel": lambda: pa_kernel.paged_flash_decode(*args,
                                                            sq=c["sq"]),
@@ -1936,6 +2008,7 @@ def kernels_flash_decode(g, hw, card):
                                f"{list(DECODE_VALID)}), max abs err fp32 "
                                f"{worst[torch.float32]:.2e}, bf16 "
                                f"{worst[torch.bfloat16]:.2e}")
+    verify_decode(g, hw, card)
     recs = []
     for what, B, S, valid, NQ, NKV, H, Sq in DECODE_TIMED:
         q, k, v = (torch.randn(shape, generator=g, device=dev,
@@ -2001,6 +2074,85 @@ def kernels_flash_decode(g, hw, card):
     return rec
 
 
+def _verify_lens(S, dev):
+    """(8, VERIFY_SQ) valid lengths of the verify forward's queries with
+    ``paged_kernel=False``: ``attention.query_lens`` of each column's
+    position (the row's before + c) and the row's ``before + fed``."""
+    before = torch.tensor(VERIFY_BEFORE, dtype=torch.int32, device=dev)
+    kv_valid = before + torch.tensor(VERIFY_FED, dtype=torch.int32,
+                                     device=dev)
+    pos = before[:, None].long() + torch.arange(VERIFY_SQ, device=dev)[None]
+    return query_lens(pos, kv_valid, S)
+
+
+def verify_decode(g, hw, card):
+    """The flash-decode kernel at the verify width of speculative
+    decoding (``paged_kernel=False``, spec_k 4): 8 rows of Sq 5, fed 0,
+    1, 3 or 5 tokens each (the columns past a row's feed see its whole
+    length and are discarded), granite's (32/8, H 64) and qwen3's (16/8,
+    H 128) heads, softcap 0 and 30, fp32 and bf16, over a 512-token cache
+    read through a strided view: against ``ref.flash_decode`` at
+    DECODE_TOL, every output finite, a query with no valid key 0.  The
+    granite bf16 shape is timed beside SDPA and its bound."""
+    dev = torch.device("cuda")
+    S, B = 512, len(VERIFY_FED)
+    lens = _verify_lens(S, dev)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for NQ, NKV, H in ((32, 8, 64), (16, 8, 128)):
+        for softcap in (0.0, SOFTCAP):
+            for dtype in (torch.float32, torch.bfloat16):
+                q = (torch.randn((B, VERIFY_SQ, NQ, H), generator=g,
+                                 device=dev)
+                     * (SOFTCAP_Q_SCALE if softcap else 1.0)).to(dtype)
+                wide = torch.randn((2 * B, S, NKV, H), generator=g,
+                                   device=dev).to(dtype)
+                k, v = wide[::2], wide[1::2]
+                what = (f"flash_decode verify Sq{VERIFY_SQ} {NQ}/{NKV} H{H} "
+                        f"cap{softcap:g} {dtype}")
+                got = fa_kernel.flash_decode(q, k, v, lens, softcap=softcap)
+                want = fa_ref.flash_decode(q, k, v, lens, softcap=softcap)
+                worst[dtype] = max(worst[dtype], check(
+                    what, got.float(), want.float(), *DECODE_TOL[dtype]))
+                if not bool((got[lens == 0] == 0).all()):
+                    raise SystemExit(f"{what}: a query with no valid key "
+                                     f"is not 0")
+                n += 1
+    log("kernels-serve-dense", f"flash_decode at the verify width: {n} "
+                               f"cases ok (Sq {VERIFY_SQ}, fed "
+                               f"{list(VERIFY_FED)} after "
+                               f"{list(VERIFY_BEFORE)}; 32/8 H64 and 16/8 "
+                               f"H128; softcap 0 and {SOFTCAP:g}), max abs "
+                               f"err fp32 {worst[torch.float32]:.2e}, bf16 "
+                               f"{worst[torch.bfloat16]:.2e}")
+    NQ, NKV, H = 32, 8, 64
+    q, k, v = (torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.bfloat16)
+               for shape in ((B, VERIFY_SQ, NQ, H), (B, S, NKV, H),
+                             (B, S, NKV, H)))
+    want = fa_ref.flash_decode(q, k, v, lens)
+    err = check("flash_decode verify timed shape",
+                fa_kernel.flash_decode(q, k, v, lens).float(), want.float(),
+                *DECODE_TOL[torch.bfloat16])
+    qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    mask = (torch.arange(S, device=dev)[None, None, None, :]
+            < lens[:, None, :, None])
+    # the keys each row's queries read: its longest query's length
+    rows = lens.max(dim=1).values.double()
+    nbytes = float(2.0 * rows.sum() * NKV * H * 2 + 2.0 * q.numel() * 2
+                   + lens.numel() * 4)
+    flops = float(4.0 * lens.double().sum() * NQ * H)
+    return timed_record(
+        f"flash_decode granite-3-2b verify (spec_k 4): B{B} Sq{VERIFY_SQ} "
+        f"S_cache {S} ragged fed {list(VERIFY_FED)} {NQ}/{NKV} heads H{H} "
+        f"bf16", {
+            "kernel": lambda: fa_kernel.flash_decode(q, k, v, lens),
+            "plain": lambda: fa_ref.flash_decode(q, k, v, lens),
+            "library": lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask, enable_gqa=True)},
+        flops, nbytes, torch.bfloat16, hw, card, err, "kernels-serve-dense")
+
+
 def phase_kernels_serve_dense(card, hw):
     g = torch.Generator(device="cuda").manual_seed(5)
     return {"flash_decode": kernels_flash_decode(g, hw, card)}
@@ -2055,6 +2207,7 @@ def phase_parity():
     parity_dense()
     parity_hybrid()
     parity_cross()
+    parity_features()
 
 
 def engine_tokens(cfg, params_cpu, device, prompts, gens, wrapper):
@@ -2327,6 +2480,145 @@ def parity_cross():
                           f"mid-run admission); card launches (flash_decode "
                           f"/ paged_partials / ssd_scan / wq_gemm) "
                           f"{'; '.join(counts)}")
+
+
+# the serving features on the card (phase 5): each family's reduced
+# config (H 64 where it has attention), every gate_attn 0.5, fp32
+FEATURE_ARCHS = (INT8_ARCH, SSM_ARCH, MOE_ARCH, HYBRID_ARCH, VLM_ARCH,
+                 AUDIO_ARCH)
+# tests/test_serve_spec.py's mix (the first prompt motif-tiled) and
+# tests/test_serve_prefix.py's (a shared 14-token prefix), both on 2
+# slots under a 4-page budget plus the pages a context pins: a
+# preemption each
+SPEC_MIX = ((15, 6), (15, 5), (7, 6))
+PREFIX_MIX = ((1, 4), (2, 3), (3, 3))
+
+
+def _no_errors(what, *engines):
+    errors = [f.format() for e in engines for f in e.check_findings
+              if f.severity == "error"]
+    if errors:
+        raise SystemExit(f"{what}: the shadow checker found "
+                         + "; ".join(errors))
+
+
+def oracle_drafts(eng, want, vocab):
+    """Replace the engine's drafter proposals by the next ``spec_k``
+    tokens the spec-off run gave the request (``want``: rid -> tokens),
+    the second made wrong every other proposal, and never throttle:
+    drafts are then made, accepted and rejected on every family, where a
+    random model's own n-grams seldom recur.  Greedy acceptance must keep
+    the tokens whatever is drafted."""
+    calls = [0]
+    plen = {}
+
+    def propose(rid, k=None):
+        h = eng.drafter.history(rid)
+        n_gen = len(h) - plen[rid]
+        d = np.array(want[rid][n_gen:n_gen + eng.spec_k], np.int32)
+        calls[0] += 1
+        if len(d) > 1 and calls[0] % 2:
+            d[1] = (d[1] + 1) % vocab
+        return d
+
+    real_add = eng.drafter.add_request
+
+    def add_request(rid, prompt):
+        plen[rid] = len(np.asarray(prompt).reshape(-1))
+        real_add(rid, prompt)
+
+    eng.drafter.propose = propose
+    eng.drafter.add_request = add_request
+    eng.drafter.throttled = lambda *a, **kw: False
+
+
+def _feature_run(model, params, prompts, gens, extras, oracle=None, **kw):
+    """The engine (``kw``: its feature options; ``oracle``: the tokens
+    ``oracle_drafts`` drafts from) on a phase-5 mix under the checker,
+    which must preempt; returns (the engine, {rid: tokens})."""
+    cfg = model.cfg
+    aux = -(-get_adapter(cfg.family).context_tokens(cfg) // 8)
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32,
+                                   page_size=8, prefill_chunk=4,
+                                   page_budget=4 + 2 * aux, check=True,
+                                   **kw)
+    if oracle is not None:
+        oracle_drafts(eng, oracle, cfg.vocab_size)
+    rids = [eng.submit(p, g, extra=e)
+            for p, g, e in zip(prompts, gens, extras)]
+    out = eng.run()
+    if sum(r.n_preemptions for r in eng.requests()) < 1:
+        raise SystemExit(f"{cfg.arch_id} features: the mix forced no "
+                         f"preemption")
+    return eng, {r: out[r].tolist() for r in rids}
+
+
+def parity_features():
+    """Every family's reduced config (granite, mamba2, phi3.5-moe, jamba,
+    llama-3.2-vision, whisper; H 64, fp32, gate_attn 0.5) on the card,
+    every engine under the shadow checker: ``spec_decode=True, spec_k=4``
+    (drafts from ``oracle_drafts``) against it off on SPEC_MIX, and
+    ``prefix_cache=True`` against it off on PREFIX_MIX: identical greedy
+    tokens, drafts made and some accepted, prefix hits where the family
+    can share a prefix (none for ssm and hybrid), no error finding."""
+    for arch in FEATURE_ARCHS:
+        cfg = (reduced_config(arch) if arch == SSM_ARCH
+               else reduced_config(arch, head_dim=64))
+        params = set_gates(LM(cfg, device="cpu").init_params(
+            torch.Generator(device="cpu").manual_seed(0)), 0.5)
+        model = LM(cfg, device="cuda")
+        p = _to(params, model.device)
+        rng = np.random.default_rng(3)
+        prompts = [np.tile(rng.integers(1, cfg.vocab_size, size=2),
+                           SPEC_MIX[0][0])[:SPEC_MIX[0][0]]]
+        prompts += [rng.integers(1, cfg.vocab_size, size=n)
+                    for n, _ in SPEC_MIX[1:]]
+        gens = [g for _, g in SPEC_MIX]
+        extras = [stub_context(cfg, rng, scale=0.05) for _ in SPEC_MIX]
+        off, want = _feature_run(model, p, prompts, gens, extras)
+        spec, got = _feature_run(model, p, prompts, gens, extras,
+                                 spec_decode=True, spec_k=4, oracle=want)
+        s = spec.stats.summary()
+        verify = sum(st.verify for st in spec.stats.steps)
+        if got != want or not s["drafted_tokens"] or not s["accept_rate"]:
+            raise SystemExit(f"{arch} spec parity: tokens {got} vs {want}, "
+                             f"drafted {s['drafted_tokens']}, accept_rate "
+                             f"{s['accept_rate']}")
+        rng = np.random.default_rng(4)
+        shared = rng.integers(1, cfg.vocab_size, size=14)
+        pprompts = [np.concatenate([shared, rng.integers(
+            1, cfg.vocab_size, size=n)]) for n, _ in PREFIX_MIX]
+        pgens = [g for _, g in PREFIX_MIX]
+        ctx = stub_context(cfg, rng, scale=0.05)
+        cold, cold_t = _feature_run(model, p, pprompts, pgens,
+                                    [ctx] * len(PREFIX_MIX))
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            warm, warm_t = _feature_run(model, p, pprompts, pgens,
+                                        [ctx] * len(PREFIX_MIX),
+                                        prefix_cache=True)
+        hits = warm.stats.summary()["prefix_hit_tokens"]
+        cachable = get_adapter(cfg.family).prefix_cachable
+        if warm_t != cold_t or (hits > 0) != cachable:
+            raise SystemExit(f"{arch} prefix parity: tokens {warm_t} vs "
+                             f"{cold_t}, hits {hits} (cachable "
+                             f"{cachable})")
+        _no_errors(f"{arch} features", off, spec, cold, warm)
+        log("parity", f"reduced {arch} fp32 on the card, check=True: "
+                      f"spec_decode (spec_k 4) = off, "
+                      f"{sum(map(len, got.values()))} greedy tokens, "
+                      f"{verify} verify steps, drafted "
+                      f"{s['drafted_tokens']}, accept_rate "
+                      f"{s['accept_rate']:.3f}, forwards "
+                      f"{spec.stats.forwards} vs {off.stats.forwards}"
+                      f"{' (two-pass)' if spec.snapshot_bytes else ''}; "
+                      f"prefix_cache = off, "
+                      f"{sum(map(len, warm_t.values()))} tokens, "
+                      f"prefix_hit_tokens {hits}"
+                      f"{'' if cachable else ' (pool off: recurrent)'}; "
+                      f"a preemption in each run; no error finding")
+        del model, p, off, spec, cold, warm
+    torch.cuda.empty_cache()
 
 
 def parity_train_step():
@@ -3297,6 +3589,216 @@ def phase_serve_audio(card, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 6k: the serving features at full width (granite-3-2b, mamba2-780m)
+# ---------------------------------------------------------------------------
+# (a) the prefix cache: 16 requests, a shared 256-token prefix (a multiple
+# of the chunk, so a hit's suffix chunks fall where the cold run's do)
+# and 16-128 own tokens, phase 6's mix otherwise; (b), (c) speculative
+# decoding: 8 requests whose prompts repeat one 32-token phrase 4 to 8
+# times, 64 new, spec_k 4
+FEATURE_PREFIX = 256
+FEATURE_OWN = (16, 128)
+SPEC_PHRASE, SPEC_REPEATS, SPEC_NEW, SPEC_K = 32, (4, 8), 64, 4
+# (c)'s mamba2-780m cut to this many of its 48 layers (its width whole)
+SPEC_SSM_LAYERS = 16
+
+
+def _feature_serve(phase, what, eng, prompts, n_new, card):
+    """Submit ``prompts`` (``n_new`` new tokens each), drain between CUDA
+    events and check the tokens; returns (tokens a request, the summary,
+    tokens/s over the run, the launches of SERVE_KERNELS, the peak GiB)."""
+    cfg = eng.model.cfg
+    rids = [eng.submit(p, n_new) for p in prompts]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(SERVE_KERNELS)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = eng.run()
+    end.record()
+    end.synchronize()
+    got = {n: launches_of(n) for n in SERVE_KERNELS}
+    _check_tokens(f"{phase} {what}", out, n_new, cfg.padded_vocab)
+    _no_errors(f"{phase} {what}", eng)
+    st = eng.stats.summary()
+    run_ms = start.elapsed_time(end)
+    verify = sum(s_.verify for s_ in eng.stats.steps)
+    fast = sum(bool(s_.n_decode) and not s_.verify for s_ in eng.stats.steps)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(phase, f"{what}: {len(prompts)} requests, "
+               f"{st['generated_tokens']} tokens in {st['steps']} steps / "
+               f"{st['forwards']} forwards | "
+               f"{st['generated_tokens'] / (run_ms / 1e3):.1f} tok/s over "
+               f"{run_ms:.1f} ms | step p50 {st['step_ms_p50']:.3f} ms, p95 "
+               f"{st['step_ms_p95']:.3f} ms | prefix_hit_tokens "
+               f"{st['prefix_hit_tokens']}, prefix_hit_rate "
+               f"{st['prefix_hit_rate']:.3f} | drafted "
+               f"{st['drafted_tokens']}, accepted "
+               f"{st['accepted_draft_tokens']}, accept_rate "
+               f"{st['accept_rate']:.3f}, {verify} verify steps, {fast} "
+               f"plain-decode steps | launches " + ", ".join(
+                   f"{k} {v}" for k, v in got.items() if v)
+               + f" | peak {peak:.2f} GiB | check=True, no error finding | "
+               f"{card}")
+    return ([np.asarray(out[r]) for r in rids], st,
+            st["generated_tokens"] / (run_ms / 1e3), got, peak)
+
+
+def _agreeing(a, b):
+    """The share of greedy tokens two runs give alike, position by
+    position."""
+    same = sum(int((x == y).sum()) for x, y in zip(a, b))
+    return same / sum(len(x) for x in a)
+
+
+def _spec_prompts(cfg, seed=5):
+    rng = np.random.default_rng(seed)
+    return [np.tile(rng.integers(1, cfg.vocab_size, size=SPEC_PHRASE),
+                    int(r))
+            for r in rng.integers(SPEC_REPEATS[0], SPEC_REPEATS[1] + 1,
+                                  size=8)]
+
+
+def phase_serve_features(card):
+    """6k: the serving features at full width, every engine with
+    check=True.  (a) granite-3-2b bf16, phase 6's mix, 16 requests sharing
+    a 256-token prefix, ``prefix_cache`` off then on: identical tokens,
+    hits > 0.  (b) granite-3-2b, 8 repeated-phrase requests, 64 new,
+    ``spec_decode`` off then on (spec_k 4): the paged kernel 40 launches a
+    forward, verify forwards included; the agreeing share reported.  (c)
+    mamba2-780m at full width cut to SPEC_SSM_LAYERS layers, as (b): the
+    two-pass verify's snapshot bytes, accept rate and agreeing share; then
+    with ``oracle_drafts`` from the off run's tokens, verify steps
+    required.  Returns the launches of SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    phase = "serve-features"
+    total = {}
+    cfg = get_config("granite-3-2b")
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    rng = np.random.default_rng(3)
+    shared = rng.integers(1, cfg.vocab_size, size=FEATURE_PREFIX)
+    prompts = [np.concatenate([shared, rng.integers(1, cfg.vocab_size,
+                                                    size=int(n))])
+               for n in rng.integers(FEATURE_OWN[0], FEATURE_OWN[1] + 1,
+                                     size=16)]
+    runs = {}
+    for on in (False, True):
+        eng = ContinuousBatchingEngine(model, params, prefix_cache=on,
+                                       check=True, **MIX)
+        runs[on] = _feature_serve(
+            phase, f"(a) granite-3-2b bf16 prefix_cache={on} (a shared "
+                   f"{FEATURE_PREFIX}-token prefix + {FEATURE_OWN[0]}-"
+                   f"{FEATURE_OWN[1]} own tokens)", eng, prompts, MIX_NEW,
+            card)
+        _add(total, runs[on][3])
+        del eng
+    same = all(np.array_equal(x, y) for x, y in zip(runs[False][0],
+                                                     runs[True][0]))
+    hits = runs[True][1]["prefix_hit_tokens"]
+    log(phase, f"(a) tokens identical with the prefix cache on and off: "
+               f"{same}; prefix_hit_tokens {hits}; tok/s on / off "
+               f"{runs[True][2] / runs[False][2]:.3f} | {card}")
+    if not same or hits <= 0:
+        raise SystemExit(f"{phase} (a): identical {same}, hits {hits}")
+
+    sprompts = _spec_prompts(cfg)
+    runs = {}
+    for on in (False, True):
+        eng = ContinuousBatchingEngine(model, params, spec_decode=on,
+                                       spec_k=SPEC_K, check=True, **MIX)
+        runs[on] = _feature_serve(
+            phase, f"(b) granite-3-2b bf16 spec_decode={on} (spec_k "
+                   f"{SPEC_K}; a {SPEC_PHRASE}-token phrase x "
+                   f"{SPEC_REPEATS[0]}-{SPEC_REPEATS[1]})", eng, sprompts,
+            SPEC_NEW, card)
+        fwd = runs[on][1]["forwards"]
+        if runs[on][3]["paged_partials"] != cfg.n_layers * fwd:
+            raise SystemExit(f"{phase} (b): paged_partials "
+                             f"{runs[on][3]['paged_partials']}, expected "
+                             f"{cfg.n_layers} x {fwd} forwards")
+        _add(total, runs[on][3])
+        del eng
+    log(phase, f"(b) paged_partials = {cfg.n_layers} x forwards in both "
+               f"runs; greedy tokens alike on and off "
+               f"{100 * _agreeing(runs[False][0], runs[True][0]):.1f}% "
+               f"(reported only: bf16 at another GEMM M and B1 slicing); "
+               f"tok/s on / off {runs[True][2] / runs[False][2]:.3f} | "
+               f"{card}")
+    del model, params
+    torch.cuda.empty_cache()
+
+    # (c) at full width cut to SPEC_SSM_LAYERS layers: its continuous
+    # prefill runs token by token (the phase's cost)
+    cfg = get_config(SSM_ARCH, n_layers=SPEC_SSM_LAYERS)
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    nheads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.ngroups * s.d_state
+    # the snapshot a slot and layer: h (fp32) and the conv window
+    per_layer = (nheads * s.head_dim * s.ngroups * s.d_state * 4
+                 + (s.conv_kernel - 1) * conv_dim
+                 * dtype_of(cfg.compute_dtype).itemsize)
+    full_layers = get_config(SSM_ARCH).n_layers
+    sprompts = _spec_prompts(cfg)
+    runs = {}
+    for on in (False, True):
+        eng = ContinuousBatchingEngine(model, params, spec_decode=on,
+                                       spec_k=SPEC_K, check=True, **MIX)
+        if on:
+            want = per_layer * cfg.n_layers * MIX["n_slots"]
+            log(phase, f"(c) {SSM_ARCH} ({cfg.n_layers} of {full_layers} "
+                       f"layers) snapshot of the two-pass verify: "
+                       f"{eng.snapshot_bytes} bytes for {MIX['n_slots']} "
+                       f"slots (reckoned from the config: {per_layer} "
+                       f"bytes a layer and slot, h {nheads} x {s.head_dim}"
+                       f" x {s.d_state} fp32 + conv {s.conv_kernel - 1} x "
+                       f"{conv_dim} {cfg.compute_dtype}; "
+                       f"{per_layer * full_layers / 1e6:.2f} MB a slot at "
+                       f"all {full_layers} layers)")
+            if eng.snapshot_bytes != want:
+                raise SystemExit(f"{phase} (c): snapshot "
+                                 f"{eng.snapshot_bytes} != {want}")
+        runs[on] = _feature_serve(
+            phase, f"(c) {SSM_ARCH} bf16, {cfg.n_layers} layers, "
+                   f"spec_decode={on} (spec_k {SPEC_K})", eng, sprompts,
+            SPEC_NEW, card)
+        if runs[on][3]["ssd_scan"]:
+            raise SystemExit(f"{phase} (c): SSD launches in the continuous "
+                             f"engine")
+        del eng
+    # the replay at full width whatever the drafter finds: drafts from
+    # the off run's tokens (phase 5's oracle_drafts)
+    eng = ContinuousBatchingEngine(model, params, spec_decode=True,
+                                   spec_k=SPEC_K, check=True, **MIX)
+    oracle_drafts(eng, dict(enumerate(t.tolist() for t in runs[False][0])),
+                  cfg.vocab_size)
+    oracle = _feature_serve(
+        phase, f"(c) {SSM_ARCH} bf16, {cfg.n_layers} layers, "
+               f"spec_decode=True, drafts from the off run's tokens (every "
+               f"other one wrong)", eng, sprompts, SPEC_NEW, card)
+    if not sum(s_.verify for s_ in eng.stats.steps):
+        raise SystemExit(f"{phase} (c): no verify step with the oracle's "
+                         f"drafts")
+    del eng
+    log(phase, f"(c) greedy tokens alike on and off "
+               f"{100 * _agreeing(runs[False][0], runs[True][0]):.1f}%, "
+               f"with the oracle's drafts and off "
+               f"{100 * _agreeing(runs[False][0], oracle[0]):.1f}% "
+               f"(reported only: bf16); tok/s on / off "
+               f"{runs[True][2] / runs[False][2]:.3f}; phase wall "
+               f"{_since(t0):.1f} s | {card}")
+    del model, params
+    torch.cuda.empty_cache()
+    return total
+
+
+# ---------------------------------------------------------------------------
 # phase 7: train at full width
 # ---------------------------------------------------------------------------
 def _train_log(what, log_, B, S, card):
@@ -3640,7 +4142,8 @@ def main():
                 phase_serve_phi3m(card),
                 phase_serve_hybrid(card, args.profile),
                 phase_serve_vlm(card, args.profile),
-                phase_serve_audio(card, args.profile)):
+                phase_serve_audio(card, args.profile),
+                phase_serve_features(card)):
         _add(launches, got)
     launches["flash_attention"] = phase_train(card, args.profile)
     launches.update(phase_veceval(card, hw))

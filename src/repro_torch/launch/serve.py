@@ -47,9 +47,19 @@ jamba-v0.1-52b, 5 for llama-3.2-vision-90b).  Runs on
 ``cuda`` unless ``--device`` names another device.  Times are device times from CUDA
 events; on the CPU none are reported.
 
+The continuous engine's serving features: ``--prefix-cache`` (with
+``--prefix-pool`` entries; the families whose state is a token prefix,
+the ssm and hybrid serve with the pool off) and ``--speculative`` (the
+n-gram drafter, up to ``--spec-k`` tokens a greedy row a step); each
+prints its counts (prefix hits; drafted and accepted tokens).  The
+static engine has neither and refuses them.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --reduced --device cpu --prefix-cache --speculative --spec-k 4
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``--prefix-cache``, ``--mesh``, ``--sp-kv``, ``--open-loop``,
-``--speculative`` and ``--chunk-policy stall_free``.
+item: ``--mesh``, ``--sp-kv``, ``--open-loop`` and ``--chunk-policy
+stall_free``.
 """
 from __future__ import annotations
 
@@ -67,11 +77,9 @@ from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
 
 # option -> (the value that means "off", the ROADMAP item that ports it)
 NOT_PORTED = {
-    "prefix_cache": (False, "A7: the prefix cache"),
     "mesh": (None, "A10: the device mesh"),
     "sp_kv": (False, "A10: the sequence-parallel KV cache"),
     "open_loop": (False, "A7: the open-loop front end"),
-    "speculative": (False, "A7: speculative decoding"),
     "chunk_policy": ("fixed", "A7: the stall_free chunk policy"),
 }
 
@@ -86,6 +94,8 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         gen_len: int = 32, prefill_chunk: int = 8, page_size: int = 16,
         temperature: float = 0.0, static: bool = False, int8: bool = False,
         layers: Optional[int] = None, device=None,
+        prefix_cache: bool = False, prefix_pool: int = 8,
+        speculative: bool = False, spec_k: int = 4,
         **options) -> Dict[str, Any]:
     """Serve ``requests`` (default 2 x ``slots``; ``slots`` with
     ``static``) random prompts and return what the launcher prints: the
@@ -96,7 +106,12 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     and on the card the
     CUDA-event times (``run_ms``, ``tokens_per_s``, ``prefill_ms`` for
     ``static``, ``step_ms_p50``) and ``peak_gib``, the peak device memory
-    of serving (after the quantization)."""
+    of serving (after the quantization).  ``prefix_cache`` /
+    ``prefix_pool`` and ``speculative`` / ``spec_k`` are the continuous
+    engine's; the result then also holds its ``prefix_cache`` (False
+    for a family that cannot share a prefix), ``prefix_hit_tokens``,
+    ``prefix_hit_rate``, ``drafted_tokens``, ``accepted_draft_tokens``
+    and ``accept_rate``."""
     for name, value in options.items():
         if name not in NOT_PORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
@@ -104,6 +119,9 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         if value != off:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (ROADMAP {item})")
+    if static and (prefix_cache or speculative):
+        raise ValueError("the static engine has no prefix cache and no "
+                         "speculative decoding: drop --static")
     depth = {} if layers is None else {"n_layers": layers}
     cfg = (reduced_config(arch, **depth) if reduced
            else get_config(arch, **depth))
@@ -140,7 +158,9 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         max_len = -(-max_len // page_size) * page_size    # whole pages
         engine = ContinuousBatchingEngine(
             model, params, n_slots=slots, max_len=max_len,
-            page_size=page_size, prefill_chunk=prefill_chunk)
+            page_size=page_size, prefill_chunk=prefill_chunk,
+            prefix_cache=prefix_cache, prefix_pool=prefix_pool,
+            spec_decode=speculative, spec_k=spec_k)
         n_req = requests or 2 * slots
         prompts = []
         for _ in range(n_req):
@@ -163,6 +183,12 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         generated_tokens=st["generated_tokens"], steps=st["steps"],
         forwards=st["forwards"], run_ms=None, tokens_per_s=None,
         prefill_ms=None, step_ms_p50=None, peak_gib=None)
+    if not static:
+        res["prefix_cache"] = engine.prefix_cache
+        res["speculative"] = engine.spec_decode
+        res.update({k: st[k] for k in (
+            "prefix_hit_tokens", "prefix_hit_rate", "drafted_tokens",
+            "accepted_draft_tokens", "accept_rate")})
     if on_card:
         end.synchronize()
         res["run_ms"] = start.elapsed_time(end)
@@ -194,6 +220,13 @@ def report(res: Dict[str, Any]) -> str:
         if res["prefill_ms"] is not None:
             line += f", prefill {res['prefill_ms']:.3f} ms"
         line += f", peak {res['peak_gib']:.2f} GiB"
+    if res.get("prefix_cache"):
+        line += (f" | prefix cache: {res['prefix_hit_tokens']} prompt "
+                 f"tokens served (hit rate {res['prefix_hit_rate']:.2f})")
+    if res.get("speculative"):
+        line += (f" | speculative: accept_rate {res['accept_rate']:.2f} "
+                 f"({res['accepted_draft_tokens']}/"
+                 f"{res['drafted_tokens']} drafted tokens)")
     return line + f" | sample: {list(map(int, first[:12]))}"
 
 
@@ -220,13 +253,22 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     ap.add_argument("--layers", type=int, default=None,
                     help="cut the depth to this many layers")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="not ported (A7)")
+                    help="page-table-keyed prefix caching: shared "
+                         "page-aligned prompt prefixes are copied from "
+                         "pooled donor rows instead of prefilled "
+                         "(token-addressable families only)")
+    ap.add_argument("--prefix-pool", type=int, default=8,
+                    help="max pooled prefix entries (LRU bound)")
     ap.add_argument("--mesh", default=None, help="not ported (A10)")
     ap.add_argument("--sp-kv", action="store_true", help="not ported (A10)")
     ap.add_argument("--open-loop", action="store_true",
                     help="not ported (A7)")
     ap.add_argument("--speculative", action="store_true",
-                    help="not ported (A7)")
+                    help="n-gram draft-verify speculative decoding: "
+                         "verify up to --spec-k drafted tokens a greedy "
+                         "row a step (identical tokens, fewer steps)")
+    ap.add_argument("--spec-k", type=int, default=4,
+                    help="max draft tokens verified a row a step")
     ap.add_argument("--chunk-policy", default="fixed",
                     choices=("fixed", "stall_free"),
                     help="stall_free is not ported (A7)")
@@ -237,9 +279,10 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
               page_size=args.page_size, temperature=args.temperature,
               static=args.static, device=args.device, int8=args.int8,
               layers=args.layers,
-              prefix_cache=args.prefix_cache, mesh=args.mesh,
-              sp_kv=args.sp_kv, open_loop=args.open_loop,
-              speculative=args.speculative, chunk_policy=args.chunk_policy)
+              prefix_cache=args.prefix_cache, prefix_pool=args.prefix_pool,
+              speculative=args.speculative, spec_k=args.spec_k,
+              mesh=args.mesh, sp_kv=args.sp_kv, open_loop=args.open_loop,
+              chunk_policy=args.chunk_policy)
     print(report(res), flush=True)
     return res
 

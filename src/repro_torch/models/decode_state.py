@@ -14,7 +14,10 @@ state, so a batch-1 forward on a row writes straight into its slot and
 (image embeddings; the encoder's output over audio frames) beside the
 self-attention cache: the engine installs it into the slot's row at
 every (re-)admission (``install_context``) and decode steps only read
-it.
+it.  The serving features have two more primitives, in place too:
+``copy_state_prefix`` (the prefix cache's copy of a donor slot's K/V
+prefix) and ``adjust_state_counters`` (the speculative rewind of the
+position counters).
 """
 from __future__ import annotations
 
@@ -57,6 +60,67 @@ def set_state_row(state: Params, specs: Params, slot: int,
         if dst.data_ptr() != r.data_ptr():
             dst.copy_(r)
     _zip(put, state, row, specs)
+    return state
+
+
+def state_leaves(state: Params, specs: Params):
+    """(leaf, spec) pairs of every leaf, in the dict's order."""
+    if isinstance(state, dict):
+        for k in state:
+            yield from state_leaves(state[k], specs[k])
+    else:
+        yield state, specs
+
+
+def _is_counter(leaf: torch.Tensor, spec) -> bool:
+    """A per-slot integer counter (the attention cache's ``pos``): an
+    integer leaf whose spec names no axis but ``"batch"``."""
+    return (not leaf.is_floating_point() and not leaf.is_complex()
+            and all(a is None or a == "batch" for a in spec))
+
+
+def copy_state_prefix(state: Params, specs: Params, src: int, dst: int,
+                      n_tokens: int) -> Params:
+    """Token-range copy between slots, in place: the device half of the
+    prefix cache (the reference's ``copy_state_prefix``).
+
+    Every leaf with a ``"kv_seq"`` axis gets the first ``n_tokens``
+    entries of slot ``src``'s row in slot ``dst``'s row, and zeros past
+    them; every per-slot integer counter (``pos``) is set to
+    ``n_tokens`` in ``dst``; every other leaf (the cross K/V, which the
+    engine installs again after the copy) is left alone.  ``src == dst``
+    trims in place: only the entries past ``n_tokens`` are zeroed.  The
+    source rows are read before anything of ``dst`` is written, and for
+    ``src != dst`` the two rows do not overlap.  Only adapters with
+    ``prefix_cachable`` may be driven through this."""
+    for leaf, spec in state_leaves(state, specs):
+        bax = spec.index("batch")
+        if "kv_seq" in spec:
+            tax = spec.index("kv_seq")
+            row = leaf.narrow(bax, dst, 1)
+            if src != dst:
+                row.narrow(tax, 0, n_tokens).copy_(
+                    leaf.narrow(bax, src, 1).narrow(tax, 0, n_tokens))
+            row.narrow(tax, n_tokens, leaf.shape[tax] - n_tokens).zero_()
+        elif _is_counter(leaf, spec):
+            leaf.narrow(bax, dst, 1).fill_(n_tokens)
+    return state
+
+
+def adjust_state_counters(state: Params, specs: Params,
+                          delta: torch.Tensor) -> Params:
+    """Subtract the per-slot ``delta`` (B,) from every per-slot integer
+    counter, in place: the speculative rewind to the accepted frontier
+    (the reference's ``adjust_state_counters``).  K/V entries past the
+    rewound counter stay, invisible under the ``kv_valid`` mask, and the
+    next step overwrites them.  Only for ``token_addressable``
+    adapters."""
+    for leaf, spec in state_leaves(state, specs):
+        if _is_counter(leaf, spec):
+            shape = [1] * leaf.dim()
+            bax = spec.index("batch")
+            shape[bax] = leaf.shape[bax]
+            leaf.sub_(delta.to(leaf.dtype).view(shape))
     return state
 
 

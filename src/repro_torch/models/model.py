@@ -168,6 +168,25 @@ class LM:
         return decode_state.reset_state_slots(cache, self.cache_specs(),
                                               slot_mask)
 
+    def adjust_cache_counters(self, cache: Params,
+                              delta: torch.Tensor) -> Params:
+        """Subtract the per-slot ``delta`` (B,) from the cache's position
+        counters, in place: the speculative rewind to the accepted
+        frontier (only for ``decode_state.token_addressable``
+        families)."""
+        return decode_state.adjust_state_counters(cache, self.cache_specs(),
+                                                  delta)
+
+    def install_cache_prefix(self, cache: Params, src_slot: int,
+                             dst_slot: int, n_tokens: int) -> Params:
+        """Copy the first ``n_tokens`` K/V entries of ``src_slot``'s rows
+        into ``dst_slot`` and set its position counter to ``n_tokens``,
+        in place: the device half of the prefix cache (only for
+        ``decode_state.prefix_cachable`` families); ``src_slot ==
+        dst_slot`` trims in place."""
+        return decode_state.copy_state_prefix(cache, self.cache_specs(),
+                                              src_slot, dst_slot, n_tokens)
+
     def install_slot_context(self, params: Params, cache: Params, slot: int,
                              extra: Dict[str, Any]) -> Params:
         """Admission-time write of a request's read-only context (the

@@ -36,15 +36,33 @@ Sampled tokens stay on the device between steps: ``prev_sampled``
 (3*n_slots, max_len) collects every committed token.  Both are allocated
 once and updated in place — what donation does in the reference.  The
 host reads ``out_buf`` only at a flush point, so without EOS detection a
-run has no per-step device sync.
+plain step has no device sync; a verify step has one (the drafter needs
+the accepted tokens), and a fast-path step leaves the drafter's
+histories stale until the request next proposes.
+
+The prefix cache (``prefix_cache=True``, families whose state is a
+token prefix: dense, moe, vlm, audio) keeps released requests'
+page-aligned prompt prefixes pooled; a matching admission copies the
+donor slot's K/V in place (``LM.install_cache_prefix``) instead of
+prefilling them.  Speculative decoding (``spec_decode=True``) drafts up
+to ``spec_k`` tokens a greedy row with the n-gram drafter
+(``serve/draft.py``), scores them in one (n_slots, spec_k + 1) verify
+forward and keeps the longest prefix the argmax chain agrees with, plus
+one token: the token-addressable families rewind their position
+counters (``LM.adjust_cache_counters``); the recurrent ones (ssm,
+hybrid) restore a snapshot of their state taken before the verify
+forward and run it again with ``n_valid`` the accepted counts.
+``check=True`` attaches the shadow-state checker
+(``repro_torch.analysis.schedcheck``) to the cache and the scheduler.
 
 Step time on the card comes from CUDA events recorded around each step
 and read when the stats are summarized; on the CPU no step time is
 recorded.
 
 Not ported yet (each raises ``NotImplementedError`` if asked for): the
-device mesh, speculative decoding, the prefix cache, the stall-free
-chunk policy, build-time trace analysis, the paged-kernel autotune, and
+device mesh (``mesh``, ``rules``, ``sp_kv``), the stall-free chunk policy
+(``chunk_policy="stall_free"``, ``tbt_target_s``), build-time trace
+analysis (``analyze``), the paged-kernel autotune (``retune``), and
 ``StepCostModel`` (so ``EngineStats`` carries no modeled flops or
 bytes).  For a family whose state cannot be cut to a token prefix (ssm,
 hybrid) ``prefix_cache=True`` warns and serves with the pool off, as
@@ -59,19 +77,22 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.findings import Finding
+from repro_torch.analysis.schedcheck import SchedChecker
 from repro_torch.models import decode_state
 from repro_torch.models.attention import PagedDecodeState
 from repro_torch.models.model import LM
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import PagedKVCache
-from repro_torch.serve.scheduler import Request, Scheduler, StepPlan
+from repro_torch.serve.draft import NGramDrafter
+from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
+                                         StepPlan)
 
 # reference engine options this port does not have yet, with the value
 # that means "off"; anything else raises NotImplementedError
 _NOT_PORTED = {
-    "mesh": None, "rules": None, "sp_kv": False, "spec_decode": False,
-    "prefix_cache": False, "analyze": False, "retune": False,
-    "check": None, "chunk_policy": "fixed", "tbt_target_s": None,
+    "mesh": None, "rules": None, "sp_kv": False, "analyze": False,
+    "retune": False, "chunk_policy": "fixed", "tbt_target_s": None,
 }
 
 
@@ -134,6 +155,12 @@ def _record(stats, events, **counts) -> None:
 class StepRecord:
     n_decode: int
     n_prefill_tokens: int
+    # the paged cache's slot occupancy and page utilization after the
+    # step (0.0 for the static engine, which has no paged cache)
+    occupancy: float = 0.0
+    page_utilization: float = 0.0
+    # the step ran the speculative verify forward (not the plain step)
+    verify: bool = False
     # CUDA events bracketing the step on the card (None on the CPU)
     start: Optional[torch.cuda.Event] = None
     end: Optional[torch.cuda.Event] = None
@@ -151,22 +178,63 @@ class StepRecord:
 class EngineStats:
     steps: List[StepRecord] = dataclasses.field(default_factory=list)
     generated_tokens: int = 0
-    # model forward passes run (batched decode steps + prefill rows)
+    # model forward passes run (batched decode steps, verify passes and
+    # prefill rows)
     forwards: int = 0
+    # prompt tokens whose prefill the prefix cache skipped (mirrors
+    # Scheduler.prefix_hit_tokens)
+    prefix_hit_tokens: int = 0
+    # speculative decoding: draft tokens fed to verify steps, and how
+    # many of them greedy acceptance kept (the token after them is a
+    # normal sample, counted in generated_tokens only)
+    drafted_tokens: int = 0
+    accepted_draft_tokens: int = 0
 
     def summary(self) -> Dict[str, Optional[float]]:
-        """Counts, plus step times on the card (``None`` on the CPU)."""
+        """The reference's keys but its modeled ``model_flops``,
+        ``model_bytes`` and ``model_tflops_per_s`` (they come with
+        ``StepCostModel``, not ported yet), plus ``forwards``.  Times
+        (``tok_per_s``: tokens over the summed step events;
+        ``step_ms_p50``, ``step_ms_p95``) are CUDA-event times on the
+        card and ``None`` on the CPU.  With no step, every rate is 0.0 and
+        ``note`` says why."""
+        accept_rate = (self.accepted_draft_tokens / self.drafted_tokens
+                       if self.drafted_tokens else 0.0)
+        counts = {"prefix_hit_tokens": self.prefix_hit_tokens,
+                  "drafted_tokens": self.drafted_tokens,
+                  "accepted_draft_tokens": self.accepted_draft_tokens,
+                  "accept_rate": accept_rate}
+        if not self.steps:
+            return {"steps": 0, "generated_tokens": 0, "forwards": 0,
+                    "tok_per_s": 0.0, "step_ms_p50": 0.0,
+                    "step_ms_p95": 0.0, "mean_occupancy": 0.0,
+                    "mean_page_utilization": 0.0, "prefix_hit_rate": 0.0,
+                    **counts, "note": "zero steps executed"}
+        prefill_tokens = sum(s.n_prefill_tokens for s in self.steps)
+        prompt_total = prefill_tokens + self.prefix_hit_tokens
         out: Dict[str, Optional[float]] = {
             "steps": len(self.steps),
             "generated_tokens": self.generated_tokens,
             "forwards": self.forwards,
-            "step_ms_p50": None, "step_ms_p95": None,
+            "tok_per_s": None, "step_ms_p50": None, "step_ms_p95": None,
+            "mean_occupancy": float(np.mean(
+                [s.occupancy for s in self.steps])),
+            "mean_page_utilization": float(np.mean(
+                [s.page_utilization for s in self.steps])),
+            # the share of all prompt tokens the prefix cache served
+            "prefix_hit_rate": (self.prefix_hit_tokens / prompt_total
+                                if prompt_total else 0.0),
+            **counts,
         }
         ms = sorted(s.device_ms() for s in self.steps
                     if s.start is not None)
         if ms:
-            out.update(step_ms_p50=ms[len(ms) // 2],
-                       step_ms_p95=ms[min(len(ms) - 1, int(0.95 * len(ms)))])
+            total = sum(ms)
+            out.update(
+                tok_per_s=(self.generated_tokens / (total / 1e3)
+                           if total else 0.0),
+                step_ms_p50=ms[len(ms) // 2],
+                step_ms_p95=ms[min(len(ms) - 1, int(0.95 * len(ms)))])
         return out
 
 
@@ -182,28 +250,43 @@ class ContinuousBatchingEngine:
         rid = eng.submit(prompt_tokens, max_new_tokens=16)        # queued
         results = eng.run()          # drain; {rid: np.ndarray of tokens}
 
-    The engine runs on the model's device.
+    The engine runs on the model's device.  ``prefix_cache`` /
+    ``prefix_pool``, ``spec_decode`` / ``spec_k`` and ``check`` are the
+    reference's options (see the module docstring); ``check=None`` takes
+    the class attribute ``_DEFAULT_CHECK``, which a test module may set
+    to shadow-check every engine it builds.
     """
+
+    #: class-level default for ``check``
+    _DEFAULT_CHECK = False
 
     def __init__(self, model: LM, params, *, n_slots: int, max_len: int,
                  page_size: int = 16, prefill_chunk: int = 8,
                  page_budget: Optional[int] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
-                 paged_kernel: Optional[bool] = None, **kwargs):
-        if kwargs.get("prefix_cache") and \
-                not model.decode_state.prefix_cachable:
-            warnings.warn(
-                f"prefix_cache=True ignored: family {model.cfg.family!r} "
-                "has non-token-addressable (recurrent) decode state that "
-                "cannot be truncated to a prompt prefix; serving with the "
-                "prefix cache off", UserWarning, stacklevel=2)
-            kwargs["prefix_cache"] = False
+                 prefix_cache: bool = False, prefix_pool: int = 8,
+                 paged_kernel: Optional[bool] = None,
+                 spec_decode: bool = False, spec_k: int = 4,
+                 check: Optional[bool] = None, **kwargs):
         for name, value in kwargs.items():
             if name not in _NOT_PORTED:
                 raise TypeError(f"unexpected keyword argument {name!r}")
             if value != _NOT_PORTED[name]:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet")
+        if spec_decode and spec_k < 1:
+            raise ValueError(
+                f"spec_decode=True needs spec_k >= 1, got {spec_k}")
+        self.spec_decode = bool(spec_decode)
+        self.spec_k = int(spec_k) if self.spec_decode else 0
+        if prefix_cache and not model.decode_state.prefix_cachable:
+            warnings.warn(
+                f"prefix_cache=True ignored: family {model.cfg.family!r} "
+                "has non-token-addressable (recurrent) decode state that "
+                "cannot be truncated to a prompt prefix; serving with the "
+                "prefix cache off", UserWarning, stacklevel=2)
+        self.prefix_cache = bool(prefix_cache
+                                 and model.decode_state.prefix_cachable)
         self.model = model
         self.params = params
         self.device = model.device
@@ -211,9 +294,22 @@ class ContinuousBatchingEngine:
         self.max_len = max_len
         self.kv = PagedKVCache(
             n_slots, max_len, page_size, page_budget=page_budget,
-            slot_aux_tokens=model.decode_state.context_tokens(model.cfg))
+            slot_aux_tokens=model.decode_state.context_tokens(model.cfg),
+            prefix_pool=prefix_pool if self.prefix_cache else 0)
         self.sched = Scheduler(self.kv, prefill_chunk=prefill_chunk,
-                               eos_id=eos_id)
+                               eos_id=eos_id, spec_k=self.spec_k)
+        self.drafter: Optional[NGramDrafter] = None
+        # rids whose drafter history misses tokens committed by no-draft
+        # fast-path steps (which read nothing back); resynced from
+        # out_buf right before the rid next proposes
+        self._draft_stale: set = set()
+        if self.spec_decode:
+            self.drafter = NGramDrafter(self.spec_k,
+                                        **self._drafter_throttle())
+        self.check = bool(self._DEFAULT_CHECK if check is None else check)
+        self.checker: Optional[SchedChecker] = None
+        if self.check:
+            self.checker = SchedChecker.attach(self.kv, self.sched)
         # the paged flash-decode is on by default; paged_kernel=False
         # attends over the dense cache instead (the reference's
         # bitwise-parity baseline).  The identity page map of the decode
@@ -227,10 +323,22 @@ class ContinuousBatchingEngine:
                           if self._paged else None)
         self._n_out_rows = 3 * n_slots
         self.cache = self.model.init_cache(self.n_slots, self.max_len)
+        # a recurrent family's verify runs twice: its state (every leaf
+        # that is not a K/V entry: conv windows, SSD h, position counters)
+        # is copied here before the first pass and back before the second
+        # (buffers allocated once)
+        self._snapshot: List[tuple] = []
+        if self.spec_decode and not model.decode_state.token_addressable:
+            self._snapshot = [
+                (leaf, torch.empty_like(leaf))
+                for leaf, spec in decode_state.state_leaves(
+                    self.cache, model.cache_specs())
+                if "kv_seq" not in spec]
         self._out_buf = torch.zeros((self._n_out_rows, self.max_len),
                                     dtype=torch.int32, device=self.device)
         self._prev_sampled = torch.zeros((self.n_slots,), dtype=torch.int32,
                                          device=self.device)
+        self._seed = seed
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
         self._free_rows = list(range(self._n_out_rows))
@@ -241,6 +349,18 @@ class ContinuousBatchingEngine:
         self._seen_discarded = 0
         self.stats = EngineStats()
         self._results: Dict[int, np.ndarray] = {}
+        # the last executed step's composition (set before its commit;
+        # None when the last iteration had no plan), its sampled
+        # [(slot, rid)] and the rids admitted into a reset slot
+        self.last_plan: Optional[StepPlan] = None
+        self.last_sampled_rids: List[tuple] = []
+        self.last_admitted_rids: List[int] = []
+
+    @property
+    def snapshot_bytes(self) -> int:
+        """Bytes of the recurrent state the two-pass verify snapshots (0
+        for a token-addressable family or with ``spec_decode`` off)."""
+        return sum(b.numel() * b.element_size() for _, b in self._snapshot)
 
     def _dev(self, a, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
@@ -266,18 +386,29 @@ class ContinuousBatchingEngine:
         self._prev_sampled.index_put_((self._dev(list(slots), torch.long),),
                                       vals)
 
-    def _decode_step(self, plan: StepPlan) -> None:
-        tokens = self._dev(plan.tokens, torch.long)
+    def _decode_inputs(self, plan: StepPlan, width: int):
+        """The decode rows' (tokens, positions), the first ``width``
+        columns of the plan's: each row's input token is the previous
+        step's on-device sample (``token_src``), drafts ride behind it."""
+        tokens = self._dev(plan.tokens[:, :width], torch.long)
         token_src = self._dev(plan.token_src, torch.bool)
-        # decode rows take their input token from the previous step's
-        # on-device samples
         tokens[:, 0] = torch.where(token_src, self._prev_sampled.long(),
                                    tokens[:, 0])
+        return tokens, self._dev(plan.positions[:, :width], torch.long)
+
+    def _forward_decode(self, tokens, positions, n_valid) -> torch.Tensor:
         logits, self.cache = self.model.forward(
-            self.params, tokens, self._dev(plan.positions, torch.long),
-            mode="decode", cache=self.cache,
-            n_valid=self._dev(plan.n_valid, torch.int32),
-            paged=self._paged_state(self._page_idx))
+            self.params, tokens, positions, mode="decode", cache=self.cache,
+            n_valid=n_valid, paged=self._paged_state(self._page_idx))
+        self.stats.forwards += 1
+        return logits
+
+    def _decode_step(self, plan: StepPlan) -> None:
+        """The plain single-column step (with ``spec_decode`` on, a step
+        where no row carries a draft: the no-draft fast path)."""
+        tokens, positions = self._decode_inputs(plan, 1)
+        logits = self._forward_decode(tokens, positions,
+                                      self._dev(plan.n_valid, torch.int32))
         temps = self._dev(plan.temperatures, torch.float32)
         nxt = sampling.sample_tokens(
             logits[:, 0], temps, self._gen,
@@ -286,7 +417,65 @@ class ContinuousBatchingEngine:
                   if plan.out_idx[s] < self.max_len]
         self._commit_samples(nxt, sample, sample,
                              [int(plan.out_idx[s]) for s in sample])
-        self.stats.forwards += 1
+
+    def _verify_step(self, plan: StepPlan):
+        """The draft-verify step: one forward over (n_slots, spec_k + 1)
+        columns; column i's argmax is the model's token after the fed
+        tokens 0..i (column 0 through the sampler, as the plain step;
+        rows at temperature > 0 never carry drafts).  Greedy acceptance
+        keeps the longest draft prefix equal to that chain, plus the
+        token at its end.  A token-addressable family rewinds its
+        position counters to the accepted frontier; a recurrent one
+        restores the state snapshot taken before the pass and runs the
+        forward again with ``n_valid`` the accepted counts (the masked
+        recurrence then commits exactly the accepted prefix).  The
+        accepted tokens of the sampled rows are written into their
+        output rows and the last of them carried forward, all on the
+        device.  Returns the device tensors (n_accept (n_slots,), acc
+        (n_slots, spec_k + 1))."""
+        S = self.spec_k + 1
+        tokens, positions = self._decode_inputs(plan, S)
+        n_valid = self._dev(plan.n_valid, torch.int32)
+        for leaf, buf in self._snapshot:
+            buf.copy_(leaf)
+        logits = self._forward_decode(tokens, positions, n_valid)
+        acc = torch.argmax(logits, dim=-1).to(torch.int32)       # (n, S)
+        acc[:, 0] = sampling.sample_tokens(
+            logits[:, 0], self._dev(plan.temperatures, torch.float32),
+            self._gen, any_temp=bool((plan.temperatures > 0).any()))
+        cols = torch.arange(S, device=self.device)
+        # draft i + 1 is accepted iff it was fed and equals committed
+        # token i
+        match = ((acc[:, :-1].long() == tokens[:, 1:])
+                 & (cols[None, :-1] + 1 < n_valid[:, None]))
+        n_match = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1)
+        n_accept = torch.where(n_valid > 0, n_match + 1,
+                               torch.zeros_like(n_match)).to(torch.int32)
+        if self._snapshot:
+            for leaf, buf in self._snapshot:
+                leaf.copy_(buf)
+            self._forward_decode(tokens, positions, n_accept)
+        else:
+            self.model.adjust_cache_counters(self.cache, n_valid - n_accept)
+        slots = [s for s in range(self.n_slots)
+                 if plan.token_src[s] and plan.out_idx[s] < self.max_len]
+        if slots:
+            sl = self._dev(slots, torch.long)
+            cols_h = plan.out_idx[slots][:, None] + np.arange(S)[None]
+            rows = self._dev(self._slot_row[slots], torch.long)[:, None]
+            rows = rows.expand(-1, S)
+            # a dropped column's target is (out_idx + c) % max_len, distinct
+            # from the row's other columns, and gets its old value back
+            wcols = self._dev(cols_h % self.max_len, torch.long)
+            keep = ((cols[None] < n_accept[sl][:, None])
+                    & self._dev(cols_h < self.max_len, torch.bool))
+            old = self._out_buf[rows, wcols]
+            self._out_buf.index_put_((rows, wcols),
+                                     torch.where(keep, acc[sl], old))
+            last = (n_accept[sl] - 1).clamp_min(0).long()[:, None]
+            self._prev_sampled.index_put_((sl,),
+                                          acc[sl].gather(1, last)[:, 0])
+        return n_accept, acc
 
     def _prefill_row(self, pf) -> None:
         row = self.model.cache_row(self.cache, pf.slot)
@@ -308,10 +497,43 @@ class ContinuousBatchingEngine:
             self._commit_samples(nxt, [pf.slot], [0], [int(pf.out_idx)])
         self.stats.forwards += 1
 
+    def _admit(self, plan: StepPlan) -> None:
+        """Three-phase (re-)admission of the plan's reset slots: zero the
+        cold slots, copy each prefix hit's K/V from its donor slot (a hit
+        slot is not zeroed first: the copy writes or zeros every K/V
+        entry itself, and the donor may be the same slot), then install
+        each request's read-only context (the cross K/V; audio runs its
+        encoder here), after the copy.  The scheduler never lets a plan
+        claim a donor row, so zeroing before copying destroys none."""
+        zero_mask = plan.reset_mask.copy()
+        prefix_installs = []
+        for slot in np.nonzero(plan.reset_mask)[0]:
+            req = self.sched.active.get(int(slot))
+            if req is not None and req.prefix_len > 0:
+                zero_mask[slot] = False
+                prefix_installs.append((int(req.prefix_src), int(slot),
+                                        int(req.prefix_len)))
+        if zero_mask.any():
+            self.model.reset_cache_slots(
+                self.cache, self._dev(zero_mask, torch.bool))
+        for src, dst, n_tok in prefix_installs:
+            self.model.install_cache_prefix(self.cache, src, dst, n_tok)
+        for slot in np.nonzero(plan.reset_mask)[0]:
+            req = self.sched.active.get(int(slot))
+            if req is not None and req.extra:
+                self.model.install_slot_context(
+                    self.params, self.cache, int(slot), req.extra)
+
     def step(self) -> bool:
         """Run one engine iteration; False when no work remains."""
-        plan = self.sched.next_plan(self._step_idx)
+        plan = (self.sched.next_plan(self._step_idx,
+                                     drafts=self._propose_drafts())
+                if self.spec_decode
+                else self.sched.next_plan(self._step_idx))
         if plan is None:
+            self.last_plan = None
+            self.last_sampled_rids = []
+            self.last_admitted_rids = []
             return self.sched.has_work()
         events = _events(self.device)
         for slot in np.nonzero(plan.reset_mask)[0]:
@@ -324,24 +546,38 @@ class ContinuousBatchingEngine:
                 self._flush_results()
             self._slot_row[slot] = self._free_rows.pop()
         if plan.reset_mask.any():
-            self.model.reset_cache_slots(
-                self.cache, self._dev(plan.reset_mask, torch.bool))
-            for slot in np.nonzero(plan.reset_mask)[0]:
-                # install the request's read-only context into its row
-                # (the cross K/V; audio runs its encoder here, once an
-                # admission), a re-admission after preemption included
-                req = self.sched.active.get(int(slot))
-                if req is not None and req.extra:
-                    self.model.install_slot_context(
-                        self.params, self.cache, int(slot), req.extra)
+            self._admit(plan)
+        verify = None
         if plan.n_decode:
-            self._decode_step(plan)
+            if self.spec_decode and (plan.n_valid > 1).any():
+                verify = self._verify_step(plan)
+            else:
+                self._decode_step(plan)
         for pf in plan.prefills:
             self._prefill_row(pf)
-        # EOS detection is the only per-step host sync
-        sampled = (self._prev_sampled.cpu().numpy()
-                   if self.sched.eos_id is not None else None)
-        done = self.sched.commit(plan, sampled, self._step_idx)
+        # which requests sampled a token this step and which were first
+        # scheduled, recorded before the commit while the slot -> rid map
+        # is live (a slot admitted and preempted within this same plan is
+        # in reset_mask but no longer active)
+        self.last_plan = plan
+        self.last_sampled_rids = [
+            (slot, self.sched.active[slot].rid)
+            for slot in plan.sample_slots if slot in self.sched.active]
+        self.last_admitted_rids = [
+            self.sched.active[int(s)].rid
+            for s in np.nonzero(plan.reset_mask)[0]
+            if int(s) in self.sched.active]
+        row_reqs = {slot: self.sched.active[slot]
+                    for slot in plan.sample_slots}
+        if verify is not None:
+            done = self._commit_verify(plan, row_reqs, *verify)
+        else:
+            # EOS detection is the only per-step host sync of a plain step
+            sampled = (self._prev_sampled.cpu().numpy()
+                       if self.sched.eos_id is not None else None)
+            done = self.sched.commit(plan, sampled, self._step_idx)
+            if self.spec_decode:
+                self._mark_stale(row_reqs)
         for req in done:
             # tokens stay on device until the next flush point; the row
             # moves from the slot to the pending map
@@ -349,16 +585,143 @@ class ContinuousBatchingEngine:
             self._pending_rows[req.rid] = int(self._slot_row[req.finish_slot])
             self._slot_row[req.finish_slot] = -1
         _record(self.stats, events, n_decode=plan.n_decode,
-                n_prefill_tokens=plan.n_prefill_tokens)
+                n_prefill_tokens=plan.n_prefill_tokens,
+                occupancy=self.kv.occupancy(),
+                page_utilization=self.kv.page_utilization(),
+                verify=verify is not None)
         # count only useful tokens: samples a preemption throws away
         # come back off the total
         discarded = self.sched.discarded_tokens - self._seen_discarded
         self._seen_discarded = self.sched.discarded_tokens
-        self.stats.generated_tokens += len(plan.sample_slots) - discarded
+        committed = (sum(self.sched.last_commit_counts.values())
+                     if self.spec_decode else len(plan.sample_slots))
+        self.stats.generated_tokens += committed - discarded
+        self.stats.prefix_hit_tokens = self.sched.prefix_hit_tokens
         self._step_idx += 1
+        if self.checker is not None:
+            self.checker.check_step()
         return self.sched.has_work()
 
+    # -- speculative decoding ------------------------------------------
+    def _drafter_throttle(self) -> Dict[str, object]:
+        """The drafter's throttle, by family: a recurrent family (ssm,
+        hybrid) runs a verify forward twice, so a rejected draft costs it
+        about twice what it costs a token-addressable one; it gets a
+        higher acceptance floor and sparser probes."""
+        if self.model.decode_state.token_addressable:
+            return {}
+        return dict(accept_floor=0.6, probe_every=32, min_trials=2)
+
+    def _propose_drafts(self) -> Dict[int, np.ndarray]:
+        """Drafts for every greedy decoding slot whose request the
+        throttle lets propose; a rid left stale by fast-path steps is
+        first resynced from ``out_buf`` (a host read of its row)."""
+        drafts: Dict[int, np.ndarray] = {}
+        for slot, req in self.sched.active.items():
+            if (req.state is RequestState.DECODING
+                    and req.temperature == 0):
+                if self.drafter.throttled(req.rid, self._step_idx):
+                    continue
+                if req.rid in self._draft_stale:
+                    row = int(self._slot_row[slot])
+                    toks = self._out_buf[row, :req.n_generated].cpu().numpy()
+                    self.drafter.commit(req.rid, req.n_generated, toks)
+                    self._draft_stale.discard(req.rid)
+                d = self.drafter.propose(req.rid)
+                if len(d):
+                    drafts[slot] = d
+        return drafts
+
+    def _mark_stale(self, row_reqs: Dict[int, Request]) -> None:
+        """After a step that read nothing back (the no-draft fast path,
+        a prefill-only step; one token a sampled row): drop finished
+        requests from the drafter, mark the others' histories stale."""
+        for req in row_reqs.values():
+            if req.finish_reason:
+                self.drafter.drop(req.rid)
+                self._draft_stale.discard(req.rid)
+            else:
+                self._draft_stale.add(req.rid)
+
+    def _commit_verify(self, plan: StepPlan, row_reqs: Dict[int, Request],
+                       n_accept: torch.Tensor,
+                       acc: torch.Tensor) -> List[Request]:
+        """Commit a verify step: one host read of the accepted counts,
+        the accepted tokens and ``prev_sampled`` (the drafter needs the
+        values; a prefill-completing row's one sample is in
+        ``prev_sampled``), the scheduler's variable commit, then the
+        drafter's bookkeeping and the draft counters."""
+        host = torch.cat([n_accept[:, None], acc,
+                          self._prev_sampled[:, None]], dim=1).cpu().numpy()
+        n_acc, acc_h, prev = host[:, 0], host[:, 1:-1], host[:, -1]
+        accepted = {
+            slot: (acc_h[slot, :max(1, int(n_acc[slot]))].copy()
+                   if plan.token_src[slot] else prev[slot:slot + 1].copy())
+            for slot in plan.sample_slots}
+        done = self.sched.commit(
+            plan, prev if self.sched.eos_id is not None else None,
+            self._step_idx, accepted=accepted)
+        drafted = accepted_draft = 0
+        for slot in plan.sample_slots:
+            req = row_reqs[slot]
+            if plan.token_src[slot]:
+                d = int(plan.n_valid[slot]) - 1
+                a = self.sched.last_commit_counts[slot] - 1
+                drafted += d
+                accepted_draft += a
+                # acceptance feedback drives the drafter's throttle
+                self.drafter.feedback(req.rid, d, a)
+            if req.finish_reason:
+                self.drafter.drop(req.rid)
+                self._draft_stale.discard(req.rid)
+            elif req.rid not in self._draft_stale:
+                # a stale history would get a gap: it stays stale and
+                # resyncs in full from out_buf when it next proposes
+                self.drafter.commit(req.rid, req.n_generated,
+                                    accepted[slot])
+        self.stats.drafted_tokens += drafted
+        self.stats.accepted_draft_tokens += accepted_draft
+        return done
+
     # -- API ------------------------------------------------------------
+    def reset(self) -> None:
+        """Clear every piece of serving state (queue, slots, cache,
+        output rows, stats, results) but keep the built model, its
+        weights and the kernels' call tables, e.g. to run a workload
+        again.  The cache and the buffers are zeroed in place and the
+        sampler reseeded."""
+        self.kv = PagedKVCache(self.n_slots, self.max_len,
+                               self.kv.page_size,
+                               page_budget=self.kv.page_budget,
+                               slot_aux_tokens=self.kv.slot_aux_tokens,
+                               prefix_pool=self.kv.prefix_pool)
+        self.sched = Scheduler(self.kv,
+                               prefill_chunk=self.sched.prefill_chunk,
+                               eos_id=self.sched.eos_id, spec_k=self.spec_k)
+        if self.drafter is not None:
+            self.drafter = NGramDrafter(self.spec_k,
+                                        **self._drafter_throttle())
+            self._draft_stale = set()
+        if self.check:
+            self.checker = SchedChecker.attach(self.kv, self.sched)
+        self.model.reset_cache_slots(
+            self.cache, torch.ones((self.n_slots,), dtype=torch.bool,
+                                   device=self.device))
+        self._out_buf.zero_()
+        self._prev_sampled.zero_()
+        self._gen.manual_seed(self._seed)
+        self._free_rows = list(range(self._n_out_rows))
+        self._slot_row = np.full((self.n_slots,), -1, np.int32)
+        self._pending = []
+        self._pending_rows = {}
+        self._step_idx = 0
+        self._seen_discarded = 0
+        self.stats = EngineStats()
+        self._results = {}
+        self.last_plan = None
+        self.last_sampled_rids = []
+        self.last_admitted_rids = []
+
     def submit(self, prompt: Sequence[int], max_new_tokens: int, *,
                temperature: float = 0.0,
                extra: Optional[Dict[str, np.ndarray]] = None) -> int:
@@ -384,6 +747,8 @@ class ContinuousBatchingEngine:
         req = self.sched.submit(np.asarray(prompt), max_new_tokens,
                                 temperature=temperature, extra=extra,
                                 step=self._step_idx)
+        if self.drafter is not None:
+            self.drafter.add_request(req.rid, req.prompt)
         return req.rid
 
     def _flush_results(self) -> None:
@@ -418,10 +783,49 @@ class ContinuousBatchingEngine:
                     "scheduler stalled: work queued but no step can run "
                     "(page budget too small for an in-flight request?)")
         self._flush_results()
+        if self.checker is not None:
+            self.checker.check_drain()
         return dict(self._results)
+
+    def results(self) -> Dict[int, np.ndarray]:
+        """Flush and return every finished request's tokens so far
+        ({rid: np.ndarray}) without a full drain."""
+        self._flush_results()
+        return dict(self._results)
+
+    @property
+    def check_findings(self) -> List[Finding]:
+        """The shadow checker's findings so far ([] when ``check`` is
+        off)."""
+        return [] if self.checker is None else list(self.checker.findings)
 
     def requests(self) -> List[Request]:
         return list(self.sched.finished)
+
+    def generate(self, prompt_tokens, n_steps: int,
+                 extra: Optional[Dict[str, object]] = None) -> torch.Tensor:
+        """Submit a (B, S) batch of prompts greedily, ``n_steps`` new
+        tokens each, and drain: the fixed-batch calling convention served
+        by the continuous engine.  ``extra`` is the static engine's
+        batched (B, T, d) context, split here into one a request.
+        Returns (B, n_steps) int32 tokens on the model's device."""
+        prompts = _host(prompt_tokens)
+        ctx = None if extra is None else {k: _host(v)
+                                          for k, v in extra.items()}
+        rids = [self.submit(
+            p, n_steps,
+            extra=None if ctx is None else {k: v[i] for k, v in ctx.items()})
+            for i, p in enumerate(prompts)]
+        results = self.run()
+        return torch.as_tensor(np.stack([results[r] for r in rids]),
+                               device=self.device)
+
+
+def _host(a) -> np.ndarray:
+    """A host array of ``a`` (a tensor on any device, or array-like)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 # ---------------------------------------------------------------------------

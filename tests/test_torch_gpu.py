@@ -9,7 +9,10 @@ kernels at jamba-v0.1-52b's shapes (the SSD scan at 128 heads and N 16,
 the int8 GEMM at its experts and mamba projections), and the port's
 engines (dense, moe, ssm and hybrid, bf16/fp32 and int8 weights, the
 paged kernel on and off) and train step on the card against the same on
-the CPU.
+the CPU.  The serving features: both attention kernels at the verify
+width of speculative decoding (Sq 5, a ragged ``n_valid`` of 0 to 5 a
+row), the verify forward's discarded columns finite, and the engine with
+``spec_decode`` and with ``prefix_cache`` on the card against the CPU.
 Without a card they skip; on the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -1393,4 +1396,203 @@ def test_cross_engines_on_card_match_cpu(card, arch):
                                                 e.items()})[0].tolist()
             for pr, g, e in zip(prompts, gens, extras)]
     first = outs["cuda", False]
+    assert all(o == first for o in outs.values()), outs
+
+
+# ---------------------------------------------------------------------------
+# the serving features: the verify width, spec_decode, prefix_cache
+# ---------------------------------------------------------------------------
+VERIFY_SQ = 5                         # spec_k 4 + 1
+VERIFY_N_VALID = (0, 1, 3, 5, 5, 3, 1, 0)
+VERIFY_BEFORE = (0, 17, 64, 200, 0, 1, 250, 96)      # pos before the step
+
+
+def _verify_rows(card):
+    """Each row's position before the step, its fed width and its valid
+    length after the ragged write (``pos + n_valid``)."""
+    before = torch.tensor(VERIFY_BEFORE, dtype=torch.int32)
+    n_valid = torch.tensor(VERIFY_N_VALID, dtype=torch.int32)
+    return before.to(card), (before + n_valid).to(card)
+
+
+@pytest.mark.parametrize("H,G,NKV,dtype", [
+    (64, 4, 8, torch.bfloat16), (64, 4, 8, torch.float32),
+    (128, 2, 8, torch.bfloat16), (128, 2, 8, torch.float32)])
+def test_paged_kernel_at_the_verify_width(card, H, G, NKV, dtype):
+    """B1 at the verify forward's shape: Sq 5, granite's (32/8, H 64) and
+    qwen3's (16/8, H 128) heads, each row's queries at its positions
+    ``pos + c`` with ``kv_valid = pos + n_valid`` (n_valid 0 to 5: the
+    columns past it see every valid key and are discarded by the
+    engine).  Partials and output against the plain version within 2e-3,
+    all finite; a row with no valid key 0."""
+    rng = np.random.default_rng(H + G)
+    B, pps = len(VERIFY_N_VALID), 32
+    before, kv_valid = _verify_rows(card)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, VERIFY_SQ, NKV * G, H))).float().to(card)
+    kp, vp = (torch.from_numpy(rng.standard_normal(
+        (B * pps, PAGE, NKV, H))).to(card, dtype) for _ in range(2))
+    idx = torch.from_numpy(rng.permutation(B * pps).reshape(B, pps).astype(
+        np.int32)).to(card)
+    pos = (before[:, None] + torch.arange(VERIFY_SQ, device=card)[None])
+    args = [q, kp, vp, idx, pos.to(torch.int32), kv_valid]
+    got = _counted(pa_kernel.paged_flash_decode,
+                   lambda: pa_ops.paged_attention(*args, page_size=PAGE,
+                                                  return_partials=True))
+    want = pa_ops.paged_attention(*[a.cpu() for a in args], page_size=PAGE,
+                                  return_partials=True)
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    live = want[1] > 0
+    torch.testing.assert_close(got[0].cpu()[live], want[0][live], rtol=2e-3,
+                               atol=2e-3)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(got[2].cpu(), want[2], rtol=2e-3, atol=2e-3)
+    out = pa_ops.combine_partials([got]).cpu()
+    assert bool(torch.isfinite(out).all()) and bool((out[0] == 0).all())
+    torch.testing.assert_close(out, pa_ops.combine_partials([want]),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("H,G,dtype", [
+    (64, 4, torch.bfloat16), (64, 4, torch.float32),
+    (128, 2, torch.bfloat16), (128, 2, torch.float32)])
+def test_flash_decode_kernel_at_the_verify_width(card, H, G, dtype):
+    """B3 (``paged_kernel=False``) at the verify width: Sq 5, each query's
+    valid length ``attention.query_lens`` of its position and the row's
+    ``pos + n_valid``, over a strided cache view.  fp32 within 2e-4, bf16
+    within one ulp; a query with no valid key 0."""
+    from repro_torch.models.attention import query_lens
+    rng = np.random.default_rng(H + G + 5)
+    B, S, NKV = len(VERIFY_N_VALID), 256, 8
+    before, kv_valid = _verify_rows(card)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, VERIFY_SQ, NKV * G, H)).astype(np.float32)).to(card, dtype)
+    wide = torch.from_numpy(rng.standard_normal(
+        (2 * B, S, NKV, H)).astype(np.float32)).to(card, dtype)
+    k, v = wide[::2], wide[1::2]
+    pos = before[:, None].long() + torch.arange(VERIFY_SQ, device=card)[None]
+    lens = query_lens(pos, kv_valid, S)
+    got = _counted(fa_kernel.flash_decode, lambda: fa_ops.flash_decode(
+        q, k, v, lens))
+    want = fa_ref.flash_decode(q, k, v, lens)
+    rtol, atol = (2e-4, 2e-4) if dtype == torch.float32 else (8e-3, 1e-4)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool((got[lens == 0] == 0).all())
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_verify_forward_discarded_columns_are_finite(card, paged):
+    """One verify-shaped decode forward of reduced granite-3-2b (H 64,
+    fp32) on the card over a cache with rows of 0-40 tokens, n_valid 0,
+    1, 3, 5: every logit finite (the columns past a row's n_valid too),
+    the kept columns' logits equal the CPU's within 1e-4, each row's
+    counter advanced by its n_valid, and the attention kernel (B1, or B3
+    with the paged kernel off) launched once a layer."""
+    from repro_torch.models.attention import PagedDecodeState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("granite-3-2b", head_dim=64)
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    B, L, W = 4, 48, VERIFY_SQ
+    ctx = [0, 7, 23, 40]
+    n_valid = torch.tensor([0, 1, 3, 5], dtype=torch.int32)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, W)))
+    prompts = [torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                             size=(1, n))) for n in ctx]
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        model = LM(cfg, device=dev)
+        p = _to(params, dev)
+        cache = model.init_cache(B, L)
+        for r, (n, prompt) in enumerate(zip(ctx, prompts)):
+            if n:
+                model.forward(p, prompt.to(dev),
+                              torch.arange(n, device=dev)[None],
+                              cache=model.cache_row(cache, r))
+        pos = (torch.tensor(ctx)[:, None] + torch.arange(W)[None]).to(dev)
+        ps = (PagedDecodeState(torch.arange(B * L // PAGE, dtype=torch.int32,
+                                            device=dev).view(B, -1), PAGE)
+              if paged else None)
+        kern = (pa_kernel.paged_flash_decode if paged
+                else fa_kernel.flash_decode)
+        before = kern.launches
+        logits, _ = model.forward(p, toks.to(dev), pos, cache=cache,
+                                  n_valid=n_valid.to(dev), paged=ps)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert kern.launches - before == cfg.n_layers
+        assert bool(torch.isfinite(logits).all())
+        assert cache["pos"].cpu().tolist() == [c + int(n) for c, n in
+                                               zip(ctx, n_valid)]
+        got[dev.type] = logits.cpu()
+    for r, n in enumerate(n_valid.tolist()):
+        torch.testing.assert_close(got["cuda"][r, :n], got["cpu"][r, :n],
+                                   rtol=1e-4, atol=1e-4)
+
+
+def _force_drafts(eng, vocab_size):
+    """Draft on every greedy decode row: the n-gram proposal, else a
+    deterministic filler from the history's last token (greedy
+    acceptance keeps the tokens whatever is drafted)."""
+    ngram = eng.drafter.propose
+
+    def propose(rid, k=None):
+        d = ngram(rid, k)
+        if len(d):
+            return d
+        h = eng.drafter.history(rid)
+        if not h:
+            return np.zeros((0,), np.int32)
+        return ((np.arange(1, 5) * 2654435761 + h[-1]) % (vocab_size - 1)
+                + 1).astype(np.int32)
+
+    eng.drafter.propose = propose
+    eng.drafter.throttled = lambda *a, **kw: False
+
+
+@pytest.mark.parametrize("feature", ["spec", "prefix"])
+@pytest.mark.parametrize("paged", [True, False])
+def test_serving_features_on_card_match_cpu(card, feature, paged):
+    """Reduced granite-3-2b (H 64, fp32, TF32 off) with ``spec_decode``
+    (drafts forced on every greedy row, spec_k 4) or ``prefix_cache`` (a
+    shared 16-token prefix), the paged kernel on and off, under the
+    shadow checker, on a mix that preempts: the card's greedy tokens
+    equal the CPU's and the feature-off run's; drafts verified or
+    prefix tokens hit; no error finding."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("granite-3-2b", head_dim=64)
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(2)
+    shared = np.tile(rng.integers(1, cfg.vocab_size, size=4), 4)
+    prompts = [np.concatenate([shared, rng.integers(1, cfg.vocab_size,
+                                                    size=n)])
+               for n in (2, 5, 7, 3)]
+    gens = [8, 6, 5, 7]
+    on = (dict(spec_decode=True, spec_k=4) if feature == "spec"
+          else dict(prefix_cache=True))
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        model = LM(cfg, device=dev)
+        p = _to(params, dev)
+        for name, kw in (("on", on), ("off", {})):
+            eng = ContinuousBatchingEngine(
+                model, p, n_slots=2, max_len=32, page_size=PAGE,
+                prefill_chunk=6, page_budget=6, paged_kernel=paged,
+                check=True, **kw)
+            if kw.get("spec_decode"):
+                _force_drafts(eng, cfg.vocab_size)
+            rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
+            res = eng.run()
+            assert not [f.format() for f in eng.check_findings]
+            assert sum(r.n_preemptions for r in eng.requests()) >= 1
+            outs[dev.type, name] = [res[r].tolist() for r in rids]
+            if name == "on":
+                s = eng.stats.summary()
+                assert (s["drafted_tokens"] if feature == "spec"
+                        else s["prefix_hit_tokens"]) > 0
+    first = outs["cuda", "on"]
     assert all(o == first for o in outs.values()), outs

@@ -231,8 +231,8 @@ def test_engine_temperature_sampling_is_seeded_and_in_range(granite):
 
 def test_engine_rejects_unported_options(granite):
     _, _, model, params = granite
-    for kw in (dict(spec_decode=True), dict(prefix_cache=True),
-               dict(analyze=True), dict(mesh=object()),
+    for kw in (dict(analyze=True), dict(mesh=object()), dict(sp_kv=True),
+               dict(retune=True),
                dict(chunk_policy="stall_free", tbt_target_s=0.01)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(model, params, n_slots=1, max_len=16,

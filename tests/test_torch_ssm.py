@@ -277,11 +277,13 @@ def test_prefix_cache_request_warns_and_runs_without_pool(ssm):
                                        page_size=8, prefix_cache=True)
     rid = eng.submit(np.arange(1, 6), 2)
     assert len(eng.run()[rid]) == 2
+    assert not eng.prefix_cache and eng.kv.prefix_pool == 0
+    # a dense engine keeps the pool on
     dense = LM(reduced_config("granite-3-2b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="prefix_cache"):
-        ContinuousBatchingEngine(dense, dense.init_params(
-            torch.Generator().manual_seed(0)), n_slots=1, max_len=16,
-            page_size=8, prefix_cache=True)
+    eng = ContinuousBatchingEngine(dense, dense.init_params(
+        torch.Generator().manual_seed(0)), n_slots=1, max_len=16,
+        page_size=8, prefix_cache=True)
+    assert eng.prefix_cache and eng.kv.prefix_pool == 8
 
 
 def test_dense_prefill_and_qpacks_are_not_ported_yet():
@@ -332,8 +334,7 @@ def test_launch_serve_int8_flag_runs():
 
 
 @pytest.mark.parametrize("flag,item", [
-    ("--prefix-cache", "A7"), ("--mesh=2", "A10"),
-    ("--sp-kv", "A10"), ("--open-loop", "A7"), ("--speculative", "A7"),
+    ("--mesh=2", "A10"), ("--sp-kv", "A10"), ("--open-loop", "A7"),
     ("--chunk-policy=stall_free", "A7")])
 def test_launch_serve_refuses_what_is_not_ported(flag, item):
     with pytest.raises(NotImplementedError, match=item):
