@@ -307,7 +307,7 @@ Phases (one line each; any failure exits nonzero and prints no result):
              requests repeating a 32-token phrase 4-8 times, 64 new,
              ``spec_decode`` off then on (spec_k 4): the paged kernel 40
              launches a forward, verify forwards included; (c)
-             mamba2-780m at full width cut to 16 of its 48 layers (its
+             mamba2-780m at full width cut to 8 of its 48 layers (its
              prefill runs token by token), as (b): the two-pass verify's
              snapshot (its bytes checked against the config's), accept
              rate; then again with drafts from the off run's tokens
@@ -316,6 +316,29 @@ Phases (one line each; any failure exits nonzero and prints no result):
              and p95, hits, drafts, verify and plain-decode steps, peak
              memory; (b) and (c) the share of greedy tokens alike on and
              off (reported only: bf16).
+6l. serve-open-loop — the open-loop front end, granite-3-2b bf16 at
+             full width and phase 6's engine shape, every run through
+             the paged kernel (40 launches a forward, checked): (a) 16
+             requests through ``engine.run()``, then ``reset()`` and the
+             same requests through ``OpenLoopFrontend(clock="wall")``
+             over closed-loop arrivals: identical tokens and steps, both
+             runs' tok/s, and lambda_max = requests / the closed-loop
+             time; (c) (a) again on the model clock against the card's
+             HWSpec, step events recorded: the modeled flops and bytes,
+             model_tflops_per_s, and modeled over measured step time,
+             all steps and pure-decode steps (the served step's share of
+             its bound); (d) a 64-token request (128 new) and a
+             448-token one (1 new) arriving about 10 decode steps later,
+             ``chunk_policy`` fixed then stall_free at 1.2x (a)'s
+             pure-decode p50 under wall feedback: request 0's worst, p99
+             and p50 TBT, prefill steps, chunk widths; request 0's
+             tokens identical; (b) ``launch.serve.run(open_loop=True)``,
+             32 requests of 32-256 prompt tokens and 32 new, Poisson at
+             0.5 and 0.9 lambda_max and gamma at 0.9 (cv 2): TTFT, TBT,
+             E2E percentiles, queue depth, makespan, SLO attainment and
+             goodput under the launcher's default SLO; the last run's
+             recorded trace (written to a temporary directory) replayed
+             through the launcher to identical tokens.
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -343,6 +366,7 @@ Phases (one line each; any failure exits nonzero and prints no result):
              ``figures.fig2_strided`` and ``fig3_tail`` at the JAX sizes
              and 2^21 x 128 rows, and ``core.microbench.run_suite``.
 
+After each phase a ``[wall]`` line gives the seconds since the start.
 The line before the last is the per-kernel JSON record (after the card's
 name and power limit); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -359,7 +383,7 @@ import shutil
 import statistics
 import subprocess
 import sys
-import time
+import tempfile
 import warnings
 
 import numpy as np
@@ -420,8 +444,11 @@ from repro_torch.train.parity import card_step_matches_cpu  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.quantum import gates  # noqa: E402
 from repro_torch.perf.measure import measure, measure_group  # noqa: E402
+from repro_torch.serve.arrivals import (  # noqa: E402
+    ArrivalRequest, closed_loop_arrivals)
 from repro_torch.serve.engine import (  # noqa: E402
     ContinuousBatchingEngine, StaticBatchEngine)
+from repro_torch.serve.frontend import OpenLoopFrontend  # noqa: E402
 
 TOL = 2e-3          # atol = rtol: bf16 inputs, fp32 math in both versions
 
@@ -499,10 +526,10 @@ TRAIN_LOSS_RTOL = 2e-3
 SSM_ARCH = "mamba2-780m"
 SSM_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
 # the continuous engine's requests (its prefill runs token by token) and
-# the recurrence check's prompt: cut from 16 and 2048 to keep the script
-# near its time budget
+# the recurrence check's prompt: cut from 16 and 2048 (then 1024, for
+# phase 6l's time) to keep the script near its time budget
 SSM_MIX_REQUESTS = 8
-SSM_RECURRENCE_LEN = 1024
+SSM_RECURRENCE_LEN = 512
 # the int8 serving path: full-width granite-3-2b, weight-only int8
 INT8_ARCH = "granite-3-2b"
 INT8_STATIC = dict(slots=8, prompt_len=512, gen_len=32)
@@ -1855,12 +1882,12 @@ def _host_us(fn, n=200):
     for _ in range(10):
         fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    t0 = datetime.datetime.now()
     for _ in range(n):
         fn()
-    t1 = time.perf_counter()
+    secs = _since(t0)
     torch.cuda.synchronize()
-    return (t1 - t0) / n * 1e6
+    return secs / n * 1e6
 
 
 def wq_host_cost(g, d, ff):
@@ -3599,8 +3626,9 @@ def phase_serve_audio(card, profile=False):
 FEATURE_PREFIX = 256
 FEATURE_OWN = (16, 128)
 SPEC_PHRASE, SPEC_REPEATS, SPEC_NEW, SPEC_K = 32, (4, 8), 64, 4
-# (c)'s mamba2-780m cut to this many of its 48 layers (its width whole)
-SPEC_SSM_LAYERS = 16
+# (c)'s mamba2-780m cut to this many of its 48 layers (its width whole;
+# 16 until phase 6l took the time)
+SPEC_SSM_LAYERS = 8
 
 
 def _feature_serve(phase, what, eng, prompts, n_new, card):
@@ -3796,6 +3824,272 @@ def phase_serve_features(card):
     del model, params
     torch.cuda.empty_cache()
     return total
+
+
+# 6l: the open-loop front end at full width (granite-3-2b bf16, phase 6's
+# engine shape).  (b): the launcher's requests, prompt band and new
+# tokens, and each run's arrival process at a share of (a)'s closed-loop
+# rate; (d): request 0's prompt and new tokens, the long prompt (one new
+# token) arriving about STALL_AFTER decode steps into request 0, and the
+# stall-free policy's TBT target as a multiple of (a)'s pure-decode p50
+OPEN_N = 32
+OPEN_PROMPTS = (32, 256)
+OPEN_LOADS = (("poisson", 0.5), ("poisson", 0.9), ("gamma", 0.9))
+OPEN_CV = 2.0
+STALL_SHORT, STALL_LONG, STALL_AFTER, STALL_TARGET = (64, 128), 448, 10, 1.2
+
+
+def _b1_only(phase, what, got, forwards, n_layers):
+    """The paged kernel ``n_layers`` launches a forward, no other serving
+    kernel."""
+    want = {n: 0 for n in SERVE_KERNELS}
+    want["paged_partials"] = n_layers * forwards
+    if got != want or not forwards:
+        raise SystemExit(f"{phase} {what}: launches {got}, expected {want}")
+
+
+def _front_run(phase, what, eng, arr, clock):
+    """``OpenLoopFrontend(eng, clock=clock).run(arr)``, the launches of
+    SERVE_KERNELS counted and checked; returns (the result, the
+    launches)."""
+    torch.cuda.synchronize()
+    reset_launches(SERVE_KERNELS)
+    res = OpenLoopFrontend(eng, clock=clock).run(arr)
+    got = {n: launches_of(n) for n in SERVE_KERNELS}
+    _b1_only(phase, what, got, res.engine_summary["forwards"],
+             eng.model.cfg.n_layers)
+    return res, got
+
+
+def _step_ms(eng, pure_decode=False):
+    return [s_.device_ms() for s_ in eng.stats.steps
+            if not pure_decode or (s_.n_decode and not s_.n_prefill_tokens)]
+
+
+def _p50(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _plan_widths(eng):
+    """Wrap ``eng.step`` to log each executed plan's prefill widths."""
+    log = []
+    orig = eng.step
+
+    def step():
+        more = orig()
+        if eng.last_plan is not None:
+            log.append([int(pf.n_valid[0]) for pf in eng.last_plan.prefills])
+        return more
+
+    eng.step = step
+    return log
+
+
+def phase_serve_open_loop(card):
+    """6l: the open-loop front end at full width, granite-3-2b bf16 at
+    phase 6's engine shape.  (a) 16 requests through ``engine.run()``,
+    then through ``OpenLoopFrontend(clock="wall")`` over closed-loop
+    arrivals: identical tokens, the paged kernel 40 launches a forward;
+    both runs' tok/s.  (b) ``launch.serve.run(open_loop=True)``, 32
+    requests of 32-256 prompt tokens, 32 new, Poisson at 0.5 and 0.9 of
+    (a)'s closed-loop rate and gamma at 0.9 (cv 2): the latency block;
+    the last run's recorded trace replayed to the same tokens.  (c) (a)
+    again on the model clock against the card's HWSpec: the modeled work
+    and the served step's share of its bound, over all steps and over
+    pure-decode steps.  (d) the stall-free policy under contention:
+    request 0's worst and p99 TBT, prefill steps and chunk widths, fixed
+    against stall-free; request 0's tokens identical.  Returns the
+    launches of SERVE_KERNELS."""
+    t0 = datetime.datetime.now()
+    phase = "serve-open-loop"
+    total = {}
+    cfg = get_config("granite-3-2b")
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    reqs = [(rng.integers(1, cfg.vocab_size, size=int(n)), MIX_NEW)
+            for n in rng.integers(32, 257, size=16)]
+
+    # (a) closed loop, then the same requests through the front end
+    eng = ContinuousBatchingEngine(model, params, **MIX)
+    rids = [eng.submit(p, g) for p, g in reqs]
+    torch.cuda.synchronize()
+    reset_launches(SERVE_KERNELS)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    closed = eng.run()
+    end.record()
+    end.synchronize()
+    got = {n: launches_of(n) for n in SERVE_KERNELS}
+    st = eng.stats.summary()
+    _b1_only(phase, "(a) engine.run()", got, st["forwards"], cfg.n_layers)
+    _add(total, got)
+    _check_tokens(f"{phase} (a)", closed, MIX_NEW, cfg.padded_vocab)
+    closed_s = start.elapsed_time(end) / 1e3
+    decode_p50 = _p50(_step_ms(eng, pure_decode=True)) / 1e3
+    lam_max = len(reqs) / closed_s
+    eng.reset()
+    front, got = _front_run(phase, "(a) front end", eng,
+                            closed_loop_arrivals(reqs), "wall")
+    _add(total, got)
+    same = all(np.array_equal(front.results[r], closed[r]) for r in rids)
+    fst = front.engine_summary
+    tps_closed = st["generated_tokens"] / closed_s
+    tps_front = fst["generated_tokens"] / front.makespan_s
+    log(phase, f"(a) granite-3-2b bf16, 16 requests at phase 6's mix: "
+               f"engine.run() {st['generated_tokens']} tokens in "
+               f"{st['steps']} steps / {st['forwards']} forwards, "
+               f"{tps_closed:.1f} tok/s over {closed_s * 1e3:.1f} ms "
+               f"(pure-decode step p50 {decode_p50 * 1e3:.3f} ms); "
+               f"OpenLoopFrontend(clock='wall') over closed-loop arrivals "
+               f"{fst['steps']} steps, {tps_front:.1f} tok/s over the "
+               f"makespan {front.makespan_s * 1e3:.1f} ms; front / run "
+               f"{tps_front / tps_closed:.3f} | tokens identical: {same} | "
+               f"paged_partials {cfg.n_layers} x forwards in both | "
+               f"lambda_max {lam_max:.4f} requests/s | {card}")
+    if not same or fst["steps"] != st["steps"]:
+        raise SystemExit(f"{phase} (a): tokens identical {same}, steps "
+                         f"{fst['steps']} against {st['steps']}")
+
+    # (c) the model clock against the card's HWSpec, the events recorded
+    eng.reset()
+    modeled, got = _front_run(phase, "(c)", eng, closed_loop_arrivals(reqs),
+                              "model")
+    _add(total, got)
+    if not all(np.array_equal(modeled.results[r], closed[r]) for r in rids):
+        raise SystemExit(f"{phase} (c): tokens differ from (a)'s")
+    mst = modeled.engine_summary
+    steps = eng.stats.steps
+    meas = [s_.device_ms() / 1e3 for s_ in steps]
+    model_t = [eng.modeled_step_time(s_.n_decode, s_.n_prefill_tokens)
+               for s_ in steps]
+    dec = [i for i, s_ in enumerate(steps)
+           if s_.n_decode and not s_.n_prefill_tokens]
+    share = sum(model_t) / sum(meas)
+    dshare = sum(model_t[i] for i in dec) / sum(meas[i] for i in dec)
+    log(phase, f"(c) clock='model' against {eng.hw.name} "
+               f"({eng.hw.hbm_bw / 1e12:.2f} TB/s, "
+               f"{eng.hw.peak_flops_bf16 / 1e12:.0f} TFLOP/s bf16): "
+               f"tokens as (a); model_flops {mst['model_flops']:.4e}, "
+               f"model_bytes {mst['model_bytes']:.4e}, model_tflops_per_s "
+               f"{mst['model_tflops_per_s']:.4f} over the step events | "
+               f"modeled makespan {modeled.makespan_s * 1e3:.3f} ms | "
+               f"modeled / measured step time: all {len(steps)} steps "
+               f"{sum(model_t) * 1e3:.3f} / {sum(meas) * 1e3:.3f} ms = "
+               f"{100 * share:.2f}%, {len(dec)} pure-decode steps "
+               f"{sum(model_t[i] for i in dec) * 1e3:.3f} / "
+               f"{sum(meas[i] for i in dec) * 1e3:.3f} ms = "
+               f"{100 * dshare:.2f}% (one decode step of 8 rows: modeled "
+               f"{eng.modeled_step_time(8, 0) * 1e3:.3f} ms, measured p50 "
+               f"{_p50([meas[i] for i in dec]) * 1e3:.3f} ms) | {card}")
+    if not 0 < share < 1 or not 0 < dshare < 1:
+        raise SystemExit(f"{phase} (c): shares {share}, {dshare}")
+
+    # (d) the stall-free policy under contention, wall feedback
+    srng = np.random.default_rng(6)
+    short = srng.integers(1, cfg.vocab_size, size=STALL_SHORT[0])
+    long_ = srng.integers(1, cfg.vocab_size, size=STALL_LONG)
+    # request 0's prefill (its chunks) and STALL_AFTER decode steps
+    t_long = (-(-STALL_SHORT[0] // MIX["prefill_chunk"]) + STALL_AFTER) \
+        * decode_p50
+    arr = [ArrivalRequest(0.0, short, STALL_SHORT[1]),
+           ArrivalRequest(t_long, long_, 1)]
+    target = STALL_TARGET * decode_p50
+    runs = {}
+    for policy in ("fixed", "stall_free"):
+        e = ContinuousBatchingEngine(
+            model, params, chunk_policy=policy,
+            tbt_target_s=target if policy == "stall_free" else None, **MIX)
+        widths = _plan_widths(e)
+        res, got = _front_run(phase, f"(d) {policy}", e, arr, "wall")
+        del e.step                   # the log's wrapper, so e can go
+        _add(total, got)
+        ev = [x for x in res.events if x.rid == 0][0]
+        if not ev.completed or len(ev.tbt_s) != STALL_SHORT[1] - 1:
+            raise SystemExit(f"{phase} (d) {policy}: request 0 "
+                             f"incomplete")
+        pf = [w for ws in widths for w in ws]
+        hist = collections.Counter(pf)
+        n_pf = sum(bool(s_.n_prefill_tokens) for s_ in e.stats.steps)
+        runs[policy] = res
+        log(phase, f"(d) chunk_policy={policy}"
+                   + (f" (tbt_target {target * 1e3:.3f} ms = "
+                      f"{STALL_TARGET} x (a)'s pure-decode p50)"
+                      if policy == "stall_free" else "")
+                   + f": request 0 ({STALL_SHORT[0]} prompt, "
+                   f"{STALL_SHORT[1]} new) worst TBT "
+                   f"{ev.max_tbt_s * 1e3:.3f} ms, p99 "
+                   f"{float(np.percentile(ev.tbt_s, 99)) * 1e3:.3f} ms, p50 "
+                   f"{float(np.percentile(ev.tbt_s, 50)) * 1e3:.3f} ms; the "
+                   f"{STALL_LONG}-token request arrives at "
+                   f"{t_long * 1e3:.1f} ms, its token "
+                   f"{int(res.results[1][0])} (reported only: bf16) | "
+                   f"{len(e.stats.steps)} steps, {n_pf} with prefill, "
+                   f"chunk widths {dict(sorted(hist.items()))} | makespan "
+                   f"{res.makespan_s * 1e3:.1f} ms | {card}")
+        del e
+    same = np.array_equal(runs["fixed"].results[0],
+                          runs["stall_free"].results[0])
+    log(phase, f"(d) request 0's tokens identical under both policies: "
+               f"{same} | {card}")
+    if not same:
+        raise SystemExit(f"{phase} (d): request 0's tokens differ")
+    del eng, model, params
+    torch.cuda.empty_cache()
+
+    # (b) the launcher, open loop, at shares of (a)'s closed-loop rate
+    kw = dict(slots=MIX["n_slots"], requests=OPEN_N,
+              prompt_len=OPEN_PROMPTS[1], min_prompt_len=OPEN_PROMPTS[0],
+              gen_len=MIX_NEW, prefill_chunk=MIX["prefill_chunk"],
+              page_size=MIX["page_size"], open_loop=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "6l_trace.json")
+        for i, (process, load) in enumerate(OPEN_LOADS):
+            last = i == len(OPEN_LOADS) - 1
+            res = _launch_open(phase, card, rate=load * lam_max,
+                               arrival=process, cv=OPEN_CV,
+                               record_trace=trace if last else None, **kw)
+            _add(total, res["launches"])
+        replay = _launch_open(phase, card, trace=trace, **kw)
+    _add(total, replay["launches"])
+    same = ({r: t.tolist() for r, t in replay["tokens"].items()}
+            == {r: t.tolist() for r, t in res["tokens"].items()})
+    log(phase, f"(b) the recorded trace replayed: tokens identical {same}; "
+               f"phase wall {_since(t0):.1f} s | {card}")
+    if not same:
+        raise SystemExit(f"{phase} (b): the replay's tokens differ")
+    return total
+
+
+def _launch_open(phase, card, **kw):
+    """One ``launch.serve.run(open_loop=True)`` of (b): checked tokens and
+    launches, the launcher's printout logged."""
+    torch.cuda.empty_cache()
+    reset_launches(SERVE_KERNELS)
+    res = launch_serve.run("granite-3-2b", **kw)
+    got = {n: launches_of(n) for n in SERVE_KERNELS}
+    cfg = get_config("granite-3-2b")
+    _b1_only(phase, f"(b) {res['arrivals']}", got, res["forwards"],
+             cfg.n_layers)
+    _check_tokens(f"{phase} (b)", res["tokens"], MIX_NEW, cfg.padded_vocab)
+    lat = res["latency"]
+    if lat["completed"] != lat["requests"]:
+        raise SystemExit(f"{phase} (b): {lat['completed']} of "
+                         f"{lat['requests']} requests completed")
+    for line in launch_serve.report(res).splitlines():
+        log(phase, f"(b) {line}")
+    log(phase, f"(b) {res['arrivals']}: {res['tokens_per_s']:.1f} tok/s "
+               f"over {res['run_ms']:.1f} ms, step p50 "
+               f"{res['step_ms_p50']:.3f} ms, paged_partials "
+               f"{got['paged_partials']} = {cfg.n_layers} x "
+               f"{res['forwards']} | latency block "
+               f"{json.dumps({k: lat[k] for k in ('ttft_s', 'tbt_s', 'e2e_s', 'queue_depth', 'makespan_s', 'goodput_tok_s', 'slo')})} "
+               f"| {card}")
+    res["launches"] = got
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -4113,9 +4407,15 @@ def main():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    t_start = datetime.datetime.now()
+
+    def done(what):
+        log("wall", f"{what} done, {_since(t_start):.1f} s since the start")
+
     card = phase_device()
     phase_build()
     phase_sass()
+    done("1-2 device, build, sass")
     hw = hw_for(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4126,6 +4426,7 @@ def main():
                   f"matmul {torch.backends.cuda.matmul.allow_tf32}, cudnn "
                   f"{torch.backends.cudnn.allow_tf32}")
     worst, main_case = phase_kernel(card, hw)
+    done("3 kernel")
     records = phase_kernels_veceval(card, hw)
     records.update(phase_kernels_paper(card, hw))
     records.update(phase_kernels_train(card, hw))
@@ -4133,21 +4434,35 @@ def main():
     records.update(phase_kernels_int8(card, hw))
     records.update(phase_kernels_serve_dense(card, hw))
     records["paged_partials"] = dict(max_abs_err=worst, **main_case)
+    done("4 kernels")
     phase_parity()
+    done("5 parity")
     launches = {"paged_partials": phase_serve(card, args.profile)}
+    done("6 serve")
     launches["ssd_scan"] = phase_serve_ssm(card, args.profile)
+    done("6b serve-ssm")
     launches["wq_gemm"] = phase_serve_int8(card, args.profile)
+    done("6c serve-int8")
     launches["flash_decode"] = phase_serve_dense(card, args.profile)
-    for got in (phase_serve_moe(card, args.profile), phase_serve_grok(card),
-                phase_serve_phi3m(card),
-                phase_serve_hybrid(card, args.profile),
-                phase_serve_vlm(card, args.profile),
-                phase_serve_audio(card, args.profile),
-                phase_serve_features(card)):
-        _add(launches, got)
+    done("6d serve-dense")
+    for what, serve in (
+            ("6e serve-moe", lambda: phase_serve_moe(card, args.profile)),
+            ("6f serve-grok", lambda: phase_serve_grok(card)),
+            ("6g serve-phi3m", lambda: phase_serve_phi3m(card)),
+            ("6h serve-hybrid",
+             lambda: phase_serve_hybrid(card, args.profile)),
+            ("6i serve-vlm", lambda: phase_serve_vlm(card, args.profile)),
+            ("6j serve-audio", lambda: phase_serve_audio(card, args.profile)),
+            ("6k serve-features", lambda: phase_serve_features(card)),
+            ("6l serve-open-loop", lambda: phase_serve_open_loop(card))):
+        _add(launches, serve())
+        done(what)
     launches["flash_attention"] = phase_train(card, args.profile)
+    done("7 train")
     launches.update(phase_veceval(card, hw))
+    done("8 veceval")
     launches.update(phase_paper(card, hw))
+    done("9 paper")
     record = {"kernels": [dict(
         name=name, route="cuda",
         source=os.path.relpath(source, ROOT), replaces=replaces,

@@ -2,13 +2,14 @@
 
 A copy of the fields every family of the reference reads (dense, moe,
 ssm, hybrid, vlm and audio), serving and training, with the same names
-and defaults so a config reads the same in both packages.
+and defaults so a config reads the same in both packages, and of its
+parameter count (``param_counts``), which the cost model reads.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def pad_to_multiple(x: int, multiple: int) -> int:
@@ -103,3 +104,83 @@ class ModelConfig:
         if self.moe_period <= 0:
             return True
         return (layer_idx % self.moe_period) == self.moe_offset
+
+    # --- parameter counting (for roofline MODEL_FLOPS = 6·N·D) ------------
+    def param_counts(self) -> Tuple[int, int]:
+        """Return (total_params, active_params) excluding stub frontends.
+
+        A verbatim copy of the reference's count, which the analytic cost
+        model (``core.costmodel``) reads, so that the modeled step clock
+        equals the reference's in every family.  It keeps the reference's
+        two miscounts (ROADMAP R7): the vlm's cross layers are counted
+        with a self-attention block besides their cross block (120
+        attention blocks where the tree has 100, +3.4%), and whisper's
+        decoder cross-attention is left out (-6.5%).  The bytes of the actual tree are
+        ``LM.init_param_bytes``."""
+        d, h = self.d_model, self.resolved_head_dim
+        nq, nkv = self.n_heads, self.n_kv_heads
+        total = 0
+        active = 0
+
+        def attn_params() -> int:
+            q = d * nq * h
+            kv = 2 * d * nkv * h
+            o = nq * h * d
+            qknorm = 2 * h if self.qk_norm else 0
+            return q + kv + o + qknorm + d  # + pre-norm scale
+
+        def dense_mlp_params(dff: int) -> int:
+            if self.mlp_type == "gelu":
+                return 2 * d * dff + d
+            return 3 * d * dff + d  # SwiGLU (gate, up, down) + pre-norm
+
+        def moe_params() -> Tuple[int, int]:
+            m = self.moe
+            router = d * m.num_experts
+            per_expert = 3 * d * m.expert_d_ff
+            tot = router + m.num_experts * per_expert + d
+            act = router + m.top_k * per_expert + d
+            return tot, act
+
+        def mamba_params() -> int:
+            s = self.ssm
+            d_inner = s.expand * d
+            nheads = d_inner // s.head_dim
+            conv_dim = d_inner + 2 * s.ngroups * s.d_state
+            in_proj = d * (2 * d_inner + 2 * s.ngroups * s.d_state + nheads)
+            conv = conv_dim * s.conv_kernel + conv_dim
+            extra = nheads * 2 + d_inner  # A_log, D, gate-norm scale
+            out_proj = d_inner * d
+            return in_proj + conv + extra + out_proj + d
+
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind == "attn":
+                total += attn_params()
+                active += attn_params()
+            else:
+                total += mamba_params()
+                active += mamba_params()
+            if self.cross_attn_period and (i % self.cross_attn_period) == (
+                self.cross_attn_period - 1
+            ):
+                total += attn_params()
+                active += attn_params()
+            if self.layer_uses_moe(i):
+                t, a = moe_params()
+                total += t
+                active += a
+            else:
+                total += dense_mlp_params(self.d_ff)
+                active += dense_mlp_params(self.d_ff)
+
+        # encoder stack (audio): same dense layer shape
+        for _ in range(self.n_encoder_layers):
+            total += attn_params() + dense_mlp_params(self.d_ff)
+            active += attn_params() + dense_mlp_params(self.d_ff)
+
+        emb = self.padded_vocab * d
+        unemb = 0 if self.tie_embeddings else self.padded_vocab * d
+        total += emb + unemb + d
+        active += emb + unemb + d
+        return total, active

@@ -57,9 +57,38 @@ static engine has neither and refuses them.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
       --reduced --device cpu --prefix-cache --speculative --spec-k 4
 
+``--open-loop`` routes the workload through the open-loop front end
+(``serve.frontend.OpenLoopFrontend``): requests arrive on a clock
+instead of being queued up front, and the run prints TTFT, TBT and E2E
+percentiles, the queue depth, the makespan, and SLO attainment and
+goodput under a TTFT + TBT SLO (``--slo-ttft``, ``--slo-tbt``; by
+default 3x the run's p50s).  ``--rate`` sets the arrival rate in
+requests/s (0: every request at t=0, through the front end),
+``--arrival poisson|gamma|trace`` the process (``--cv``: gamma's
+burstiness), ``--trace`` replays a ``repro.serve.trace`` JSON workload
+and ``--record-trace`` writes the run's completed arrivals as one.
+``--clock wall`` (the default) advances the front end's clock by each
+step's time between CUDA events, so it needs the card; ``--clock
+model`` advances it by the cost model's step times against the card's
+ceilings (``engine.modeled_step_time``), deterministic and the only
+clock on the CPU.  ``--chunk-policy stall_free --tbt-target S`` makes
+the scheduler's prefill chunk a per-step decision sized to keep the
+time between decode tokens under S seconds (fed by each step's CUDA-event
+time, or under ``--clock model`` the modeled one; on the CPU it needs
+``--open-loop --clock model``).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --reduced --device cpu --open-loop --clock model --rate 2000 \\
+      --requests 8 --prompt-len 16 --gen-len 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \\
+      --slots 8 --requests 32 --prompt-len 256 --min-prompt-len 32 \\
+      --prefill-chunk 32 --open-loop --rate 1.0 --arrival gamma --cv 2
+
+``--min-prompt-len`` is the shortest prompt drawn (by default half of
+``--prompt-len``, the reference's band).
+
 Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``--mesh``, ``--sp-kv``, ``--open-loop`` and ``--chunk-policy
-stall_free``.
+item: ``--mesh`` and ``--sp-kv``.
 """
 from __future__ import annotations
 
@@ -73,14 +102,17 @@ from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.models.decode_state import stub_context
 from repro_torch.models.model import LM
 from repro_torch.models.quant import param_bytes
+from repro_torch.serve.arrivals import (closed_loop_arrivals,
+                                        gamma_arrivals, poisson_arrivals,
+                                        save_trace, trace_arrivals)
 from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
+from repro_torch.serve.frontend import CLOCKS, OpenLoopFrontend
+from repro_torch.serve.slo import SLO
 
 # option -> (the value that means "off", the ROADMAP item that ports it)
 NOT_PORTED = {
     "mesh": (None, "A10: the device mesh"),
     "sp_kv": (False, "A10: the sequence-parallel KV cache"),
-    "open_loop": (False, "A7: the open-loop front end"),
-    "chunk_policy": ("fixed", "A7: the stall_free chunk policy"),
 }
 
 
@@ -96,6 +128,13 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         layers: Optional[int] = None, device=None,
         prefix_cache: bool = False, prefix_pool: int = 8,
         speculative: bool = False, spec_k: int = 4,
+        chunk_policy: str = "fixed", tbt_target: Optional[float] = None,
+        open_loop: bool = False, clock: str = "wall", rate: float = 0.0,
+        arrival: str = "poisson", cv: float = 2.0,
+        trace: Optional[str] = None, slo_ttft: Optional[float] = None,
+        slo_tbt: Optional[float] = None,
+        record_trace: Optional[str] = None,
+        min_prompt_len: Optional[int] = None,
         **options) -> Dict[str, Any]:
     """Serve ``requests`` (default 2 x ``slots``; ``slots`` with
     ``static``) random prompts and return what the launcher prints: the
@@ -111,7 +150,18 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     engine's; the result then also holds its ``prefix_cache`` (False
     for a family that cannot share a prefix), ``prefix_hit_tokens``,
     ``prefix_hit_rate``, ``drafted_tokens``, ``accepted_draft_tokens``
-    and ``accept_rate``."""
+    and ``accept_rate``.  Every run returns the engine's summary
+    (``engine_summary``: counts, the modeled ``model_flops`` and
+    ``model_bytes``, on the card the times).  ``chunk_policy`` /
+    ``tbt_target`` are the continuous engine's chunk policy; with
+    ``open_loop`` the requests go through ``OpenLoopFrontend`` on
+    ``clock`` (``rate``, ``arrival``, ``cv``, ``trace``: see the module
+    docstring) and the result also holds ``latency`` (the front end's
+    ``latency_summary`` under the SLO of ``slo_ttft`` / ``slo_tbt``, by
+    default 3x the run's p50s), ``slo``, ``arrivals`` (the process's
+    label), ``makespan_s`` and ``completed_arrivals``; ``record_trace``
+    writes those as a replayable trace.  Prompts are ``min_prompt_len``
+    (default ``prompt_len // 2``) to ``prompt_len`` tokens."""
     for name, value in options.items():
         if name not in NOT_PORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
@@ -122,6 +172,19 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     if static and (prefix_cache or speculative):
         raise ValueError("the static engine has no prefix cache and no "
                          "speculative decoding: drop --static")
+    if static and (open_loop or chunk_policy != "fixed"):
+        raise ValueError("the static engine has no open-loop front end "
+                         "and no chunk policy: drop --static")
+    if record_trace and not open_loop:
+        raise ValueError("--record-trace needs --open-loop (it records "
+                         "the front end's completed arrivals)")
+    if chunk_policy == "stall_free" and not tbt_target:
+        raise ValueError("--chunk-policy stall_free needs --tbt-target "
+                         "(seconds between decode tokens)")
+    if open_loop and arrival == "trace" and not trace:
+        raise ValueError("--arrival trace needs --trace FILE")
+    p_min = (max(1, prompt_len // 2) if min_prompt_len is None
+             else min_prompt_len)
     depth = {} if layers is None else {"n_layers": layers}
     cfg = (reduced_config(arch, **depth) if reduced
            else get_config(arch, **depth))
@@ -159,18 +222,31 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         engine = ContinuousBatchingEngine(
             model, params, n_slots=slots, max_len=max_len,
             page_size=page_size, prefill_chunk=prefill_chunk,
+            chunk_policy=chunk_policy, tbt_target_s=tbt_target,
             prefix_cache=prefix_cache, prefix_pool=prefix_pool,
             spec_decode=speculative, spec_k=spec_k)
         n_req = requests or 2 * slots
-        prompts = []
-        for _ in range(n_req):
-            prompts.append(rng.integers(1, cfg.vocab_size, size=int(
-                rng.integers(max(1, prompt_len // 2), prompt_len + 1))))
-            engine.submit(prompts[-1], gen_len, temperature=temperature,
-                          extra=stub_context(cfg, rng))
-        if on_card:
-            start.record()
-        tokens = engine.run()
+        if open_loop:
+            front = OpenLoopFrontend(engine, clock=clock)
+            arr, label = _arrivals(cfg, rng, n_req, p_min, prompt_len,
+                                   gen_len, temperature, rate, arrival, cv,
+                                   trace)
+            prompts = [a.prompt for a in arr]
+            n_req = len(arr)
+            if on_card:
+                start.record()
+            ol = front.run(arr)
+            tokens = ol.results
+        else:
+            prompts = []
+            for _ in range(n_req):
+                prompts.append(rng.integers(1, cfg.vocab_size, size=int(
+                    rng.integers(p_min, prompt_len + 1))))
+                engine.submit(prompts[-1], gen_len, temperature=temperature,
+                              extra=stub_context(cfg, rng))
+            if on_card:
+                start.record()
+            tokens = engine.run()
     if on_card:
         end.record()        # serving only: not the byte reckoning below
     st = engine.stats.summary()
@@ -182,10 +258,13 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         param_bytes=param_bytes(params), init_peak_gib=init_peak,
         generated_tokens=st["generated_tokens"], steps=st["steps"],
         forwards=st["forwards"], run_ms=None, tokens_per_s=None,
-        prefill_ms=None, step_ms_p50=None, peak_gib=None)
+        prefill_ms=None, step_ms_p50=None, peak_gib=None,
+        engine_summary=st, open_loop=open_loop, latency=None)
     if not static:
         res["prefix_cache"] = engine.prefix_cache
         res["speculative"] = engine.spec_decode
+        res["chunk_policy"] = chunk_policy
+        res["last_chunk_width"] = engine.sched.last_chunk_width
         res.update({k: st[k] for k in (
             "prefix_hit_tokens", "prefix_hit_rate", "drafted_tokens",
             "accepted_draft_tokens", "accept_rate")})
@@ -200,7 +279,52 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
             res["step_ms_p50"] = _p50(ms[1:])
         else:
             res["step_ms_p50"] = st["step_ms_p50"]
+    if res["open_loop"]:
+        res.update(clock=clock, arrivals=label, makespan_s=ol.makespan_s,
+                   completed_arrivals=ol.completed_arrivals,
+                   **_latency(ol, slo_ttft, slo_tbt))
+        if record_trace:
+            save_trace(record_trace, ol.completed_arrivals)
+            res["record_trace"] = record_trace
     return res
+
+
+def _arrivals(cfg, rng, n_req, p_min, prompt_len, gen_len, temperature,
+              rate, arrival, cv, trace):
+    """The open-loop workload and its label, drawn as the reference
+    launcher draws it: one stub context for every request (a
+    cross-attention family's), then each prompt's length and tokens;
+    arrivals seeded 2."""
+    extra = stub_context(cfg, rng)
+    if trace or arrival == "trace":
+        return (trace_arrivals(trace, vocab_size=cfg.vocab_size,
+                               extra=extra), f"trace {trace}")
+    items = []
+    for _ in range(n_req):
+        plen = int(rng.integers(p_min, prompt_len + 1))
+        items.append((rng.integers(1, cfg.vocab_size, size=plen), gen_len))
+    if rate <= 0:
+        return (closed_loop_arrivals(items, temperature=temperature,
+                                     extra=extra),
+                "closed-loop (all at t=0)")
+    if arrival == "gamma":
+        return (gamma_arrivals(items, rate, cv=cv, seed=2,
+                               temperature=temperature, extra=extra),
+                f"gamma rate={rate}/s cv={cv}")
+    return (poisson_arrivals(items, rate, seed=2, temperature=temperature,
+                             extra=extra), f"poisson rate={rate}/s")
+
+
+def _latency(ol, slo_ttft, slo_tbt) -> Dict[str, Any]:
+    """The run's latency block under its SLO (each bound by default 3x
+    the run's p50; no SLO where a bound would be 0)."""
+    lat = ol.summary()
+    ttft = slo_ttft if slo_ttft is not None else 3 * lat["ttft_s"]["p50"]
+    tbt = slo_tbt if slo_tbt is not None else 3 * lat["tbt_s"]["p50"]
+    slo = SLO(ttft_s=ttft, tbt_s=tbt) if ttft > 0 and tbt > 0 else None
+    if slo is not None:
+        lat = ol.summary(slo=slo)
+    return {"latency": lat, "slo": slo}
 
 
 def report(res: Dict[str, Any]) -> str:
@@ -227,7 +351,40 @@ def report(res: Dict[str, Any]) -> str:
         line += (f" | speculative: accept_rate {res['accept_rate']:.2f} "
                  f"({res['accepted_draft_tokens']}/"
                  f"{res['drafted_tokens']} drafted tokens)")
-    return line + f" | sample: {list(map(int, first[:12]))}"
+    line += f" | sample: {list(map(int, first[:12]))}"
+    if res["open_loop"]:
+        line += "\n" + _open_loop_lines(res)
+    return line
+
+
+def _open_loop_lines(res: Dict[str, Any]) -> str:
+    """The reference launcher's open-loop printout."""
+    lat, slo = res["latency"], res["slo"]
+    out = [f"[serve] open-loop {res['arch']} ({res['family']}) "
+           f"requests={lat['requests']} completed={lat['completed']}: "
+           f"{res['arrivals']}, clock={res['clock']}"]
+    for key, name in (("ttft_s", "TTFT"), ("tbt_s", "TBT"),
+                      ("e2e_s", "E2E")):
+        d = lat[key]
+        out.append(f"[serve]   {name}: p50={d['p50'] * 1e3:.2f}ms "
+                   f"p90={d['p90'] * 1e3:.2f}ms "
+                   f"p99={d['p99'] * 1e3:.2f}ms (n={d['n']})")
+    q = lat["queue_depth"]
+    out.append(f"[serve]   queue depth: mean={q['mean']:.2f} "
+               f"max={q['max']}; makespan={lat['makespan_s'] * 1e3:.1f}ms")
+    if slo is not None:
+        out.append(f"[serve]   SLO(ttft<={slo.ttft_s * 1e3:.1f}ms, "
+                   f"tbt<={slo.tbt_s * 1e3:.1f}ms): "
+                   f"attainment={lat['slo']['attainment']:.2f} "
+                   f"goodput={lat['goodput_tok_s']:.1f} tok/s")
+    if res["chunk_policy"] == "stall_free":
+        out.append(f"[serve]   stall-free chunks: last width "
+                   f"{res['last_chunk_width']}")
+    if "record_trace" in res:
+        out.append(f"[serve]   recorded {len(res['completed_arrivals'])} "
+                   f"completed arrival(s) -> {res['record_trace']} (replay "
+                   f"with --arrival trace --trace {res['record_trace']})")
+    return "\n".join(out)
 
 
 def main(argv: Optional[list] = None) -> Dict[str, Any]:
@@ -261,8 +418,44 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                     help="max pooled prefix entries (LRU bound)")
     ap.add_argument("--mesh", default=None, help="not ported (A10)")
     ap.add_argument("--sp-kv", action="store_true", help="not ported (A10)")
+    ap.add_argument("--min-prompt-len", type=int, default=None,
+                    help="shortest prompt drawn (default: half of "
+                         "--prompt-len)")
     ap.add_argument("--open-loop", action="store_true",
-                    help="not ported (A7)")
+                    help="serve through the open-loop front end: "
+                         "requests arrive on a clock; prints TTFT/TBT/"
+                         "E2E percentiles and goodput under the SLO")
+    ap.add_argument("--clock", default="wall", choices=CLOCKS,
+                    help="open-loop clock: wall (each step between CUDA "
+                         "events; the card only) or model (the cost "
+                         "model's step times; required on the CPU)")
+    ap.add_argument("--rate", type=float, default=0.0,
+                    help="open-loop arrival rate in requests/s "
+                         "(0 = all requests arrive at t=0)")
+    ap.add_argument("--arrival", default="poisson",
+                    choices=("poisson", "gamma", "trace"),
+                    help="open-loop arrival process (gamma: see --cv; "
+                         "trace: see --trace)")
+    ap.add_argument("--cv", type=float, default=2.0,
+                    help="gamma arrivals: inter-arrival coefficient of "
+                         "variation (>1 = burstier than Poisson)")
+    ap.add_argument("--trace", default=None,
+                    help="replay a repro.serve.trace JSON workload file "
+                         "(implies --arrival trace)")
+    ap.add_argument("--slo-ttft", type=float, default=None,
+                    help="SLO: max seconds to first token (default: "
+                         "3x the run's p50 TTFT)")
+    ap.add_argument("--slo-tbt", type=float, default=None,
+                    help="SLO: max seconds between tokens (default: "
+                         "3x the run's p50 TBT)")
+    ap.add_argument("--tbt-target", type=float, default=None,
+                    help="stall_free chunk policy: the decode "
+                         "time-between-tokens bound (seconds) chunks "
+                         "are sized against")
+    ap.add_argument("--record-trace", default=None, metavar="PATH",
+                    help="open-loop only: write the run's completed "
+                         "arrivals as a replayable repro.serve.trace "
+                         "JSON workload file (replay with --trace PATH)")
     ap.add_argument("--speculative", action="store_true",
                     help="n-gram draft-verify speculative decoding: "
                          "verify up to --spec-k drafted tokens a greedy "
@@ -271,7 +464,9 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                     help="max draft tokens verified a row a step")
     ap.add_argument("--chunk-policy", default="fixed",
                     choices=("fixed", "stall_free"),
-                    help="stall_free is not ported (A7)")
+                    help="prefill chunking: fixed constant-width chunks "
+                         "or per-step stall-free widths tuned to "
+                         "--tbt-target")
     args = ap.parse_args(argv)
     res = run(args.arch, reduced=args.reduced, slots=args.slots,
               requests=args.requests, prompt_len=args.prompt_len,
@@ -281,8 +476,13 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
               layers=args.layers,
               prefix_cache=args.prefix_cache, prefix_pool=args.prefix_pool,
               speculative=args.speculative, spec_k=args.spec_k,
-              mesh=args.mesh, sp_kv=args.sp_kv, open_loop=args.open_loop,
-              chunk_policy=args.chunk_policy)
+              chunk_policy=args.chunk_policy, tbt_target=args.tbt_target,
+              open_loop=args.open_loop, clock=args.clock, rate=args.rate,
+              arrival=args.arrival, cv=args.cv, trace=args.trace,
+              slo_ttft=args.slo_ttft, slo_tbt=args.slo_tbt,
+              record_trace=args.record_trace,
+              min_prompt_len=args.min_prompt_len,
+              mesh=args.mesh, sp_kv=args.sp_kv)
     print(report(res), flush=True)
     return res
 

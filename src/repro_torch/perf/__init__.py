@@ -1,1 +1,3 @@
-"""Measurement on the card (``measure``): CUDA events only."""
+"""Measurement on the card (``measure``, the front end's step clock
+``wall_clock``): CUDA events only; the benchmark Report schema
+(``report``)."""

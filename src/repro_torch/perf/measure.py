@@ -18,6 +18,15 @@ see:
 
 Without a card, or given a tensor that is not on a CUDA device, it
 raises: there is nothing to fall back to.
+
+``wall_clock(fn, *args)`` is the open-loop front end's step clock
+(``serve.frontend``, ``clock="wall"``): it drains the card, records a
+start event, runs ``fn``, records an end event and waits for it, and
+returns ``fn``'s result with the seconds between the two events.  With
+the stream drained when the start event is recorded, the event's
+timestamp is the host's instant, so the span holds everything the call
+does: the host's planning before its first launch, the launches, the
+device work and the host's commit after the last one.
 """
 from __future__ import annotations
 
@@ -119,6 +128,23 @@ def _run(contenders: Dict[str, _Candidate], reps: int, flush_l2: bool,
                               all_s=w, reps=len(w), first_s=first[name],
                               result=results[name])
             for name, w in times.items()}
+
+
+def wall_clock(fn: Callable, *args) -> Tuple[Any, float]:
+    """``(fn(*args), seconds)``: the whole call between two CUDA events,
+    the first recorded on a drained card (see the module docstring).
+    Raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("wall_clock times on a CUDA card with CUDA "
+                           "events; no CUDA device is present")
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3
 
 
 def measure(fn: Callable, *args, reps: int = 5,

@@ -57,16 +57,28 @@ forward and run it again with ``n_valid`` the accepted counts.
 
 Step time on the card comes from CUDA events recorded around each step
 and read when the stats are summarized; on the CPU no step time is
-recorded.
+recorded.  ``StepCostModel`` (the reference's, over the copied analytic
+``core.costmodel``) adds each step's modeled flops and bytes to
+``EngineStats``; ``modeled_step_time`` prices a step's composition
+against the card's ``HWSpec`` (``self.hw``), the clock of the open-loop
+front end's ``clock="model"`` (``serve/frontend.py``).
+
+The stall-free chunk policy (``chunk_policy="stall_free"``,
+``tbt_target_s``) is the copied scheduler's: it sizes each step's
+prefill chunks from an estimate of seconds a token that each executed
+step feeds (``Scheduler.note_step_wall``).  Under ``step_feedback =
+"wall"`` (the default) the engine feeds its own step's CUDA-event time,
+one sync a step, and only with that policy on; the CPU cannot time a
+step, so there a stall-free step raises and the policy runs under the
+front end's ``clock="model"``, which sets ``step_feedback =
+"external"`` and feeds modeled times itself.
 
 Not ported yet (each raises ``NotImplementedError`` if asked for): the
-device mesh (``mesh``, ``rules``, ``sp_kv``), the stall-free chunk policy
-(``chunk_policy="stall_free"``, ``tbt_target_s``), build-time trace
-analysis (``analyze``), the paged-kernel autotune (``retune``), and
-``StepCostModel`` (so ``EngineStats`` carries no modeled flops or
-bytes).  For a family whose state cannot be cut to a token prefix (ssm,
-hybrid) ``prefix_cache=True`` warns and serves with the pool off, as
-the reference does.
+device mesh (``mesh``, ``rules``, ``sp_kv``), build-time trace analysis
+(``analyze``) and the paged-kernel autotune (``retune``).  For a family
+whose state cannot be cut to a token prefix (ssm, hybrid)
+``prefix_cache=True`` warns and serves with the pool off, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -79,8 +91,11 @@ import torch
 
 from repro_torch.analysis.findings import Finding
 from repro_torch.analysis.schedcheck import SchedChecker
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.core import costmodel
 from repro_torch.models import decode_state
 from repro_torch.models.attention import PagedDecodeState
+from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import LM
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import PagedKVCache
@@ -92,7 +107,7 @@ from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
 # that means "off"; anything else raises NotImplementedError
 _NOT_PORTED = {
     "mesh": None, "rules": None, "sp_kv": False, "analyze": False,
-    "retune": False, "chunk_policy": "fixed", "tbt_target_s": None,
+    "retune": False,
 }
 
 
@@ -151,6 +166,46 @@ def _record(stats, events, **counts) -> None:
 # ---------------------------------------------------------------------------
 # metrics
 # ---------------------------------------------------------------------------
+class StepCostModel:
+    """Analytic per-step FLOPs/bytes (core/costmodel) for engine stats: a
+    copy of the reference's.
+
+    Decode rows are costed at a representative mid-stream cache length
+    (``max_len // 2``); prefill tokens at the per-token average of a full
+    ``max_len`` prefill.  These are *model* numbers (the analytic
+    implementation cost, not a counter): the modeled bound time of a step
+    over its measured time is the served step's share of its roofline.
+    """
+
+    def __init__(self, cfg, max_len: int):
+        kv = max(1, max_len // 2)
+        # per-token decode cost excludes the enc-dec audio encoder: the
+        # engines run it once per request at admission (install_context),
+        # so it is amortized into the prefill per-token average instead
+        self.decode_flops_tok = costmodel.forward_flops(
+            cfg, 1, 1, kv_len=kv, decode=True,
+            include_encoder=False)["total"]
+        dec = costmodel.step_hbm_bytes(
+            cfg, ShapeSpec("serve_decode", kv, 1, "decode"))
+        self.decode_param_bytes = dec.get("params", 0.0)
+        self.decode_cache_bytes_row = dec.get("cache", 0.0)
+        S = max(1, max_len)
+        self.prefill_flops_tok = costmodel.forward_flops(cfg, 1, S)["total"] / S
+        self.prefill_bytes_tok = costmodel.step_hbm_bytes(
+            cfg, ShapeSpec("serve_prefill", S, 1, "prefill"))["total"] / S
+
+    def step_cost(self, n_decode: int, n_prefill_tokens: int
+                  ) -> tuple[float, float]:
+        flops = (n_decode * self.decode_flops_tok
+                 + n_prefill_tokens * self.prefill_flops_tok)
+        # params stream through HBM once per batched decode step, not once
+        # per row; per-row traffic is the row's own cache read
+        bytes_ = ((self.decode_param_bytes if n_decode else 0.0)
+                  + n_decode * self.decode_cache_bytes_row
+                  + n_prefill_tokens * self.prefill_bytes_tok)
+        return flops, bytes_
+
+
 @dataclasses.dataclass
 class StepRecord:
     n_decode: int
@@ -189,26 +244,30 @@ class EngineStats:
     # normal sample, counted in generated_tokens only)
     drafted_tokens: int = 0
     accepted_draft_tokens: int = 0
+    # the analytic (StepCostModel) work of the steps run
+    model_flops: float = 0.0
+    model_bytes: float = 0.0
 
     def summary(self) -> Dict[str, Optional[float]]:
-        """The reference's keys but its modeled ``model_flops``,
-        ``model_bytes`` and ``model_tflops_per_s`` (they come with
-        ``StepCostModel``, not ported yet), plus ``forwards``.  Times
-        (``tok_per_s``: tokens over the summed step events;
-        ``step_ms_p50``, ``step_ms_p95``) are CUDA-event times on the
-        card and ``None`` on the CPU.  With no step, every rate is 0.0 and
-        ``note`` says why."""
+        """The reference's keys plus ``forwards``.  Times (``tok_per_s``
+        and ``model_tflops_per_s``: tokens and modeled flops over the
+        summed step events; ``step_ms_p50``, ``step_ms_p95``) are
+        CUDA-event times on the card and ``None`` on the CPU.  With no
+        step, every rate is 0.0 and ``note`` says why."""
         accept_rate = (self.accepted_draft_tokens / self.drafted_tokens
                        if self.drafted_tokens else 0.0)
         counts = {"prefix_hit_tokens": self.prefix_hit_tokens,
                   "drafted_tokens": self.drafted_tokens,
                   "accepted_draft_tokens": self.accepted_draft_tokens,
-                  "accept_rate": accept_rate}
+                  "accept_rate": accept_rate,
+                  "model_flops": self.model_flops,
+                  "model_bytes": self.model_bytes}
         if not self.steps:
             return {"steps": 0, "generated_tokens": 0, "forwards": 0,
                     "tok_per_s": 0.0, "step_ms_p50": 0.0,
                     "step_ms_p95": 0.0, "mean_occupancy": 0.0,
                     "mean_page_utilization": 0.0, "prefix_hit_rate": 0.0,
+                    "model_tflops_per_s": 0.0,
                     **counts, "note": "zero steps executed"}
         prefill_tokens = sum(s.n_prefill_tokens for s in self.steps)
         prompt_total = prefill_tokens + self.prefix_hit_tokens
@@ -217,6 +276,7 @@ class EngineStats:
             "generated_tokens": self.generated_tokens,
             "forwards": self.forwards,
             "tok_per_s": None, "step_ms_p50": None, "step_ms_p95": None,
+            "model_tflops_per_s": None,
             "mean_occupancy": float(np.mean(
                 [s.occupancy for s in self.steps])),
             "mean_page_utilization": float(np.mean(
@@ -233,6 +293,8 @@ class EngineStats:
             out.update(
                 tok_per_s=(self.generated_tokens / (total / 1e3)
                            if total else 0.0),
+                model_tflops_per_s=(self.model_flops / (total / 1e3) / 1e12
+                                    if total else 0.0),
                 step_ms_p50=ms[len(ms) // 2],
                 step_ms_p95=ms[min(len(ms) - 1, int(0.95 * len(ms)))])
         return out
@@ -250,11 +312,14 @@ class ContinuousBatchingEngine:
         rid = eng.submit(prompt_tokens, max_new_tokens=16)        # queued
         results = eng.run()          # drain; {rid: np.ndarray of tokens}
 
-    The engine runs on the model's device.  ``prefix_cache`` /
-    ``prefix_pool``, ``spec_decode`` / ``spec_k`` and ``check`` are the
-    reference's options (see the module docstring); ``check=None`` takes
-    the class attribute ``_DEFAULT_CHECK``, which a test module may set
-    to shadow-check every engine it builds.
+    The engine runs on the model's device.  ``chunk_policy`` /
+    ``tbt_target_s``, ``prefix_cache`` / ``prefix_pool``, ``spec_decode``
+    / ``spec_k`` and ``check`` are the reference's options (see the
+    module docstring); ``check=None`` takes the class attribute
+    ``_DEFAULT_CHECK``, which a test module may set to shadow-check every
+    engine it builds.  ``hw`` (the card's ``HWSpec``; the SXM part's on
+    the CPU) prices ``modeled_step_time``, and ``step_feedback`` says
+    what feeds the stall-free policy: both are plain attributes.
     """
 
     #: class-level default for ``check``
@@ -262,6 +327,8 @@ class ContinuousBatchingEngine:
 
     def __init__(self, model: LM, params, *, n_slots: int, max_len: int,
                  page_size: int = 16, prefill_chunk: int = 8,
+                 chunk_policy: str = "fixed",
+                 tbt_target_s: Optional[float] = None,
                  page_budget: Optional[int] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
                  prefix_cache: bool = False, prefix_pool: int = 8,
@@ -297,7 +364,16 @@ class ContinuousBatchingEngine:
             slot_aux_tokens=model.decode_state.context_tokens(model.cfg),
             prefix_pool=prefix_pool if self.prefix_cache else 0)
         self.sched = Scheduler(self.kv, prefill_chunk=prefill_chunk,
-                               eos_id=eos_id, spec_k=self.spec_k)
+                               eos_id=eos_id, chunk_policy=chunk_policy,
+                               tbt_target_s=tbt_target_s,
+                               spec_k=self.spec_k)
+        # what feeds the stall-free chunk policy's per-token estimate:
+        # "wall" (default) notes each step's CUDA-event time; the open-loop
+        # front end switches this to "external" under its model clock and
+        # feeds modeled step times itself
+        self.step_feedback = "wall"
+        self.hw = costmodel.hw_of(self.device)
+        self._cost = StepCostModel(model.cfg, max_len)
         self.drafter: Optional[NGramDrafter] = None
         # rids whose drafter history misses tokens committed by no-draft
         # fast-path steps (which read nothing back); resynced from
@@ -526,6 +602,14 @@ class ContinuousBatchingEngine:
 
     def step(self) -> bool:
         """Run one engine iteration; False when no work remains."""
+        wall_feedback = (self.sched.chunk_policy == "stall_free"
+                         and self.step_feedback == "wall")
+        if wall_feedback and self.device.type != "cuda":
+            raise RuntimeError(
+                "chunk_policy='stall_free' sizes its chunks from each "
+                "step's time, and nothing is timed off the card: on "
+                f"{self.device} serve through OpenLoopFrontend(engine, "
+                "clock=\"model\"), which feeds modeled step times")
         plan = (self.sched.next_plan(self._step_idx,
                                      drafts=self._propose_drafts())
                 if self.spec_decode
@@ -584,11 +668,20 @@ class ContinuousBatchingEngine:
             self._pending.append(req)
             self._pending_rows[req.rid] = int(self._slot_row[req.finish_slot])
             self._slot_row[req.finish_slot] = -1
+        fl, by = self._cost.step_cost(plan.n_decode, plan.n_prefill_tokens)
+        self.stats.model_flops += fl
+        self.stats.model_bytes += by
         _record(self.stats, events, n_decode=plan.n_decode,
                 n_prefill_tokens=plan.n_prefill_tokens,
                 occupancy=self.kv.occupancy(),
                 page_utilization=self.kv.page_utilization(),
                 verify=verify is not None)
+        if wall_feedback:
+            # the stall-free policy's per-token estimate: this step's
+            # events, read now (one sync a step)
+            self.sched.note_step_wall(
+                self.stats.steps[-1].device_ms() / 1e3,
+                plan.n_decode + plan.n_prefill_tokens)
         # count only useful tokens: samples a preemption throws away
         # come back off the total
         discarded = self.sched.discarded_tokens - self._seen_discarded
@@ -697,7 +790,10 @@ class ContinuousBatchingEngine:
                                prefix_pool=self.kv.prefix_pool)
         self.sched = Scheduler(self.kv,
                                prefill_chunk=self.sched.prefill_chunk,
-                               eos_id=self.sched.eos_id, spec_k=self.spec_k)
+                               eos_id=self.sched.eos_id,
+                               chunk_policy=self.sched.chunk_policy,
+                               tbt_target_s=self.sched.tbt_target_s,
+                               spec_k=self.spec_k)
         if self.drafter is not None:
             self.drafter = NGramDrafter(self.spec_k,
                                         **self._drafter_throttle())
@@ -793,6 +889,18 @@ class ContinuousBatchingEngine:
         self._flush_results()
         return dict(self._results)
 
+    def modeled_step_time(self, n_decode: int,
+                          n_prefill_tokens: int) -> float:
+        """Analytic seconds for one step of this composition: the cost
+        model's flops and bytes against ``self.hw``, the larger of
+        flops over the peak rate of the model's compute dtype and bytes
+        over the memory rate (the roofline bound time).  The open-loop
+        front end's ``clock="model"`` advances by it; it is a model
+        number, never a measured time."""
+        flops, bytes_ = self._cost.step_cost(n_decode, n_prefill_tokens)
+        peak = self.hw.peak_flops(dtype_of(self.model.cfg.compute_dtype))
+        return max(flops / peak, bytes_ / self.hw.hbm_bw)
+
     @property
     def check_findings(self) -> List[Finding]:
         """The shadow checker's findings so far ([] when ``check`` is
@@ -857,6 +965,7 @@ class StaticBatchEngine:
         self.prefill_fn = make_prefill_step(model)
         self.decode_fn = make_serve_step(
             model, sample_temperature=sample_temperature, generator=gen)
+        self._cost = StepCostModel(model.cfg, max_len)
         self.stats = EngineStats()
 
     def generate(self, prompt_tokens, n_steps: int,
@@ -887,6 +996,10 @@ class StaticBatchEngine:
                                         nxt[:, None].long(), pos)
             _record(self.stats, events, n_decode=B, n_prefill_tokens=0)
             out.append(nxt)
+        fl, by = self._cost.step_cost(0, B * S)              # prefill
+        dfl, dby = self._cost.step_cost(B, 0)                # one decode step
+        self.stats.model_flops += fl + (n_steps - 1) * dfl
+        self.stats.model_bytes += by + (n_steps - 1) * dby
         self.stats.forwards += n_steps
         self.stats.generated_tokens += B * n_steps
         return torch.stack(out, dim=1)

@@ -1,11 +1,10 @@
 """The port engine's API against the JAX engine's, on the CPU.
 
-- ``EngineStats.summary()``: the reference's key set without its three
-  modeled keys (``model_flops``, ``model_bytes``,
-  ``model_tflops_per_s``: ``StepCostModel`` is not ported) and with the
-  port's ``forwards``, the zero-step case (its ``note``) included; the
-  counts and the occupancy and page utilization equal the reference's;
-  times are ``None`` on the CPU;
+- ``EngineStats.summary()``: the reference's key set with the port's
+  ``forwards``, the zero-step case (its ``note``) included; the counts,
+  the occupancy and page utilization and the modeled ``model_flops`` and
+  ``model_bytes`` (``StepCostModel``) equal the reference's; times
+  (``model_tflops_per_s`` too) are ``None`` on the CPU;
 - ``reset()`` and a rerun give the same tokens, plans and stats;
 - ``results()`` in the middle of a run, then after it;
 - ``generate()`` against the JAX engine's ``generate`` at temperature 0;
@@ -14,7 +13,8 @@
   preemption;
 - the serve launcher's ``--prefix-cache`` and ``--speculative`` (and
   ``run(prefix_cache=, speculative=, spec_k=)``) on a reduced
-  granite-3-2b, and what it still refuses.
+  granite-3-2b, its open-loop front end and stall-free chunk policy on
+  the CPU (the model clock), and what it refuses.
 
 Reduced fp32 granite-3-2b, the JAX tree carried over by
 ``params_from_numpy``.  Every port engine runs under the port's
@@ -108,11 +108,12 @@ def _assert_same(a, b, where):
 
 
 def test_summary_keys_are_the_references_without_the_modeled_ones(granite):
+    """Named for the summary before ``StepCostModel`` was ported: the
+    modeled keys are now there and equal the reference's."""
     jmodel, jparams, model, params = granite
     empty, jempty = EngineStats().summary(), JaxStats().summary()
-    assert set(empty) == (set(jempty) - MODELED) | {"forwards"}
-    assert {k: v for k, v in empty.items() if k != "forwards"} == \
-        {k: v for k, v in jempty.items() if k not in MODELED}
+    assert set(empty) == set(jempty) | {"forwards"}
+    assert {k: v for k, v in empty.items() if k != "forwards"} == jempty
     reqs = _requests(model.cfg.vocab_size)
     eng = ContinuousBatchingEngine(model, params, prefix_cache=True, **KW)
     jeng = JaxEngine(jmodel, jparams, prefix_cache=True, check=True, **KW)
@@ -121,7 +122,10 @@ def test_summary_keys_are_the_references_without_the_modeled_ones(granite):
             e.submit(p, g)
         e.run()
     got, want = eng.stats.summary(), jeng.stats.summary()
-    assert set(got) == (set(want) - MODELED) | {"forwards"}
+    assert set(got) == set(want) | {"forwards"}
+    for key in MODELED - {"model_tflops_per_s"}:
+        assert got[key] == want[key] > 0, key
+    assert got["model_tflops_per_s"] is None
     for key in ("steps", "generated_tokens", "mean_occupancy",
                 "mean_page_utilization", "prefix_hit_tokens",
                 "prefix_hit_rate", "drafted_tokens",
@@ -262,9 +266,20 @@ def test_launch_serve_cli_flags_and_what_it_still_refuses():
                              "--speculative", "--spec-k", "2"])
     assert res["prefix_cache"] and res["speculative"]
     assert all(len(t) == 3 for t in res["tokens"].values())
-    for kw in (dict(open_loop=True), dict(chunk_policy="stall_free")):
-        with pytest.raises(NotImplementedError, match="A7"):
-            launch_serve.run(ARCH, reduced=True, device="cpu", **kw)
+    # the open loop and the stall-free policy are ported: on the CPU they
+    # take the front end's model clock, and without it they refuse
+    for kw in (dict(open_loop=True),
+               dict(chunk_policy="stall_free", tbt_target=1e-5)):
+        kw = {"reduced": True, "device": "cpu", "open_loop": True, **kw}
+        with pytest.raises(ValueError, match='clock="model"'):
+            launch_serve.run(ARCH, **kw)
+        res = launch_serve.run(ARCH, slots=2, requests=3, prompt_len=8,
+                               gen_len=3, clock="model", rate=1e4, **kw)
+        assert res["latency"]["completed"] == 3
+        assert all(len(t) == 3 for t in res["tokens"].values())
+    with pytest.raises(ValueError, match="tbt-target"):
+        launch_serve.run(ARCH, reduced=True, device="cpu",
+                         chunk_policy="stall_free")
     with pytest.raises(ValueError, match="static engine"):
         launch_serve.run(ARCH, reduced=True, device="cpu", static=True,
                          speculative=True)

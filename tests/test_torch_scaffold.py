@@ -28,7 +28,10 @@ def test_import_leaves_jax_out():
             "repro_torch.launch.train, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.optim, "
             "repro_torch.kernels.ssd_scan.ops, repro_torch.models.mamba2, "
-            "repro_torch.models.quant, repro_torch.launch.serve; "
+            "repro_torch.models.quant, repro_torch.launch.serve, "
+            "repro_torch.serve.frontend, repro_torch.serve.arrivals, "
+            "repro_torch.serve.slo, repro_torch.perf.report, "
+            "repro_torch.core.costmodel, repro_torch.configs.shapes; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
             "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")

@@ -230,13 +230,25 @@ def test_engine_temperature_sampling_is_seeded_and_in_range(granite):
 
 
 def test_engine_rejects_unported_options(granite):
+    """What is not ported raises; the stall-free chunk policy is ported:
+    the engine takes it and hands it to its scheduler, and on the CPU,
+    where no step can be timed, a step under its own (wall) feedback
+    raises and names the front end's model clock."""
     _, _, model, params = granite
     for kw in (dict(analyze=True), dict(mesh=object()), dict(sp_kv=True),
-               dict(retune=True),
-               dict(chunk_policy="stall_free", tbt_target_s=0.01)):
+               dict(retune=True)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(model, params, n_slots=1, max_len=16,
                                      **kw)
+    eng = ContinuousBatchingEngine(model, params, n_slots=1, max_len=16,
+                                   chunk_policy="stall_free",
+                                   tbt_target_s=0.01)
+    assert (eng.sched.chunk_policy, eng.sched.tbt_target_s) == \
+        ("stall_free", 0.01)
+    assert eng.step_feedback == "wall"
+    eng.submit(np.arange(1, 5), 2)
+    with pytest.raises(RuntimeError, match='clock="model"'):
+        eng.step()
 
 
 def test_sampling_distribution_matches_softmax():

@@ -337,9 +337,25 @@ def test_launch_serve_int8_flag_runs():
     ("--mesh=2", "A10"), ("--sp-kv", "A10"), ("--open-loop", "A7"),
     ("--chunk-policy=stall_free", "A7")])
 def test_launch_serve_refuses_what_is_not_ported(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
-        launch_serve.main(["--arch", ARCH, "--reduced", "--device", "cpu",
-                           flag])
+    """The mesh options (A10) still raise.  A7's open-loop front end and
+    stall-free chunk policy are ported: on the CPU they run through the
+    front end's model clock, and every request completes."""
+    argv = ["--arch", ARCH, "--reduced", "--device", "cpu", flag]
+    if item != "A7":
+        with pytest.raises(NotImplementedError, match=item):
+            launch_serve.main(argv)
+        return
+    argv += ["--open-loop", "--clock", "model", "--rate", "1e4",
+             "--slots", "2", "--requests", "3", "--prompt-len", "8",
+             "--gen-len", "3"]
+    if "stall_free" in flag:
+        argv += ["--tbt-target", "1e-5"]
+    res = launch_serve.main(argv)
+    assert res["open_loop"] and res["clock"] == "model"
+    assert res["latency"]["completed"] == res["requests"] == 3
+    assert all(len(t) == 3 for t in res["tokens"].values())
+    assert res["chunk_policy"] == ("stall_free" if "stall_free" in flag
+                                   else "fixed")
 
 
 def test_launch_serve_defaults_to_the_card(monkeypatch):
