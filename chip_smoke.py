@@ -209,7 +209,7 @@ Phases (one line each; any failure exits nonzero and prints no result):
              ``launch.serve.run(static=True)``: 8 prompts of 2048 tokens,
              32 new tokens each; the prefill runs the SSD kernel, 48
              launches (one a layer).  (b) the ContinuousBatchingEngine on
-             8 requests drawn as phase 6's (8 slots, 32-256 prompt
+             4 requests drawn as phase 6's (8 slots, 32-256 prompt
              tokens, 32 new, prefill chunk 32): its prefill is the
              token-by-token recurrence, so 0 SSD launches.  Each prints
              tokens/s, step p50 (and the static prefill ms) from CUDA
@@ -332,10 +332,13 @@ Phases (one line each; any failure exits nonzero and prints no result):
              ``chunk_policy`` fixed then stall_free at 1.2x (a)'s
              pure-decode p50 under wall feedback: request 0's worst, p99
              and p50 TBT, prefill steps, chunk widths; request 0's
-             tokens identical; (b) ``launch.serve.run(open_loop=True)``,
-             32 requests of 32-256 prompt tokens and 32 new, Poisson at
-             0.5 and 0.9 lambda_max and gamma at 0.9 (cv 2): TTFT, TBT,
-             E2E percentiles, queue depth, makespan, SLO attainment and
+             tokens identical under the fixed policy with stall-free's
+             chunks forced as under stall-free, and under both policies
+             where they chunked its prompt alike; (b)
+             ``launch.serve.run(open_loop=True)``, 32 requests of 32-256
+             prompt tokens and 32 new, Poisson at 0.5 and 0.9 lambda_max
+             and gamma at 0.9 (cv 2): TTFT, TBT, E2E percentiles, queue
+             depth, makespan, SLO attainment and
              goodput under the launcher's default SLO; the last run's
              recorded trace (written to a temporary directory) replayed
              through the launcher to identical tokens.
@@ -353,7 +356,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
 8. veceval — the proxy-app path: ``repro_torch.core.veceval`` over its six
              apps at the default sizes and at the card sizes; scalar,
              torch.compile and kernel versions timed interleaved, held
-             against each other, and each app's kernel launched.
+             against each other, each app's kernel launched, and each
+             version the dispatcher sees (the scalar loop) counted once,
+             untimed.
    Then the one-hot SpMV's path, ``kernels.spmv.ops.spmv_ell(idiom=
              "onehot")`` at the JAX veceval size: one launch, held against
              the take idiom.
@@ -365,6 +370,33 @@ Phases (one line each; any failure exits nonzero and prints no result):
              the calls, peak memory under 40 GiB.  Then
              ``figures.fig2_strided`` and ``fig3_tail`` at the JAX sizes
              and 2^21 x 128 rows, and ``core.microbench.run_suite``.
+10. measure — the paper's measurement layer: (a) Table 1
+             (``figures.table1_counters``) on the card, with the profiler's
+             ``kernel_launches`` channel, in a fresh process started with
+             the script (the card's kernel records are whole only early
+             in a process): every record with its reference value and
+             verdict, kernel_launches exact; the same channel read in
+             this process, reported only; (b) Fig 6
+             (``figures.fig6_breakdown``) from phase 8's rows at the JAX
+             sizes: the scalar loop's aten ops by class (the dispatcher;
+             it cannot see the compiled and kernel versions, whose rows
+             say so); (c) Fig 7 (``figures.fig7_lmul``): the cost
+             model's multiplier sweep and pick, B6 at m 1, 2, 4, 8 in fp32
+             and fp64 at 4096^3 and ``chunked_attention``'s kv_chunk
+             measured, the model's spill flags against ``cuobjdump
+             -res-usage`` of the GEMM library (a disagreement is printed);
+             Fig 8 (``figures.fig8_pressure``): B9 triad at 2^26 at each m,
+             the model against the measurement; (d) granite-3-2b at
+             phase 6's engine shape on a fresh autotune cache file:
+             ``ContinuousBatchingEngine`` three times, ``paged_meta``
+             "measured", then "cache", then "measured" again with
+             ``retune=True`` (each split count's median and spread, the
+             count chosen, ``split_plan``'s and why), B1 at the chosen
+             count against its plain version, and 8 requests at phase
+             6's mix: the paged
+             kernel 40 launches a forward, every pure-decode launch at
+             the tuned count; (e) the four examples
+             (``repro_torch.examples``) at reduced configs on the card.
 
 After each phase a ``[wall]`` line gives the seconds since the start.
 The line before the last is the per-kernel JSON record (after the card's
@@ -378,6 +410,7 @@ import concurrent.futures
 import datetime
 import json
 import os
+import pathlib
 import re
 import shutil
 import statistics
@@ -408,6 +441,7 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.gemm import ref as gemm_ref  # noqa: E402
 from repro_torch.kernels.paged_attention import kernel as pa_kernel  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as pa_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ref as pa_ref  # noqa: E402
 from repro_torch.kernels.qsim_gate import kernel as gate_kernel  # noqa: E402
 from repro_torch.kernels.qsim_gate import ref as gate_ref  # noqa: E402
@@ -426,6 +460,13 @@ from repro_torch.kernels.wq_gemm import kernel as wq_kernel  # noqa: E402
 from repro_torch.kernels.wq_gemm import ops as wq_ops  # noqa: E402
 from repro_torch.kernels.wq_gemm import ref as wq_ref  # noqa: E402
 from repro_torch.figures import fig2_strided, fig3_tail, fig9_qsim  # noqa: E402
+from repro_torch.figures import (fig6_breakdown, fig7_lmul,  # noqa: E402
+                                 fig8_pressure, table1_counters)
+from repro_torch.core import autotune  # noqa: E402
+from repro_torch.examples import autotune_demo as ex_autotune_demo  # noqa: E402
+from repro_torch.examples import qsim_demo as ex_qsim_demo  # noqa: E402
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import serve_decode as ex_serve_decode  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.data import SyntheticLMStream  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
@@ -2244,10 +2285,12 @@ def engine_tokens(cfg, params_cpu, device, prompts, gens, wrapper):
     each, and the forwards of both."""
     model = LM(cfg, device=device)
     params = _to(params_cpu, model.device)
-    before = wrapper.launches
     eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=32,
                                    page_size=8, prefill_chunk=4,
                                    page_budget=4)
+    # counted from here: the paged kernel's split sweep at construction
+    # is not the served forwards'
+    before = wrapper.launches
     rids = [eng.submit(p, g) for p, g in zip(prompts, gens)]
     out = eng.run()
     reqs = eng.requests()
@@ -2383,11 +2426,11 @@ def _engine_parity(cfg, params, *, int8=False):
         model = LM(cfg, device=device)
         p = _to(params, model.device)
         for paged in (False, True):
-            reset_launches(PARITY_KERNELS)
             eng = ContinuousBatchingEngine(
                 model, p, n_slots=2, max_len=32, page_size=8,
                 prefill_chunk=4, page_budget=4 + 2 * aux,
                 paged_kernel=paged)
+            reset_launches(PARITY_KERNELS)   # after the split sweep
             rids = [eng.submit(pr, g, extra=e)
                     for pr, g, e in zip(prompts, gens, extras)]
             out = eng.run()
@@ -3872,18 +3915,36 @@ def _p50(xs):
 
 
 def _plan_widths(eng):
-    """Wrap ``eng.step`` to log each executed plan's prefill widths."""
+    """Wrap ``eng.step`` to log each executed plan's prefill rows as
+    (rid, forward width, valid tokens)."""
     log = []
     orig = eng.step
 
     def step():
+        rid_of = {s: r.rid for s, r in eng.sched.active.items()}
         more = orig()
+        rid_of.update((s, r.rid) for s, r in eng.sched.active.items())
         if eng.last_plan is not None:
-            log.append([int(pf.n_valid[0]) for pf in eng.last_plan.prefills])
+            log.append([(rid_of.get(pf.slot), int(pf.tokens.shape[1]),
+                         int(pf.n_valid[0]))
+                        for pf in eng.last_plan.prefills])
         return more
 
     eng.step = step
     return log
+
+
+def _force_chunks(eng, widths):
+    """Make ``eng``'s scheduler size its first ``len(widths)`` prefill
+    steps' chunks as ``widths`` says, in order, then as its policy does."""
+    left = list(widths)
+    orig = eng.sched._step_chunk
+
+    def step_chunk(n_decode, n_prefilling):
+        width = orig(n_decode, n_prefilling)
+        return left.pop(0) if left and n_prefilling else width
+
+    eng.sched._step_chunk = step_chunk
 
 
 def phase_serve_open_loop(card):
@@ -3899,7 +3960,9 @@ def phase_serve_open_loop(card):
     and the served step's share of its bound, over all steps and over
     pure-decode steps.  (d) the stall-free policy under contention:
     request 0's worst and p99 TBT, prefill steps and chunk widths, fixed
-    against stall-free; request 0's tokens identical.  Returns the
+    against stall-free; request 0's tokens identical under the fixed
+    policy with stall-free's chunks forced as under stall-free, and under
+    both policies where they chunked its prompt alike.  Returns the
     launches of SERVE_KERNELS."""
     t0 = datetime.datetime.now()
     phase = "serve-open-loop"
@@ -3998,11 +4061,14 @@ def phase_serve_open_loop(card):
     arr = [ArrivalRequest(0.0, short, STALL_SHORT[1]),
            ArrivalRequest(t_long, long_, 1)]
     target = STALL_TARGET * decode_p50
-    runs = {}
-    for policy in ("fixed", "stall_free"):
+    runs, chunks0, splits = {}, {}, {}
+
+    def serve(policy, forced=None):
         e = ContinuousBatchingEngine(
             model, params, chunk_policy=policy,
             tbt_target_s=target if policy == "stall_free" else None, **MIX)
+        if forced is not None:
+            _force_chunks(e, forced)
         widths = _plan_widths(e)
         res, got = _front_run(phase, f"(d) {policy}", e, arr, "wall")
         del e.step                   # the log's wrapper, so e can go
@@ -4011,8 +4077,13 @@ def phase_serve_open_loop(card):
         if not ev.completed or len(ev.tbt_s) != STALL_SHORT[1] - 1:
             raise SystemExit(f"{phase} (d) {policy}: request 0 "
                              f"incomplete")
-        pf = [w for ws in widths for w in ws]
-        hist = collections.Counter(pf)
+        chunks = [(w, n) for ws in widths for rid, w, n in ws if rid == 0]
+        return e, res, ev, widths, chunks
+
+    for policy in ("fixed", "stall_free"):
+        e, res, ev, widths, chunks0[policy] = serve(policy)
+        splits[policy] = e.paged_meta["splits"]
+        hist = collections.Counter(n for ws in widths for _, _, n in ws)
         n_pf = sum(bool(s_.n_prefill_tokens) for s_ in e.stats.steps)
         runs[policy] = res
         log(phase, f"(d) chunk_policy={policy}"
@@ -4031,11 +4102,34 @@ def phase_serve_open_loop(card):
                    f"chunk widths {dict(sorted(hist.items()))} | makespan "
                    f"{res.makespan_s * 1e3:.1f} ms | {card}")
         del e
-    same = np.array_equal(runs["fixed"].results[0],
-                          runs["stall_free"].results[0])
-    log(phase, f"(d) request 0's tokens identical under both policies: "
-               f"{same} | {card}")
-    if not same:
+    # request 0's tokens depend on its own prompt's chunks alone: its
+    # decode rows run in the (n_slots, 1) forward at every step, at the
+    # engine's one split count, and no row's sums read another's.  So the
+    # fixed policy with stall-free's chunks forced must give stall-free's
+    # tokens, and the two policies must agree where they chunked the
+    # prompt alike (each chunk is a forward at its own width, whose bf16
+    # sums may round apart)
+    e, res, _, _, chunks = serve(
+        "fixed", forced=[w for w, _ in chunks0["stall_free"]])
+    splits["forced"] = e.paged_meta["splits"]
+    del e
+    t0_fixed, t0_sf = runs["fixed"].results[0], runs["stall_free"].results[0]
+    same = np.array_equal(t0_fixed, t0_sf)
+    forced_same = np.array_equal(res.results[0], t0_sf)
+    alike = float(np.mean(np.asarray(t0_fixed) == np.asarray(t0_sf)))
+    log(phase, f"(d) request 0's prompt chunks (width, tokens): fixed "
+               f"{chunks0['fixed']}, stall_free {chunks0['stall_free']}, "
+               f"fixed with stall_free's forced {chunks}; split counts "
+               f"{splits}; its tokens identical under both policies: "
+               f"{same} ({100 * alike:.1f}% alike), with the chunks forced "
+               f"to stall_free's: {forced_same} | {card}")
+    if len(set(splits.values())) != 1:
+        raise SystemExit(f"{phase} (d): split counts {splits}")
+    if chunks != chunks0["stall_free"] or not forced_same:
+        raise SystemExit(f"{phase} (d): with stall_free's chunks forced, "
+                         f"request 0's chunks {chunks} and tokens "
+                         f"identical {forced_same}")
+    if chunks0["fixed"] == chunks0["stall_free"] and not same:
         raise SystemExit(f"{phase} (d): request 0's tokens differ")
     del eng, model, params
     torch.cuda.empty_cache()
@@ -4064,15 +4158,27 @@ def phase_serve_open_loop(card):
     return total
 
 
+def sweep_launches(meta):
+    """The paged kernel's launches in an engine's split sweep at its
+    construction (0 when ``paged_meta`` came from the cache or says the
+    sweep was skipped)."""
+    if not meta or meta.get("source") != "measured":
+        return 0
+    return (meta["reps"] + 1) * len(meta["medians_s"])
+
+
 def _launch_open(phase, card, **kw):
     """One ``launch.serve.run(open_loop=True)`` of (b): checked tokens and
-    launches, the launcher's printout logged."""
+    launches (the engine's split sweep at construction left out), the
+    launcher's printout logged."""
     torch.cuda.empty_cache()
     reset_launches(SERVE_KERNELS)
     res = launch_serve.run("granite-3-2b", **kw)
     got = {n: launches_of(n) for n in SERVE_KERNELS}
+    served = dict(got, paged_partials=got["paged_partials"]
+                  - sweep_launches(res["paged_meta"]))
     cfg = get_config("granite-3-2b")
-    _b1_only(phase, f"(b) {res['arrivals']}", got, res["forwards"],
+    _b1_only(phase, f"(b) {res['arrivals']}", served, res["forwards"],
              cfg.n_layers)
     _check_tokens(f"{phase} (b)", res["tokens"], MIX_NEW, cfg.padded_vocab)
     lat = res["latency"]
@@ -4084,8 +4190,9 @@ def _launch_open(phase, card, **kw):
     log(phase, f"(b) {res['arrivals']}: {res['tokens_per_s']:.1f} tok/s "
                f"over {res['run_ms']:.1f} ms, step p50 "
                f"{res['step_ms_p50']:.3f} ms, paged_partials "
-               f"{got['paged_partials']} = {cfg.n_layers} x "
-               f"{res['forwards']} | latency block "
+               f"{served['paged_partials']} = {cfg.n_layers} x "
+               f"{res['forwards']} (+ {sweep_launches(res['paged_meta'])} "
+               f"in the split sweep) | latency block "
                f"{json.dumps({k: lat[k] for k in ('ttft_s', 'tbt_s', 'e2e_s', 'queue_depth', 'makespan_s', 'goodput_tok_s', 'slo')})} "
                f"| {card}")
     res["launches"] = got
@@ -4244,19 +4351,24 @@ def _device_us(e):
 def phase_veceval(card, hw):
     """``veceval.run_all`` at the default and the card sizes, one app at a
     time: the versions of each app timed interleaved and held against
-    each other (it raises past the app's tolerance), and each app's
-    kernel launched.  Returns the launches of each kernel over the whole
-    path."""
+    each other (it raises past the app's tolerance), each app's kernel
+    launched, and each version the dispatcher sees counted once, untimed
+    (phase 10 (b) reads the default sizes' counts).  Returns the launches
+    of each kernel over the whole path, and the default sizes' rows."""
     names = sorted(set(APP_KERNEL.values()))
     reset_launches(names)
+    default_rows = []
     for label, sizes, max_iters in (("default", {}, None),
                                     ("card", CARD_SIZES, SCALAR_MAX_ITERS)):
         torch.cuda.reset_peak_memory_stats()
         for app_name in veceval.BUILDERS:
             before = launches_of(APP_KERNEL[app_name])
-            rows = {r["version"]: r for r in veceval.run_all(
+            got = veceval.run_all(
                 measure=True, apps=[app_name], sizes=sizes, hw=hw,
-                scalar_max_iters=max_iters)}
+                scalar_max_iters=max_iters)
+            if label == "default":
+                default_rows.extend(got)
+            rows = {r["version"]: r for r in got}
             if launches_of(APP_KERNEL[app_name]) == before:
                 raise SystemExit(f"veceval {app_name}: the kernel version "
                                  f"launched no {APP_KERNEL[app_name]} kernel")
@@ -4265,7 +4377,7 @@ def phase_veceval(card, hw):
         log("veceval", f"{label} sizes: peak {peak:.2f} GiB | {card}")
     launches = {name: launches_of(name) for name in names}
     launches["spmv_ell_onehot"] = spmv_onehot_path(card)
-    return launches
+    return launches, default_rows
 
 
 def spmv_onehot_path(card):
@@ -4395,6 +4507,238 @@ def phase_paper(card, hw):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the paper's measurement layer
+# ---------------------------------------------------------------------------
+MEASURE_ARCH = "granite-3-2b"     # phase 6's engine shape (MIX), bf16
+MEASURE_REQUESTS = 8
+MEASURE_KERNELS = ("paged_partials", "gemm", "stream")
+
+
+class _SplitSpy:
+    """Stands in for the paged kernel's module in ``pa_ops``: counts each
+    call of the binding by its ``splits`` argument, then calls it."""
+
+    def __init__(self, counts):
+        self.counts = counts
+
+    def paged_flash_decode(self, *args, **kw):
+        self.counts[kw.get("splits")] += 1
+        return pa_kernel.paged_flash_decode(*args, **kw)
+
+
+def measure_engines(card, excluded):
+    """(d): the split sweep of granite-3-2b's pure decode through three
+    engines on a fresh cache file: measured, then from the cache, then
+    ``retune=True``; B1 at the chosen count, at the sweep's row lengths,
+    against its plain version (a
+    comparison launch, kept out of ``excluded``'s count); phase 6's mix
+    (MEASURE_REQUESTS requests) on the second engine, the paged kernel 40
+    launches a forward, every pure-decode launch at the tuned count."""
+    phase = "measure"
+    cfg = get_config(MEASURE_ARCH)
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    saved = autotune.AUTOTUNE_CACHE_PATH
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="autotune-", dir=os.path.join(ROOT,
+                                                                "build"))
+    autotune.AUTOTUNE_CACHE_PATH = pathlib.Path(tmp) / "cache.json"
+    try:
+        engines = [ContinuousBatchingEngine(model, params, **MIX)
+                   for _ in range(2)]
+        engines.append(ContinuousBatchingEngine(model, params, retune=True,
+                                                **MIX))
+    finally:
+        autotune.AUTOTUNE_CACHE_PATH = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    metas = [e.paged_meta for e in engines]
+    sources = [m.get("source") for m in metas]
+    for i, m in enumerate(metas):
+        log(phase, f"(d) engine {i + 1}: paged_meta source {m['source']}, "
+                   f"key {m['key']}, rows at kv {m['kv_valid']}, "
+                   f"{m['reps']} rounds | median (interquartile range) "
+                   f"us " + ", ".join(
+                       f"{k} {v * 1e6:.2f} ({m['spread_s'][k] * 1e6:.2f})"
+                       for k, v in sorted(m["medians_s"].items(),
+                                          key=lambda kv: int(kv[0][1:])))
+                   + f" | fastest {m['best']}, served at {m['splits']} "
+                     f"splits, split_plan's {m['plan_splits']}: "
+                     f"{m['why']} | {card}")
+    if sources != ["measured", "cache", "measured"]:
+        raise SystemExit(f"(d) paged_meta sources {sources}, expected "
+                         f"measured, cache, measured")
+    tuned = metas[1]["splits"]
+    # B1 at the tuned count against its plain version, at the tuned shape
+    before = launches_of("paged_partials")
+    c = make_case(B=MIX["n_slots"], NKV=cfg.n_kv_heads,
+                  G=cfg.n_heads // cfg.n_kv_heads, H=cfg.resolved_head_dim,
+                  page=MIX["page_size"], max_len=MIX["max_len"], sq=1,
+                  valid=metas[1]["kv_valid"], permuted=False,
+                  seed=3, dev=model.device)
+    args = (c["qg"], c["kp"], c["vp"], c["page_idx"], c["pos0"],
+            c["kv_valid"])
+    got = pa_kernel.paged_flash_decode(*args, sq=1, splits=tuned)
+    want = pa_ref.paged_partials(*args, sq=1)
+    out_k = got[0] / got[2].clamp_min(1e-30)[..., None]
+    out_p = want[0] / want[2].clamp_min(1e-30)[..., None]
+    err = check(f"B1 at the tuned {tuned} splits", out_k, out_p, TOL, TOL)
+    excluded["paged_partials"] = (excluded.get("paged_partials", 0)
+                                  + launches_of("paged_partials") - before)
+    # phase 6's mix on the second engine, every launch's split recorded
+    eng = engines[1]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n))
+               for n in rng.integers(32, 257, size=MEASURE_REQUESTS)]
+    rids = [eng.submit(p, MIX_NEW) for p in prompts]
+    by_splits = collections.Counter()
+    pa_ops.K = _SplitSpy(by_splits)
+    before = launches_of("paged_partials")
+    try:
+        out = eng.run()
+    finally:
+        pa_ops.K = pa_kernel
+    got_launches = launches_of("paged_partials") - before
+    st = eng.stats.summary()
+    fwd = st["forwards"]
+    decode_fwds = sum(1 for s_ in eng.stats.steps if s_.n_decode)
+    if sorted(out) != sorted(rids):
+        raise SystemExit("(d) not every request finished")
+    _check_tokens(f"{MEASURE_ARCH} tuned", out, MIX_NEW, cfg.padded_vocab)
+    if got_launches != attn_layers(cfg) * fwd:
+        raise SystemExit(f"(d) paged kernel {got_launches} launches, "
+                         f"expected {attn_layers(cfg)} x {fwd} forwards")
+    if by_splits[tuned] != attn_layers(cfg) * decode_fwds:
+        raise SystemExit(f"(d) launches by splits {dict(by_splits)}: "
+                         f"not {attn_layers(cfg)} x {decode_fwds} decode "
+                         f"forwards at the tuned {tuned}")
+    log(phase, f"(d) B1 at the tuned {tuned} splits vs plain: max abs err "
+               f"{err:.2e} | {MEASURE_REQUESTS} requests at phase 6's mix: "
+               f"{st['generated_tokens']} tokens, {fwd} forwards "
+               f"({decode_fwds} with decode rows), paged kernel "
+               f"{got_launches} = {attn_layers(cfg)} x {fwd}; calls by "
+               f"splits {dict(by_splits)} | step p50 "
+               f"{st['step_ms_p50']:.3f} ms, {st['tok_per_s']:.1f} tok/s | "
+               f"{card}")
+    del engines, eng, model, params
+    torch.cuda.empty_cache()
+    return metas
+
+
+def _table1_line(r):
+    got = ("absent" if r["measured"] is None else
+           f"{r['measured']:.6g} (error {r['error']:.3g})")
+    return (f"{r['channel']:20s} {r['program']:28s} reference "
+            f"{r['reference']:.6g} measured {got} "
+            f"{'reliable' if r['reliable'] else 'UNRELIABLE'}")
+
+
+def phase_measure(card, hw, table1_proc, veceval_rows):
+    """(a) Table 1 on the card, run in a fresh process started with the
+    script (``table1_proc``), with its kernel_launches channel; the same
+    channel read in this long process, reported only; (b) Fig 6 from
+    phase 8's rows at the JAX sizes (their untimed counted run); (c) Fig
+    7 (a)/(b) and Fig 8 measured, the model's spill flags against
+    cuobjdump; (d) ``measure_engines``; (e) the four examples at reduced
+    configs.  Returns the launches of MEASURE_KERNELS on the path (B6
+    and B9 in the sweeps of (c) and the autotune demo, B1 in the split
+    sweeps and the served forwards of (d) and (e))."""
+    phase = "measure"
+    reset_launches(MEASURE_KERNELS)
+    excluded = {}
+    t0 = datetime.datetime.now()
+    rows = table1_counters.collect(table1_proc)
+    for r in rows:
+        log(phase, f"(a) table1 {_table1_line(r)}")
+    verdicts = table1_counters.verdicts(rows)
+    bad = [r for r in rows if r["reference"] is None
+           or not isinstance(r["reliable"], bool)]
+    launch = [r for r in rows if r["channel"] == "kernel_launches"]
+    if (bad or len(launch) != 1
+            or launch[0]["measured"] != launch[0]["reference"]
+            or not verdicts["kernel_launches"]):
+        raise SystemExit(f"(a) Table 1: records without a reference or a "
+                         f"verdict {bad}, or kernel_launches not exact in "
+                         f"a fresh process: {launch}")
+    log(phase, "(a) verdicts in a fresh process " + ", ".join(
+        f"{ch} {'reliable' if ok else 'UNRELIABLE'}"
+        for ch, ok in verdicts.items()) + f" | {card}")
+    late = [r for r in table1_counters.run("cuda")
+            if r["channel"] == "kernel_launches"]
+    log(phase, f"(a) in this process, after phases 1-9 (reported only): "
+               f"{_table1_line(late[0])} | {_since(t0):.1f} s | {card}")
+    t0 = datetime.datetime.now()
+    rows6 = fig6_breakdown.view(veceval_rows, veceval.channel_verdicts())
+    for r in rows6:
+        seen = r["version"] == "scalar"
+        if (seen and (r["ops_source"] != "dispatch" or not r["total_ops"])
+                or not seen and (r["total_ops"] is not None
+                                 or not r["ops_note"])):
+            raise SystemExit(f"(b) fig6 {r['app']} {r['version']}: "
+                             f"{r['total_ops']} ops ({r['ops_source']}, "
+                             f"{r['ops_note']})")
+        counted = (" ".join(f"{k} {r[k]}" for k in fig6_breakdown.CLASSES)
+                   if r["total_ops"] is not None else r["ops_note"])
+        log(phase, f"(b) fig6 {r['app']:8s} {r['version']:8s} "
+                   f"{r['total_ops']} ops ({r['ops_source']}): {counted}")
+    if len(rows6) != len(veceval.BUILDERS) * len(veceval.VERSIONS):
+        raise SystemExit(f"(b) fig6: {len(rows6)} rows")
+    log(phase, f"(b) from phase 8's rows, {_since(t0):.1f} s | {card}")
+    t0 = datetime.datetime.now()
+    rows7 = fig7_lmul.run("cuda", hw=hw)
+    for r in rows7:
+        if r["section"] == "a":
+            log(phase, f"(c) fig7a {r['kernel']} m{r['multiplier']}: smem "
+                       f"{r['smem_kb']:.1f} KiB, regs "
+                       f"{r['regs_per_thread']}, {r['blocks_per_sm']} a "
+                       f"SM, {r['waves']} waves, model "
+                       f"{r['predicted_ms']:.4f} ms {r['bound']}"
+                       f"{' <- pick' if r['selected'] else ''}")
+        elif r["section"] == "b":
+            log(phase, f"(c) fig7b {r['kernel']} {r['knob']} {r['value']}: "
+                       f"{r['measured_ms']:.4f} ms (bound "
+                       f"{r['bound_ms']:.4f}, {r['bound_by']}) | model "
+                       f"pick {r['model_pick']}, measured best "
+                       f"{r['measured_best']}, pick / best "
+                       f"{r['pick_over_best']} | {card}")
+        else:
+            log(phase, f"(c) res-usage {r['kernel']} m{r['multiplier']}: "
+                       f"REG {r['regs']} STACK {r['stack']} LOCAL "
+                       f"{r['local']} spill {r['spill']} | model spill "
+                       f"{r['model_spill']}"
+                       f"{'' if r['agree'] else ' | DISAGREE'}")
+    for r in fig8_pressure.run("cuda", hw=hw):
+        log(phase, f"(c) fig8 triad 2^26 m{r['multiplier']}: "
+                   f"{r['grid_blocks']} blocks (x{r['block_reduction']:.0f} "
+                   f"fewer), {r['waves']} waves | model "
+                   f"{r['predicted_ms']:.4f} ms x"
+                   f"{r['predicted_speedup']:.3f} | measured "
+                   f"{r['measured_ms']:.4f} ms x{r['measured_speedup']:.3f} "
+                   f"| bound {r['bound_ms']:.4f} ms | {card}")
+    log(phase, f"(c) {_since(t0):.1f} s")
+    t0 = datetime.datetime.now()
+    measure_engines(card, excluded)
+    log(phase, f"(d) {_since(t0):.1f} s")
+    t0 = datetime.datetime.now()
+    ex_quick = ex_quickstart.main(["--arch", "granite-3-2b"])
+    if not ex_quick["losses"] or not all(np.isfinite(ex_quick["losses"])):
+        raise SystemExit(f"(e) quickstart: losses {ex_quick['losses']}")
+    ex_serve = ex_serve_decode.main([])
+    ex_tune = ex_autotune_demo.main(["--size", "2048"])
+    ex_qsim = ex_qsim_demo.main([])
+    log(phase, f"(e) examples on the card: quickstart losses "
+               f"{ex_quick['losses']}, paged_meta source "
+               f"{ex_quick['paged_meta'].get('source')}; serve_decode "
+               f"{len(ex_serve['results'])} requests; autotune_demo pick "
+               f"m{ex_tune['best']}, max abs err "
+               f"{ex_tune['max_abs_err']:.2e}; qsim_demo fidelity "
+               + ", ".join(f"{k} {v['fidelity']:.9f}"
+                           for k, v in ex_qsim.items())
+               + f" | {_since(t0):.1f} s | {card}")
+    return {n: launches_of(n) - excluded.get(n, 0) for n in MEASURE_KERNELS}
+
+
+# ---------------------------------------------------------------------------
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -4408,7 +4752,19 @@ def main():
               file=sys.stderr)
         return 1
     t_start = datetime.datetime.now()
+    # Table 1 in a fresh process while this one builds the kernels: the
+    # card's kernel records are whole only early in a process
+    table1_proc = table1_counters.spawn("cuda")
+    try:
+        return run_phases(args, t_start, table1_proc)
+    finally:
+        if table1_proc.poll() is None:
+            table1_proc.kill()
+            table1_proc.communicate()
 
+
+def run_phases(args, t_start, table1_proc):
+    """Every phase in order; then the kernel record and the last line."""
     def done(what):
         log("wall", f"{what} done, {_since(t_start):.1f} s since the start")
 
@@ -4459,10 +4815,13 @@ def main():
         done(what)
     launches["flash_attention"] = phase_train(card, args.profile)
     done("7 train")
-    launches.update(phase_veceval(card, hw))
+    veceval_launches, veceval_rows = phase_veceval(card, hw)
+    launches.update(veceval_launches)
     done("8 veceval")
     launches.update(phase_paper(card, hw))
     done("9 paper")
+    _add(launches, phase_measure(card, hw, table1_proc, veceval_rows))
+    done("10 measure")
     record = {"kernels": [dict(
         name=name, route="cuda",
         source=os.path.relpath(source, ROOT), replaces=replaces,

@@ -23,7 +23,12 @@ forward in a hand-written CUDA kernel (``kernels/flash_attention``);
 and the ssm family (``mamba2-780m``) with its SSD scan kernel
 (``kernels/ssd_scan``); and weight-only int8 serving (``models.quant``)
 whose every q-pack matmul runs the int8 GEMM kernel
-(``kernels/wq_gemm``).  Entry points run on ``cuda`` unless the caller
+(``kernels/wq_gemm``); and the paper's measurement layer: the counter
+calibration (``core.counters``, ``core.ophist``, ``perf.channels``),
+the block-multiplier autotuner (``core.autotune``, which also tunes the
+paged kernel's split count for the serving engine), the drivers of
+Table 1 and Figs 4-8 in ``figures``, and the examples
+(``repro_torch.examples``).  Entry points run on ``cuda`` unless the caller
 passes ``device="cpu"``; on the CPU every kernel wrapper runs its plain
 PyTorch version.
 """

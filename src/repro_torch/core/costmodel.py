@@ -1,9 +1,12 @@
 """The card's ceilings and the analytic cost model: the counterpart of
 ``repro.core.costmodel``.
 
-``HWSpec`` describes the card.  Every rate is NVIDIA's published figure
-for the part (the H100 data sheet, dense rates without sparsity) at the
-card's full power limit; a card set below its limit runs slower under
+``HWSpec`` describes the card: its rates, and the on-chip budget a
+block is held to (SMs, shared memory and registers, CUDA's occupancy
+limits for compute capability 9.0), which ``core.autotune`` prices a
+tile against.  Every rate is NVIDIA's published figure for the part
+(the H100 data sheet, dense rates without sparsity) at the card's full
+power limit; a card set below its limit runs slower under
 load, so a result that uses these rates names the card and its power
 limit beside them.
 
@@ -41,6 +44,17 @@ class HWSpec:
     peak_flops_tf32: float         # tensor cores, dense
     peak_flops_fp32: float         # CUDA cores (no tensor-core fp32 path)
     peak_flops_fp64: float         # fp64 tensor cores
+    # the on-chip budget (CUDA's occupancy limits for compute capability
+    # 9.0): what ``core.autotune.predict`` prices a tile against, in
+    # place of the TPU's VMEM
+    sm_count: int = 132
+    smem_per_sm: int = 233472      # 228 KiB of shared memory an SM
+    smem_per_block: int = 232448   # 227 KiB a block may take (opt-in)
+    smem_reserved_per_block: int = 1024   # what the card keeps a block
+    regs_per_sm: int = 65536       # 32-bit registers
+    regs_per_thread: int = 255     # past this the compiler spills
+    threads_per_sm: int = 2048
+    blocks_per_sm: int = 32
 
     def peak_flops(self, dtype: torch.dtype) -> float:
         """The dense peak for arithmetic done in ``dtype`` without TF32:
@@ -69,7 +83,8 @@ H100_SXM = HWSpec(name="h100_sxm", hbm_bw=3.35e12, l2_bytes=50e6,
                   peak_flops_fp32=67e12, peak_flops_fp64=67e12)
 H100_PCIE = HWSpec(name="h100_pcie", hbm_bw=2.0e12, l2_bytes=50e6,
                    peak_flops_bf16=756e12, peak_flops_tf32=378e12,
-                   peak_flops_fp32=51e12, peak_flops_fp64=51e12)
+                   peak_flops_fp32=51e12, peak_flops_fp64=51e12,
+                   sm_count=114)
 H100_NVL = HWSpec(name="h100_nvl", hbm_bw=3.9e12, l2_bytes=50e6,
                   peak_flops_bf16=835e12, peak_flops_tf32=418e12,
                   peak_flops_fp32=60e12, peak_flops_fp64=60e12)

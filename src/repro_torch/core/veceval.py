@@ -22,11 +22,23 @@ app's bytes over the memory rate and its operations over the peak for
 its type, from ``HWSpec``) with ``hw`` naming the spec.  ``host_seconds``
 keeps its JAX name but holds the median time between two CUDA events on
 the card (``repro_torch.perf.measure``); there is no host clock here.
-``flops`` and ``bytes`` are the app's analytic values (``source
-"model"``): the operations and the bytes of every input read once and
-every output written once.  ``hlo_ops``, ``instruction_classes`` and
-``op_reduction_vs_scalar`` stay ``None`` until the counter layer is
-ported.
+``flops``, ``bytes``, ``hlo_ops``, ``instruction_classes`` and
+``op_reduction_vs_scalar`` come through the calibration-gated channels of
+``repro_torch.perf.channels``, as the JAX rows' do: ``flops`` is the
+flop counter's where its channel calibrated reliable for the program's
+structure (a matmul-bearing program), else the app's analytic value
+(``flops_source`` says which); ``bytes`` is always the analytic value
+(torch has no bytes counter): every input read once and every output
+written once.  The op histogram counts executed ops, every iteration of
+a scalar loop included (counted, not reckoned from one iteration).  On
+the CPU it is the dispatch histogram (``ops_source`` ``"dispatch"``; the
+kernel version runs its plain twin there, so its ops are the twin's).
+On the card the dispatcher cannot see two of the versions (Inductor's
+code refuses a dispatch mode; the hand kernels launch through
+``ctypes``): their op counts are ``None`` and ``ops_note`` says why.
+``op_reduction_vs_scalar`` divides the scalar version's count by the
+version's.  ``channel_verdicts()`` gives the
+verdicts the rows were read under.
 """
 from __future__ import annotations
 
@@ -45,6 +57,7 @@ from repro_torch.kernels.gemm import ops as gemm_ops
 from repro_torch.kernels.spmv import ops as spmv_ops
 from repro_torch.kernels.spmv.ref import random_ell
 from repro_torch.kernels.stream import ops as stream_ops
+from repro_torch.perf import channels as perf_channels
 from repro_torch.perf.measure import measure_group
 
 VERSIONS = ("scalar", "autovec", "kernel")
@@ -307,15 +320,43 @@ BUILDERS: Dict[str, Callable[..., ProxyApp]] = {
 # ---------------------------------------------------------------------------
 # measurement
 # ---------------------------------------------------------------------------
+# why the dispatcher cannot see a version on the card
+OPAQUE_ON_CARD = {
+    "autovec": "torch.compile: Dynamo refuses to run under a dispatch "
+               "mode, so Inductor's code is not counted",
+    "kernel": "the hand kernel launches through ctypes, unseen by the "
+              "dispatcher, so its work is not counted",
+}
+CPU_KERNEL_NOTE = ("on the CPU the kernel version runs its plain twin: "
+                   "the ops are the twin's")
+
+
+def _channel_rows(app: ProxyApp, omitted: Dict[str, str],
+                  calibration: Optional[perf_channels.Calibration]
+                  ) -> Dict[str, Dict]:
+    """The gated channels of each version that runs, by version name."""
+    card = app.device.type == "cuda"
+    return {v.name: perf_channels.channels_for(
+        v.fn, *v.args, model_flops=app.flops, model_bytes=app.bytes_moved,
+        calibration=calibration,
+        opaque=OPAQUE_ON_CARD.get(v.name) if card else None)
+        for v in app.versions if v.name not in omitted}
+
+
 def evaluate_app(app: ProxyApp, measure: bool = True, *,
                  hw: Optional[HWSpec] = None,
-                 scalar_max_iters: Optional[int] = None) -> List[Dict]:
+                 scalar_max_iters: Optional[int] = None,
+                 calibration: Optional[perf_channels.Calibration] = None
+                 ) -> List[Dict]:
     """One row per version.  With ``measure`` (needs the card) the versions
     are timed in the same interleaved rounds, the L2 flushed before each
     call, and every version's output is held against autovec's within the
-    app's tolerance (raises if one is past it).  A version whose host loop
-    runs more than ``scalar_max_iters`` iterations is not run; its row says
-    why."""
+    app's tolerance (raises if one is past it).  Each version the
+    dispatcher can see runs once, untimed, under the counters
+    (``calibration``: the device's ``default_calibration()`` unless
+    given); on the card that is the scalar version alone.  A version
+    whose host loop runs more than ``scalar_max_iters`` iterations is not
+    run; its row says why."""
     dev = app.device
     hw = hw_of(dev, hw)
     bound_s, bound_by = hw.bound_s(app.flops, app.bytes_moved, app.dtype)
@@ -332,26 +373,55 @@ def evaluate_app(app: ProxyApp, measure: bool = True, *,
         want = meas["autovec"].result
         errs = {name: app.max_err(m.result, want)
                 for name, m in meas.items()}
+    chans = _channel_rows(app, omitted, calibration)
+    base = chans.get("scalar")
+    base_ops = base.total_ops if base is not None else None
     device_name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                    else "cpu")
     rows = []
     for v in app.versions:
         m = meas.get(v.name)
+        ch = chans.get(v.name)
+        if ch is None:
+            counted = {"flops": app.flops, "flops_source": "model",
+                       "bytes": app.bytes_moved, "bytes_source": "model",
+                       "hlo_ops": None, "instruction_classes": None,
+                       "op_reduction_vs_scalar": None, "ops_source": None,
+                       "ops_note": omitted.get(v.name)}
+        else:
+            ops = ch.total_ops
+            note = ch.histogram_note
+            if (note is None and dev.type != "cuda"
+                    and v.name == "kernel"):
+                note = CPU_KERNEL_NOTE
+            counted = {
+                "flops": ch.flops.value, "flops_source": ch.flops.source,
+                "bytes": ch.bytes_accessed.value,
+                "bytes_source": ch.bytes_accessed.source,
+                "hlo_ops": ops,
+                "instruction_classes": ch.instruction_classes,
+                "op_reduction_vs_scalar": (
+                    base_ops / max(ops, 1) if base_ops and ops is not None
+                    else None),
+                "ops_source": ch.histogram_source, "ops_note": note}
         rows.append({
             "app": app.name, "version": v.name,
             "host_seconds": m.median_s if m else None,
             "first_call_seconds": m.first_s if m else None,
             "bound_seconds": bound_s, "bound_by": bound_by, "hw": hw.name,
-            "device": device_name,
-            "flops": app.flops, "flops_source": "model",
-            "bytes": app.bytes_moved, "bytes_source": "model",
-            "hlo_ops": None, "instruction_classes": None,
-            "op_reduction_vs_scalar": None,
+            "device": device_name, **counted,
             "useful_flops": app.flops,
             "max_abs_err_vs_autovec": errs.get(v.name),
             "omitted": omitted.get(v.name),
         })
     return rows
+
+
+def channel_verdicts(device=None) -> Dict[str, bool]:
+    """The calibration verdicts the rows above were read under, on
+    ``device`` (``cuda`` unless named), for the Report's ``reliability``
+    block."""
+    return dict(perf_channels.default_calibration(device).verdicts)
 
 
 def run_all(measure: bool = True, apps: Optional[List[str]] = None, *,

@@ -29,6 +29,7 @@ DMMA, SIMT = "DMMA", "SIMT"
 # the TPU kernel's 128 m x 128 m tile does (Fig 7's LMUL axis)
 TILES = {1: (64, 64), 2: (128, 128), 4: (256, 128), 8: (256, 256)}
 BK = 16                            # k a stage
+THREADS = 256                      # a block, both paths
 STAGES = {DMMA: 3, SIMT: 2}        # cp.async ring depth
 PAD = 4                            # elements a padded shared row adds
 SMEM_LIMIT = 232448                # bytes of shared memory a block may take

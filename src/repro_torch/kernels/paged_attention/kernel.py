@@ -81,7 +81,8 @@ def split_plan(B: int, NKV: int, R: int, max_tokens: int, sms: int, *,
     KV range is split only as far as it takes to give each of ``sms`` SMs
     about one block: at most ``MAX_SPLITS`` splits, each a whole number of
     ``TILE`` tokens, none starting past ``max_tokens``.  ``splits`` forces
-    a count (tests only; still held to those rules)."""
+    a count (the engine's tuned one, and the tests; still held to those
+    rules)."""
     mode = block_mode(R, head_dim, kv_bytes)
     slices = max(-(-R // block_rows(mode)), 1)
     blocks = max(B * NKV * slices, 1)
@@ -159,7 +160,8 @@ def paged_flash_decode(qg, k_pages, v_pages, page_idx, pos0, kv_valid, *,
     r % sq); k/v_pages: (P, page, NKV, H) bf16 or fp32 pool; page_idx:
     (B, pps) int32, any page map (ids below P wherever a row's valid
     tokens lie; entries past kv_valid are never read); pos0 / kv_valid:
-    (B,) int32.  ``splits`` forces the KV split (tests only).
+    (B,) int32.  ``splits`` forces the KV split (the engine's tuned
+    count, and the tests).
 
     Returns fp32 ``(acc, m, l)`` shaped (B, NKV, G*Sq, H) / (B, NKV, G*Sq)
     / (B, NKV, G*Sq); normalize as ``acc / max(l, 1e-30)``."""

@@ -11,6 +11,8 @@ fallback.  The normalization ``acc / max(l, 1e-30)`` is a torch op, as
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels.paged_attention import kernel as K
@@ -27,10 +29,14 @@ def _finalize(m, l, acc, dtype):
 
 def paged_attention(q, k_pages, v_pages, page_idx, positions, kv_valid, *,
                     page_size: int, softcap: float = 0.0,
-                    return_partials: bool = False):
+                    return_partials: bool = False,
+                    splits: Optional[int] = None):
     """q: (B, Sq, NQ, H); k/v_pages: (P, page_size, NKV, H) pool;
     page_idx: (B, pages_per_seq) int32; positions: (B, Sq) int32 (query
     positions, contiguous per row); kv_valid: (B,) int32 ragged lengths.
+    ``splits``: the kernel's KV split count (``kernel.split_plan``'s own
+    when ``None``; the engine passes its tuned count); the plain version
+    on the CPU takes no split and ignores it.
 
     Returns (B, Sq, NQ, H) in q.dtype, or fp32 partials ``(m, l, acc)``
     shaped (B, NQ, Sq) / (B, NQ, Sq) / (B, NQ, Sq, H) when
@@ -52,7 +58,8 @@ def paged_attention(q, k_pages, v_pages, page_idx, positions, kv_valid, *,
             qg.to(torch.float32).contiguous(), k_pages, v_pages,
             page_idx.to(torch.int32).contiguous(),
             pos0.to(torch.int32).contiguous(),
-            kv_valid.to(torch.int32).contiguous(), sq=Sq, softcap=softcap)
+            kv_valid.to(torch.int32).contiguous(), sq=Sq, softcap=softcap,
+            splits=splits)
     acc = acc.reshape(B, NKV, G, Sq, H)
     m = m.reshape(B, NKV, G, Sq)
     l = l.reshape(B, NKV, G, Sq)

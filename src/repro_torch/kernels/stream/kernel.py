@@ -5,14 +5,16 @@
 for add and triad) in, a new one out.  It checks device, dtype, shape,
 contiguity and 16-byte alignment, allocates the output with
 ``torch.empty``, launches on the current stream without synchronising,
-and raises if the launch returns a CUDA error.  ``stream_call.launches``
-counts the kernel launches made through it.
+and raises if the launch returns a CUDA error.  ``plan`` is the host's
+copy of the grid the kernel launches.  ``stream_call.launches`` counts
+the kernel launches made through it.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 import pathlib
+from typing import NamedTuple
 
 import torch
 
@@ -20,6 +22,26 @@ from repro_torch.kernels import common
 
 SOURCES = (pathlib.Path(__file__).parent / "csrc" / "stream.cu",)
 KINDS = ("copy", "scale", "add", "triad")
+THREADS = 256                  # a block
+VECTOR = 4                     # fp32 elements a 16-byte vector
+
+
+class Plan(NamedTuple):
+    """``vectors`` 16-byte vectors a thread moves per array (the block
+    multiplier), ``grid`` blocks of ``threads``."""
+    vectors: int
+    grid: int
+    threads: int
+
+
+def plan(n: int, block_multiplier: int) -> Plan:
+    """What csrc/stream.cu launches over n fp32 elements: one slot a
+    whole or partial vector, ``THREADS * block_multiplier`` slots a
+    block."""
+    common.check_multiplier(block_multiplier)
+    slots = -(-n // VECTOR)
+    per_block = THREADS * block_multiplier
+    return Plan(block_multiplier, -(-slots // per_block), THREADS)
 
 
 @functools.lru_cache(maxsize=None)

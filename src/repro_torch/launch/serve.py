@@ -265,6 +265,7 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         res["speculative"] = engine.spec_decode
         res["chunk_policy"] = chunk_policy
         res["last_chunk_width"] = engine.sched.last_chunk_width
+        res["paged_meta"] = engine.paged_meta
         res.update({k: st[k] for k in (
             "prefix_hit_tokens", "prefix_hit_rate", "drafted_tokens",
             "accepted_draft_tokens", "accept_rate")})

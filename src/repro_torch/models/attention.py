@@ -42,9 +42,13 @@ from repro_torch.models.layers import dense, rms_norm_nd
 class PagedDecodeState:
     """page_idx: (B, pages_per_seq) int32 tensor of page ids into the pool
     view of the cache, or ``None`` for the row-local identity map (the
-    engine's batch-1 prefill rows)."""
+    engine's batch-1 prefill rows).  ``splits``: the paged kernel's KV
+    split count (the engine's tuned one, on its pure-decode forward);
+    ``None`` lets ``split_plan`` pick.  The CPU twin ignores it, as the
+    reference's ``xla`` twin ignores ``block_pages``."""
     page_idx: Optional[torch.Tensor]
     page_size: int
+    splits: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -363,7 +367,7 @@ def _paged_attention_with_cache(q, k, v, ps: PagedDecodeState, *, positions,
                                 device=k.device).view(B, pps)
     return pa_ops.paged_attention(
         q, k_pages, v_pages, page_idx, positions, kv_valid_len,
-        page_size=ps.page_size, softcap=softcap)
+        page_size=ps.page_size, softcap=softcap, splits=ps.splits)
 
 
 # ---------------------------------------------------------------------------

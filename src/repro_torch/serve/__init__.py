@@ -18,9 +18,11 @@ the stall-free chunk policy (``chunk_policy=`` / ``tbt_target_s=``);
 ``EngineStats`` carries the modeled flops and bytes of
 ``StepCostModel``.  ``OpenLoopFrontend`` puts requests on a clock:
 ``clock="wall"`` measures each step between CUDA events on the card,
-``clock="model"`` advances by the cost model's step times.  Not ported
-yet: the device mesh and the sequence-parallel KV cache (``mesh``,
-``rules``, ``sp_kv``), ``analyze`` and ``retune``.
+``clock="model"`` advances by the cost model's step times.  ``retune=``
+re-measures the paged kernel's split sweep (``core.autotune``), which
+every engine on the card tunes at construction (``paged_meta``).  Not
+ported yet: the device mesh and the sequence-parallel KV cache
+(``mesh``, ``rules``, ``sp_kv``) and ``analyze``.
 """
 from repro_torch.serve.arrivals import (  # noqa: F401
     ArrivalRequest,

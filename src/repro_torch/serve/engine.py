@@ -73,9 +73,24 @@ step, so there a stall-free step raises and the policy runs under the
 front end's ``clock="model"``, which sets ``step_feedback =
 "external"`` and feeds modeled times itself.
 
+The paged kernel's KV split count is tuned at construction, as the
+reference tunes its ``block_pages`` (``_tune_paged_kernel``): on the
+card ``core.autotune.tune_paged_attention`` times every split count at
+the engine's pure-decode shape, its rows at ragged lengths, or reads the
+sweep from the on-disk cache (``retune=True`` measures again).  It keeps
+``split_plan``'s count unless another beats it in most of the sweep's
+paired rounds (a sign test) and by 15% of its median; ``paged_meta``
+holds the sweep, the count chosen and why, and the pure-decode forward
+launches B1 at that count.  The chunk rows (``page_idx=None``) and the
+verify forward keep ``split_plan``'s count: the sweep did not time their
+shapes.  On the CPU no sweep can be timed:
+``paged_meta`` says so and ``retune=True`` raises.  An ssm has nothing to
+tune, and ``paged_kernel=False`` tunes nothing (``paged_meta`` is
+``None``).
+
 Not ported yet (each raises ``NotImplementedError`` if asked for): the
-device mesh (``mesh``, ``rules``, ``sp_kv``), build-time trace analysis
-(``analyze``) and the paged-kernel autotune (``retune``).  For a family
+device mesh (``mesh``, ``rules``, ``sp_kv``) and build-time trace
+analysis (``analyze``).  For a family
 whose state cannot be cut to a token prefix (ssm, hybrid)
 ``prefix_cache=True`` warns and serves with the pool off, as the
 reference does.
@@ -107,7 +122,6 @@ from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
 # that means "off"; anything else raises NotImplementedError
 _NOT_PORTED = {
     "mesh": None, "rules": None, "sp_kv": False, "analyze": False,
-    "retune": False,
 }
 
 
@@ -332,7 +346,7 @@ class ContinuousBatchingEngine:
                  page_budget: Optional[int] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
                  prefix_cache: bool = False, prefix_pool: int = 8,
-                 paged_kernel: Optional[bool] = None,
+                 paged_kernel: Optional[bool] = None, retune: bool = False,
                  spec_decode: bool = False, spec_k: int = 4,
                  check: Optional[bool] = None, **kwargs):
         for name, value in kwargs.items():
@@ -397,6 +411,11 @@ class ContinuousBatchingEngine:
         self._page_idx = (torch.as_tensor(self.kv.page_index_array(),
                                           device=self.device)
                           if self._paged else None)
+        # the pure-decode forward's KV split count (None: split_plan's)
+        self._paged_splits: Optional[int] = None
+        self.paged_meta: Optional[Dict] = None
+        if self.paged_kernel:
+            self.paged_meta = self._tune_paged_kernel(retune)
         self._n_out_rows = 3 * n_slots
         self.cache = self.model.init_cache(self.n_slots, self.max_len)
         # a recurrent family's verify runs twice: its state (every leaf
@@ -442,8 +461,38 @@ class ContinuousBatchingEngine:
         return torch.as_tensor(np.asarray(a), dtype=dtype,
                                device=self.device)
 
-    def _paged_state(self, page_idx) -> Optional[PagedDecodeState]:
-        return (PagedDecodeState(page_idx, self.kv.page_size)
+    def _tune_paged_kernel(self, retune: bool) -> Dict:
+        """Pick the paged kernel's KV split count for the pure-decode
+        forward via the persistent ``core.autotune`` sweep cache
+        (interleaved CUDA-event medians and quartiles; ``retune=True``
+        forces re-measurement): ``paged_meta["splits"]``, with
+        ``paged_meta["why"]``."""
+        cfg = self.model.cfg
+        if not self.model.decode_state.paged:
+            # no attention KV on the decode path: nothing to tune
+            return {"skipped": f"family {cfg.family!r} has no attention "
+                               f"KV cache"}
+        if self.device.type != "cuda":
+            if retune:
+                raise RuntimeError(
+                    f"retune=True times the paged kernel's split sweep "
+                    f"with CUDA events on a CUDA card; this engine is on "
+                    f"{self.device}")
+            return {"skipped": "no sweep on the CPU: the split sweep "
+                               "times the CUDA kernel with CUDA events on "
+                               "the card"}
+        from repro_torch.core import autotune
+        info = autotune.tune_paged_attention(
+            n_slots=self.n_slots, max_len=self.max_len,
+            page_size=self.kv.page_size, n_kv_heads=cfg.n_kv_heads,
+            n_q_heads=cfg.n_heads, head_dim=cfg.resolved_head_dim,
+            dtype=cfg.compute_dtype, retune=retune, device=self.device)
+        self._paged_splits = int(info["splits"])
+        return info
+
+    def _paged_state(self, page_idx, splits: Optional[int] = None
+                     ) -> Optional[PagedDecodeState]:
+        return (PagedDecodeState(page_idx, self.kv.page_size, splits)
                 if self._paged else None)
 
     # -- steps ----------------------------------------------------------
@@ -472,10 +521,11 @@ class ContinuousBatchingEngine:
                                    tokens[:, 0])
         return tokens, self._dev(plan.positions[:, :width], torch.long)
 
-    def _forward_decode(self, tokens, positions, n_valid) -> torch.Tensor:
+    def _forward_decode(self, tokens, positions, n_valid,
+                        splits: Optional[int] = None) -> torch.Tensor:
         logits, self.cache = self.model.forward(
             self.params, tokens, positions, mode="decode", cache=self.cache,
-            n_valid=n_valid, paged=self._paged_state(self._page_idx))
+            n_valid=n_valid, paged=self._paged_state(self._page_idx, splits))
         self.stats.forwards += 1
         return logits
 
@@ -484,7 +534,8 @@ class ContinuousBatchingEngine:
         where no row carries a draft: the no-draft fast path)."""
         tokens, positions = self._decode_inputs(plan, 1)
         logits = self._forward_decode(tokens, positions,
-                                      self._dev(plan.n_valid, torch.int32))
+                                      self._dev(plan.n_valid, torch.int32),
+                                      splits=self._paged_splits)
         temps = self._dev(plan.temperatures, torch.float32)
         nxt = sampling.sample_tokens(
             logits[:, 0], temps, self._gen,

@@ -724,11 +724,12 @@ def _engines_card_vs_cpu(card, cfg):
         model = LM(cfg, device=dev)
         p = _to(params, dev)
         for paged in (False, True):
-            before = (fa_kernel.flash_decode.launches,
-                      pa_kernel.paged_flash_decode.launches)
             eng = ContinuousBatchingEngine(model, p, n_slots=2, max_len=32,
                                            page_size=8, prefill_chunk=4,
                                            page_budget=4, paged_kernel=paged)
+            # counted after the split sweep the engine ran at construction
+            before = (fa_kernel.flash_decode.launches,
+                      pa_kernel.paged_flash_decode.launches)
             rids = [eng.submit(pr, g) for pr, g in zip(prompts, gens)]
             res = eng.run()
             launched = (fa_kernel.flash_decode.launches - before[0],
@@ -1596,3 +1597,141 @@ def test_serving_features_on_card_match_cpu(card, feature, paged):
                         else s["prefix_hit_tokens"]) > 0
     first = outs["cuda", "on"]
     assert all(o == first for o in outs.values()), outs
+
+
+# ---------------------------------------------------------------------------
+# the paper's measurement layer: the autotuner, B1's tuned split, the
+# counters' kernel records
+# ---------------------------------------------------------------------------
+def _tune(tmp_path, retune=False):
+    from repro_torch.core import autotune
+    return autotune.tune_paged_attention(
+        n_slots=4, max_len=256, page_size=16, n_kv_heads=2, n_q_heads=8,
+        head_dim=64, dtype="bfloat16", retune=retune,
+        cache_path=tmp_path / "cache.json")
+
+
+def test_tune_paged_attention_measured_then_cached(card, tmp_path):
+    """The sweep times every distinct split count on the card and writes
+    a Report the validator accepts; the second call reads the cache, and
+    ``retune`` measures again."""
+    from repro_torch.core import autotune
+    from repro_torch.perf import report
+    first = _tune(tmp_path)
+    assert first["source"] == "measured"
+    assert f"s{first['splits']}" in first["medians_s"] and first["why"]
+    assert (first["splits"], first["why"]) == autotune.pick_splits(
+        first["samples_s"], first["plan_splits"])
+    assert sorted(first["spread_s"]) == sorted(first["medians_s"])
+    assert all(len(v) == first["reps"] for v in first["samples_s"].values())
+    assert first["kv_valid"] == autotune.paged_kv_lens(4, 256)
+    assert first["key"].endswith(autotune.PAGED_IMPL)
+    assert all(t > 0 for t in first["medians_s"].values())
+    assert not report.validate_path(tmp_path / "cache.json")
+    second = _tune(tmp_path)
+    assert second["source"] == "cache"
+    assert second["splits"] == first["splits"]
+    assert _tune(tmp_path, retune=True)["source"] == "measured"
+
+
+def test_paged_kernel_bitwise_repeatable_at_tuned_split(card, tmp_path):
+    """B1 at the tuned split count: two launches give the same bits, and
+    the output is the plain version's within the tolerance."""
+    splits = _tune(tmp_path)["splits"]
+    args, sq = _grouped(_paged_inputs(card, 64, 1, False, torch.bfloat16,
+                                      [256, 200, 17, 256], pps=16, NKV=2,
+                                      G=4))
+    a = pa_kernel.paged_flash_decode(*args, sq=sq, splits=splits)
+    b = pa_kernel.paged_flash_decode(*args, sq=sq, splits=splits)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    want = pa_ref.paged_partials(*args, sq=sq)
+    out = a[0] / a[2].clamp_min(1e-30)[..., None]
+    ref_out = want[0] / want[2].clamp_min(1e-30)[..., None]
+    torch.testing.assert_close(out, ref_out, rtol=2e-3, atol=2e-3)
+
+
+def test_engine_decodes_at_the_tuned_split(card, tmp_path, monkeypatch):
+    """The engine on the card tunes at construction (a fresh cache:
+    measured; again: from the cache); its pure-decode forward launches
+    B1 at the tuned count, the prefill rows at the plan's."""
+    from collections import Counter
+
+    from repro_torch.core import autotune
+    monkeypatch.setattr(autotune, "AUTOTUNE_CACHE_PATH",
+                        tmp_path / "cache.json")
+    cfg = reduced_config("granite-3-2b", head_dim=64)
+    model = LM(cfg, device=card)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    eng = ContinuousBatchingEngine(model, params, n_slots=2, max_len=64,
+                                   page_size=PAGE, prefill_chunk=8)
+    assert eng.paged_meta["source"] == "measured"
+    again = ContinuousBatchingEngine(model, params, n_slots=2, max_len=64,
+                                     page_size=PAGE, prefill_chunk=8)
+    assert again.paged_meta["source"] == "cache"
+    tuned = eng.paged_meta["splits"]
+    calls = Counter()
+
+    class Spy:               # stands in for the kernel module in pa_ops
+        @staticmethod
+        def paged_flash_decode(*a, **kw):
+            calls[kw.get("splits")] += 1
+            return pa_kernel.paged_flash_decode(*a, **kw)
+
+    monkeypatch.setattr(pa_ops, "K", Spy)
+    for p, g in (([3, 5, 7, 9, 11], 6), ([2, 4, 6], 5)):
+        eng.submit(np.asarray(p), g)
+    eng.run()
+    decode_fwds = sum(1 for s in eng.stats.steps if s.n_decode)
+    assert calls[tuned] == cfg.n_layers * decode_fwds > 0
+    assert sum(calls.values()) == cfg.n_layers * eng.stats.forwards
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.float64, 1e-12)])
+def test_gemm_sweep_every_multiplier_matches_plain(card, dtype, tol):
+    """Fig 7 (b)'s sweep path: B6 at every block multiplier through
+    ``autotune.measured_sweep``, each multiplier's output against the
+    plain product."""
+    from repro_torch.core import autotune
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.random((384, 320))).to(card, dtype)
+    b = torch.from_numpy(rng.random((320, 448))).to(card, dtype)
+    want = gemm_ref.gemm(a, b)
+    outs = {}
+
+    def run(m):
+        outs[m] = gemm_ops.gemm(a, b, block_multiplier=m)
+        return outs[m]
+
+    meds = autotune.measured_sweep(
+        {f"m{m}": (lambda m=m: run(m), ()) for m in (1, 2, 4, 8)}, reps=2)
+    assert sorted(meds) == ["m1", "m2", "m4", "m8"]
+    for m, got in outs.items():
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol * 320)
+
+
+def test_counters_on_the_card(card):
+    """Table 1 on the card in a fresh process: the kernel records count
+    the 8 eager kernels exactly and calibrate reliable, beside the CPU's
+    verdicts; veceval's scalar row carries the dispatcher's ops, the
+    compiled and kernel rows none, with the reason."""
+    from repro_torch.core import veceval
+    from repro_torch.figures import table1_counters
+    rows = table1_counters.collect(table1_counters.spawn(
+        "cuda", n=1 << 12, steps=4))
+    by = table1_counters.verdicts(rows)
+    assert by["flops_matmul"] and by["op_histogram"]
+    assert not by["flops_straightline"]
+    launch = [r for r in rows if r["channel"] == "kernel_launches"]
+    assert len(launch) == 1
+    assert launch[0]["reference"] == launch[0]["measured"] == 8
+    assert by["kernel_launches"]
+    rows = {r["version"]: r for r in veceval.evaluate_app(
+        veceval.build_stream(1 << 14, device=card), measure=False)}
+    assert rows["scalar"]["ops_source"] == "dispatch"
+    assert rows["scalar"]["hlo_ops"] > 0
+    for v in ("autovec", "kernel"):
+        r = rows[v]
+        assert r["hlo_ops"] is None and r["ops_note"]
+        assert r["op_reduction_vs_scalar"] is None

@@ -230,16 +230,20 @@ def test_engine_temperature_sampling_is_seeded_and_in_range(granite):
 
 
 def test_engine_rejects_unported_options(granite):
-    """What is not ported raises; the stall-free chunk policy is ported:
-    the engine takes it and hands it to its scheduler, and on the CPU,
-    where no step can be timed, a step under its own (wall) feedback
-    raises and names the front end's model clock."""
+    """What is not ported raises; ``retune`` is ported, and on the CPU,
+    where no sweep can be timed, ``retune=True`` raises and names the
+    card; the stall-free chunk policy is ported: the engine takes it and
+    hands it to its scheduler, and on the CPU, where no step can be
+    timed, a step under its own (wall) feedback raises and names the
+    front end's model clock."""
     _, _, model, params = granite
-    for kw in (dict(analyze=True), dict(mesh=object()), dict(sp_kv=True),
-               dict(retune=True)):
+    for kw in (dict(analyze=True), dict(mesh=object()), dict(sp_kv=True)):
         with pytest.raises(NotImplementedError):
             ContinuousBatchingEngine(model, params, n_slots=1, max_len=16,
                                      **kw)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        ContinuousBatchingEngine(model, params, n_slots=1, max_len=16,
+                                 retune=True)
     eng = ContinuousBatchingEngine(model, params, n_slots=1, max_len=16,
                                    chunk_policy="stall_free",
                                    tbt_target_s=0.01)

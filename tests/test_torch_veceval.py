@@ -10,6 +10,8 @@ JAX package's (``repro.core.veceval``) at small sizes on the CPU:
 
 Tolerances: fp32 1e-5 (roundoff of sums in another order), f64 1e-12.
 """
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -117,8 +119,11 @@ def test_rows_carry_the_reference_keys():
         assert "tpu_model_seconds" not in r
         assert r["host_seconds"] is None and r["hw"] == "h100_sxm"
         assert r["bound_seconds"] == pytest.approx(4096 * 12 / 3.35e12)
+        # stream is elementwise-only: the flop counter is blind to it
         assert r["flops_source"] == r["bytes_source"] == "model"
-        assert r["hlo_ops"] is None and r["op_reduction_vs_scalar"] is None
+        # the counters' channels, read on the CPU by the dispatcher
+        assert r["hlo_ops"] > 0 and r["ops_source"] == "dispatch"
+        assert r["op_reduction_vs_scalar"] >= 1.0
 
 
 def test_long_scalar_loops_are_omitted_with_a_reason():
@@ -156,3 +161,63 @@ def test_versions_disagreeing_raise():
     assert app.max_err(out, out) == 0.0
     with pytest.raises(AssertionError):
         app.max_err(out + 1e-2, out)
+
+
+@pytest.mark.parametrize("name", APPS)
+def test_rows_carry_counted_ops_with_the_reference_keys(name):
+    """Every row carries ``hlo_ops``, ``instruction_classes`` and
+    ``op_reduction_vs_scalar`` with the JAX row's keys (and its source);
+    the compiler's version retires fewer ops than the scalar loop in both
+    packages."""
+    pt = pt_ve.BUILDERS[name](**SIZES[name], device="cpu")
+    rows = {r["version"]: r for r in pt_ve.evaluate_app(pt, measure=False)}
+    with jax.enable_x64(name == "dgemm"):
+        ja = _jax_app(name)
+        if name in ("alexnet", "yolov3"):
+            # the JAX conv kernel raises on the installed jax (ROADMAP
+            # R1): its rows are read without the kernel version
+            ja.versions = [v for v in ja.versions if v.name != "kernel"]
+        ref = {r["version"]: r for r in jax_ve.evaluate_app(
+            ja, measure=False)}
+    for v, r in rows.items():
+        assert r["hlo_ops"] > 0 and r["ops_source"] == "dispatch"
+        assert sum(r["instruction_classes"].values()) == r["hlo_ops"]
+        if v in ref:
+            assert set(ref[v]) - {"tpu_model_seconds"} <= set(r)
+            assert set(r["instruction_classes"]) == \
+                set(ref[v]["instruction_classes"])
+    assert rows["scalar"]["op_reduction_vs_scalar"] == 1.0
+    assert rows["autovec"]["op_reduction_vs_scalar"] > 1.0
+    assert ref["autovec"]["op_reduction_vs_scalar"] > 1.0
+    assert "plain twin" in rows["kernel"]["ops_note"]
+
+
+@pytest.mark.parametrize("name", ["sgemm", "dgemm", "alexnet", "yolov3"])
+def test_matmul_bearing_apps_read_the_flop_counter(name):
+    """The flop counter calibrated reliable on matmuls: a matmul-bearing
+    version's flops are the counter's, and equal the JAX app's useful
+    flops; an elementwise-only app (stream, spmv) reads the model."""
+    pt = pt_ve.BUILDERS[name](**SIZES[name], device="cpu")
+    with jax.enable_x64(name == "dgemm"):
+        ja = _jax_app(name)
+    for r in pt_ve.evaluate_app(pt, measure=False):
+        assert r["flops_source"] == "counter", r["version"]
+        assert r["flops"] == ja.flops
+    stream = pt_ve.evaluate_app(pt_ve.build_stream(4096, device="cpu"),
+                                measure=False)
+    assert {r["flops_source"] for r in stream} == {"model"}
+
+
+def test_channel_verdicts_and_the_channels_switch():
+    v = pt_ve.channel_verdicts("cpu")
+    assert v["flops_matmul"] and v["op_histogram"]
+    assert not v["flops_straightline"]
+    app = pt_ve.build_stream(4096, device="cpu")
+    # one path: every row is counted, there is no switch to turn it off
+    assert "channels" not in inspect.signature(pt_ve.evaluate_app).parameters
+    assert "channels" not in inspect.signature(pt_ve.run_all).parameters
+    rows = pt_ve.evaluate_app(app, measure=False, scalar_max_iters=16)
+    by = {r["version"]: r for r in rows}
+    assert by["scalar"]["hlo_ops"] is None
+    assert "iterations" in by["scalar"]["ops_note"]
+    assert by["autovec"]["op_reduction_vs_scalar"] is None
