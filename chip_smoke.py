@@ -87,7 +87,11 @@ Phases (one line each; any failure exits nonzero and prints no result):
              launches give the same bits, and kernel, plain and
              F.scaled_dot_product_attention(is_causal=True,
              enable_gqa=True) (a yardstick the port never calls) are
-             timed; the JSON line carries B 1 x S 4096.
+             timed; the JSON line carries B 1 x S 4096.  Then
+             whisper-base's train shapes (8/8 heads, H 64, bf16, B 8):
+             the encoder's non-causal attention over 1500 frames (no
+             multiple of a tile) and the decoder's causal S 128, out and
+             lse against the plain version, timed beside SDPA.
    kernels-ssm — the SSD chunked-scan kernel against ref.ssd_chunked: y and
              h_final within 2e-3 (the JAX kernel test's tolerance) for every
              P (16, 32, 64), N (16 to 128) and chunk (16 to 256) it takes,
@@ -100,7 +104,13 @@ Phases (one line each; any failure exits nonzero and prints no result):
              at the fp32 CUDA-core rate (the record's), and three times
              them at the TF32 tensor-core rate (the kernel's 3xTF32), and
              the device time of each of the call's four kernels
-             (torch.profiler).
+             (torch.profiler).  Then the kernel under autograd
+             (``ops.SSDChunked``: the kernel's forward, the plain scan's
+             gradient) at mamba2-780m's and jamba-v0.1-52b's layers, b 1 x
+             S 4096: every input's gradient against autograd through
+             ref.ssd_chunked (within 1e-5 of its largest element), and the
+             forward kernel, the Function's backward and the plain
+             backward timed.
    kernels-int8 — the weight-only int8 GEMM against its plain version:
              tests/test_quant.py's shapes ((128, 256, 128), (256, 128, 384)),
              ragged M 1, 7, 8, 9, 16, 33, 64, 65 and 256 with K and N off
@@ -300,12 +310,13 @@ Phases (one line each; any failure exits nonzero and prints no result):
              decode forward (6 self and 6 cross flash-decode), and the
              CUDA-event ms of one install and of the encoder in it.
 6k. serve-features — the serving features at full width, every engine
-             with check=True (no error finding): (a) granite-3-2b bf16,
-             16 requests sharing a 256-token prefix plus 16-128 own
+             with check=True (no error finding): (a) granite-3-2b bf16
+             cut to 10 of its 40 layers (for the script's time), 16
+             requests sharing a 256-token prefix plus 16-128 own
              tokens at phase 6's mix, ``prefix_cache`` off then on:
              identical tokens, prefix hits > 0; (b) granite-3-2b, 8
              requests repeating a 32-token phrase 4-8 times, 64 new,
-             ``spec_decode`` off then on (spec_k 4): the paged kernel 40
+             ``spec_decode`` off then on (spec_k 4): the paged kernel 10
              launches a forward, verify forwards included; (c)
              mamba2-780m at full width cut to 8 of its 48 layers (its
              prefill runs token by token), as (b): the two-pass verify's
@@ -317,8 +328,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              memory; (b) and (c) the share of greedy tokens alike on and
              off (reported only: bf16).
 6l. serve-open-loop — the open-loop front end, granite-3-2b bf16 at
-             full width and phase 6's engine shape, every run through
-             the paged kernel (40 launches a forward, checked): (a) 16
+             full width cut to 10 of its 40 layers (for the script's
+             time) and phase 6's engine shape, every run through
+             the paged kernel (10 launches a forward, checked): (a) 16
              requests through ``engine.run()``, then ``reset()`` and the
              same requests through ``OpenLoopFrontend(clock="wall")``
              over closed-loop arrivals: identical tokens and steps, both
@@ -353,6 +365,37 @@ Phases (one line each; any failure exits nonzero and prints no result):
              peak memory; the loss finite and lower at the end, steps 0
              and 5 within 2e-3 of the CUDA-core forward's, every loss
              printed in full for a bitwise comparison between runs.
+7b. train-families — the rest of the train stack at full width: (a)
+             mamba2-780m (bf16, remat full) through ``launch.train.run``
+             at both phase 7 shapes, 2 steps each: B4 96 launches a step
+             (the checkpointed forward runs again; the gradient is the
+             plain scan's, ``ops.SSDChunked``), the first run's checkpoint
+             restored bitwise; (b) whisper-base whole at B 8 x S 128 over
+             8 x 1500 frames (the stream's ``audio_frames``) with
+             attention_impl "pallas": B2 24 launches a step (6 encoder + 6
+             decoder layers, twice); (c) qwen3-1.7b at B 1 x S 4096, three
+             steps each built through ``make_train_step``: remat full,
+             ``fused_xent``, ``grad_compression="int8_ef"`` (grad_err 4
+             bytes a parameter, checked), remat none, save_blocks and
+             dots.  Each first takes the loss and its gradient alone at
+             the initial parameters on step 0's batch (its peak, no
+             optimizer): the gradient within 1e-3 of remat full's, leaf
+             by leaf, where it is the same computation (the remat modes,
+             int8_ef before its round trip).  Step 0's and step 2's
+             losses (the updates move the loss by more than 1) within
+             2e-3 of remat full's, step 0's grad_norm within 1e-3 (fused_xent:
+             2e-2); int8_ef's step 2 loss is reported only (its updates
+             differ by design), and after its step 0 the residual's
+             elements are within half a quantization step of the
+             largest gradient element and grad_norm within the
+             residual's norm of the gradient's.  fused_xent's bf16
+             gradient against full's is reported; in fp32 at the same
+             shape its gradient is within 1e-3 of the plain loss's,
+             leaf by leaf.
+             Each step's ms, tokens/s over steps 1-2 and the peak, with
+             the card's name and power limit.  ``--profile`` adds a mamba2
+             train step at each shape under torch.profiler (the
+             device-side span of the plain backwards' ranges).
 8. veceval — the proxy-app path: ``repro_torch.core.veceval`` over its six
              apps at the default sizes and at the card sizes; scalar,
              torch.compile and kernel versions timed interleaved, held
@@ -398,7 +441,8 @@ Phases (one line each; any failure exits nonzero and prints no result):
              the tuned count; (e) the four examples
              (``repro_torch.examples``) at reduced configs on the card.
 
-After each phase a ``[wall]`` line gives the seconds since the start.
+After each phase a
+``[wall]`` line gives the seconds since the start.
 The line before the last is the per-kernel JSON record (after the card's
 name and power limit); the last line is ``{"ok": true, "device": {...}}``.
 """
@@ -437,6 +481,7 @@ from repro_torch.kernels.common import (  # noqa: E402
 from repro_torch.kernels.conv2d import kernel as conv_kernel  # noqa: E402
 from repro_torch.kernels.conv2d import ref as conv_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import kernel as fa_kernel  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.gemm import kernel as gemm_kernel  # noqa: E402
 from repro_torch.kernels.gemm import ref as gemm_ref  # noqa: E402
@@ -449,6 +494,7 @@ from repro_torch.kernels.spmv import kernel as spmv_kernel  # noqa: E402
 from repro_torch.kernels.spmv import ops as spmv_ops  # noqa: E402
 from repro_torch.kernels.spmv import ref as spmv_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import kernel as ssd_kernel  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
 from repro_torch.kernels.stream import kernel as stream_kernel  # noqa: E402
 from repro_torch.kernels.stream import ref as stream_ref  # noqa: E402
@@ -479,9 +525,12 @@ from repro_torch.models.layers import dtype_of  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.quant import matmul_q, quantize_params  # noqa: E402
 from repro_torch.models.quant import param_bytes as quant_bytes  # noqa: E402
-from repro_torch.optim import AdamWConfig  # noqa: E402
-from repro_torch.train import init_train_state, make_train_step  # noqa: E402
-from repro_torch.train.parity import card_step_matches_cpu  # noqa: E402
+from repro_torch.optim import AdamWConfig, global_norm  # noqa: E402
+from repro_torch.optim import warmup_cosine  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    init_train_state, make_loss_fn, make_train_step, value_and_grad)
+from repro_torch.train.parity import (  # noqa: E402
+    card_step_matches_cpu, train_launches)
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.quantum import gates  # noqa: E402
 from repro_torch.perf.measure import measure, measure_group  # noqa: E402
@@ -592,6 +641,9 @@ MOE_D, MOE_FF, MOE_ROWS = 4096, 6400, 640
 # new, max_len 512, page 16, chunk 32), and grok-1's 8 of them
 MIX = dict(n_slots=8, max_len=512, page_size=16, prefill_chunk=32)
 MIX_NEW = 32
+# phases 6k's and 6l's granite-3-2b, cut from 40 layers for the script's
+# time budget (host-bound steps; 6l's open-loop runs are paced by them)
+OPEN_LOOP_LAYERS = 10
 # the hybrid family: jamba-v0.1-52b at full width in int8 (6h), static at
 # MOE_STATIC and 8 requests drawn as phase 6's; its expert d_ff, its
 # mamba projections' widths (B and C: d_state 16; dt: 128 heads) and the
@@ -618,6 +670,18 @@ VLM_D, VLM_FF, VLM_V, VLM_IMAGE, VLM_KV = 8192, 28672, 128256, 1601, 1024
 VLM_INIT_PEAK_MAX_GB = 20.0
 AUDIO_ARCH = "whisper-base"
 AUDIO_STATIC = dict(slots=8, prompt_len=128, gen_len=64)
+# phase 7b: the train stack's other families and options; whisper-base's
+# (batch, seq) over its 1500 frames, the checkpoint of mamba2-780m's run
+AUDIO_TRAIN = (8, 128)
+TRAIN_SSM_CKPT = os.path.join(ROOT, "checkpoints", "chip_smoke_train_ssm")
+# 7b (c): step 0's gradient against remat full's, leaf by leaf (relative
+# error), where it is the same computation (the remat modes; int8_ef
+# before its round trip), and the slack on the int8_ef bounds; fused_xent
+# (the table's gradient summed in another order and precision): its bf16
+# grad_norm, then its fp32 gradient against the plain loss's leaf by leaf
+GRAD_RTOL = 1e-3
+FUSED_NORM_RTOL = 2e-2
+FUSED_FP32_RTOL = 1e-3
 
 
 def reset_launches(names):
@@ -1586,9 +1650,59 @@ def kernels_flash(g, hw, card):
     return rec
 
 
+def _whisper_cases():
+    """(what, B, S, causal) of whisper-base's train step at AUDIO_TRAIN: the
+    encoder's non-causal attention over the frames (S 1500: no multiple of
+    a tile) and the decoder's causal self-attention."""
+    B, S = AUDIO_TRAIN
+    cfg = get_config(AUDIO_ARCH)
+    return (("encoder", B, cfg.n_audio_ctx, False), ("decoder", B, S, True))
+
+
+def kernels_flash_whisper(g, hw, card):
+    """B2 at whisper-base's train shapes (8/8 heads, H 64, bf16) against its
+    plain version, out and lse, and timed beside SDPA; neither shape ran on
+    the card in train mode before."""
+    dev = torch.device("cuda")
+    cfg = get_config(AUDIO_ARCH)
+    NQ, NKV, H = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    G = NQ // NKV
+    for what, B, S, causal in _whisper_cases():
+        q = torch.randn((B, NQ, S, H), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        k = torch.randn((B, NKV, S, H), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        v = torch.randn((B, NKV, S, H), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        qg = q.reshape(B * NKV, G * S, H)
+        kg, vg = k.reshape(B * NKV, S, H), v.reshape(B * NKV, S, H)
+        out, lse = fa_kernel.flash_fwd(qg, kg, vg, causal=causal, sq_real=S)
+        w_out, w_lse = fa_ref.flash_fwd(qg, kg, vg, causal=causal, sq_real=S)
+        rtol, atol = fa_ref.FLASH_TOL[torch.bfloat16]
+        label = (f"flash whisper {what} B{B} S{S} {NQ}/{NKV} heads H{H} bf16 "
+                 f"{'causal' if causal else 'full'}")
+        err = check(f"{label} out", out.float(), w_out.float(), rtol, atol)
+        check(f"{label} lse", lse, w_lse, *fa_ref.LSE_TOL)
+        pairs = S * (S + 1) / 2 if causal else S * S
+        flops = 4.0 * B * NQ * H * pairs
+        nbytes = 2.0 * (2 * qg.numel() + kg.numel() + vg.numel()) \
+            + 4.0 * qg.shape[0] * qg.shape[1]
+        timed_record(label, {
+            "kernel": lambda: fa_kernel.flash_fwd(qg, kg, vg, causal=causal,
+                                                  sq_real=S),
+            "plain": lambda: fa_ref.flash_fwd(qg, kg, vg, causal=causal,
+                                              sq_real=S),
+            "library": lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal)},
+            flops, nbytes, torch.bfloat16, hw, card, err, "kernels-train")
+        del q, k, v, qg, kg, vg, out, lse, w_out, w_lse
+        torch.cuda.empty_cache()
+
+
 def phase_kernels_train(card, hw):
     g = torch.Generator(device="cuda").manual_seed(2)
     rec = kernels_flash(g, hw, card)
+    kernels_flash_whisper(g, hw, card)
     torch.cuda.empty_cache()
     return {"flash_attention": rec}
 
@@ -1597,6 +1711,10 @@ def phase_kernels_train(card, hw):
 # phase 4, continued: the ssm path's SSD scan kernel vs plain
 # ---------------------------------------------------------------------------
 SSD_TOL = 2e-3      # rtol = atol: fp32 both, sums in another order
+# the gradient check: the same plain scan differentiated on both sides,
+# from the same saved inputs; b 1 x S 4096, the train phase's long shape
+SSD_GRAD_RTOL = 1e-5
+SSD_GRAD_SHAPE = (1, 4096)
 
 
 def _ssd_inputs(g, b, S, h, P, N):
@@ -1712,9 +1830,65 @@ def ssd_kernel_times(args, L):
     return ", ".join(f"{k} {us:.1f} us" for k, us in rows) or "not measured"
 
 
+def ssd_gradient(g, card, arch):
+    """B4 under autograd (``ops.SSDChunked``: the kernel's forward, the
+    plain scan's vector-Jacobian product) against autograd through
+    ``ref.ssd_chunked`` on the same inputs and cotangents (of y and
+    h_final), at ``arch``'s layer at b 1 x S 4096: each input's gradient
+    within SSD_GRAD_RTOL of its largest element.  Then the forward kernel,
+    the Function's backward and the plain backward timed interleaved."""
+    b, S = SSD_GRAD_SHAPE
+    cfg = get_config(arch)
+    s = cfg.ssm
+    h = s.expand * cfg.d_model // s.head_dim
+    L = s.chunk_size
+    args = _ssd_inputs(g, b, S, h, s.head_dim, s.d_state)
+    live = [a.clone().requires_grad_() for a in args]
+    before = ssd_kernel.ssd_scan_fwd.launches
+    y, hf = ssd_ops.ssd_chunked(*live, chunk=L)
+    if ssd_kernel.ssd_scan_fwd.launches != before + 1:
+        raise SystemExit(f"ssd gradient {arch}: the forward did not launch "
+                         f"the kernel once")
+    gy = torch.randn(y.shape, generator=g, device=y.device)
+    gh = torch.randn(hf.shape, generator=g, device=y.device)
+    got = torch.autograd.grad((y, hf), live, (gy, gh), retain_graph=True)
+    ref_live = [a.clone().requires_grad_() for a in args]
+    wy, wh = ssd_ref.ssd_chunked(*ref_live, chunk=L)
+    want = torch.autograd.grad((wy, wh), ref_live, (gy, gh),
+                               retain_graph=True)
+    what = f"ssd gradient {arch} b{b} S{S} h{h} P{s.head_dim} N{s.d_state}"
+    rel = {}
+    for name, a, w in zip(("x", "dt", "A", "B", "C", "D"), got, want):
+        scale = float(w.abs().max())
+        check(f"{what} d{name}", a, w, 0.0, SSD_GRAD_RTOL * scale)
+        rel[name] = float((a - w).abs().max()) / scale
+    ms = measure_group({
+        "forward": lambda: _ssd_kernel_call(*args, L),
+        "backward": lambda: torch.autograd.grad(
+            (y, hf), live, (gy, gh), retain_graph=True),
+        "plain_backward": lambda: torch.autograd.grad(
+            (wy, wh), ref_live, (gy, gh), retain_graph=True)},
+        reps=5, cover_ms=20.0)
+    ms = {k: m.median_s * 1e3 for k, m in ms.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log("kernels-ssm", f"{what} chunk {L}: every input's gradient matches "
+                       f"autograd through ref.ssd_chunked, max |err| / "
+                       f"max |grad|: " + ", ".join(
+                           f"d{k} {v:.2e}" for k, v in rel.items())
+        + f"; forward kernel {ms['forward']:.4f} ms, backward (the plain "
+          f"scan recomputed) {ms['backward']:.4f} ms, plain backward "
+          f"{ms['plain_backward']:.4f} ms; peak {peak:.2f} GiB | {card}")
+    del args, live, ref_live, y, hf, wy, wh, got, want
+    torch.cuda.empty_cache()
+
+
 def phase_kernels_ssm(card, hw):
     g = torch.Generator(device="cuda").manual_seed(3)
-    return {"ssd_scan": kernels_ssd(g, hw, card)}
+    rec = kernels_ssd(g, hw, card)
+    torch.cuda.reset_peak_memory_stats()
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        ssd_gradient(g, card, arch)
+    return {"ssd_scan": rec}
 
 
 # ---------------------------------------------------------------------------
@@ -2704,7 +2878,8 @@ def parity_train_step():
                   f"loss {got['cuda']['loss']:.6f} card vs "
                   f"{got['cpu']['loss']:.6f} CPU, grad norm "
                   f"{got['cuda']['grad_norm']:.6f} vs "
-                  f"{got['cpu']['grad_norm']:.6f}; flash launches {launched}")
+                  f"{got['cpu']['grad_norm']:.6f}; flash launches "
+                  f"{launched['flash_attention']}")
 
 
 # ---------------------------------------------------------------------------
@@ -3736,8 +3911,9 @@ def phase_serve_features(card):
     check=True.  (a) granite-3-2b bf16, phase 6's mix, 16 requests sharing
     a 256-token prefix, ``prefix_cache`` off then on: identical tokens,
     hits > 0.  (b) granite-3-2b, 8 repeated-phrase requests, 64 new,
-    ``spec_decode`` off then on (spec_k 4): the paged kernel 40 launches a
-    forward, verify forwards included; the agreeing share reported.  (c)
+    ``spec_decode`` off then on (spec_k 4): the paged kernel a launch a
+    layer a forward, verify forwards included; granite cut to
+    OPEN_LOOP_LAYERS layers in (a) and (b); the agreeing share reported.  (c)
     mamba2-780m at full width cut to SPEC_SSM_LAYERS layers, as (b): the
     two-pass verify's snapshot bytes, accept rate and agreeing share; then
     with ``oracle_drafts`` from the off run's tokens, verify steps
@@ -3745,7 +3921,7 @@ def phase_serve_features(card):
     t0 = datetime.datetime.now()
     phase = "serve-features"
     total = {}
-    cfg = get_config("granite-3-2b")
+    cfg = get_config("granite-3-2b", n_layers=OPEN_LOOP_LAYERS)
     model = LM(cfg)
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
@@ -3948,10 +4124,11 @@ def _force_chunks(eng, widths):
 
 
 def phase_serve_open_loop(card):
-    """6l: the open-loop front end at full width, granite-3-2b bf16 at
-    phase 6's engine shape.  (a) 16 requests through ``engine.run()``,
-    then through ``OpenLoopFrontend(clock="wall")`` over closed-loop
-    arrivals: identical tokens, the paged kernel 40 launches a forward;
+    """6l: the open-loop front end at full width, granite-3-2b bf16 cut to
+    OPEN_LOOP_LAYERS layers, at phase 6's engine shape.  (a) 16 requests
+    through ``engine.run()``, then through
+    ``OpenLoopFrontend(clock="wall")`` over closed-loop arrivals:
+    identical tokens, the paged kernel a launch a layer a forward;
     both runs' tok/s.  (b) ``launch.serve.run(open_loop=True)``, 32
     requests of 32-256 prompt tokens, 32 new, Poisson at 0.5 and 0.9 of
     (a)'s closed-loop rate and gamma at 0.9 (cv 2): the latency block;
@@ -3967,7 +4144,7 @@ def phase_serve_open_loop(card):
     t0 = datetime.datetime.now()
     phase = "serve-open-loop"
     total = {}
-    cfg = get_config("granite-3-2b")
+    cfg = get_config("granite-3-2b", n_layers=OPEN_LOOP_LAYERS)
     model = LM(cfg)
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
@@ -4002,7 +4179,8 @@ def phase_serve_open_loop(card):
     fst = front.engine_summary
     tps_closed = st["generated_tokens"] / closed_s
     tps_front = fst["generated_tokens"] / front.makespan_s
-    log(phase, f"(a) granite-3-2b bf16, 16 requests at phase 6's mix: "
+    log(phase, f"(a) granite-3-2b bf16 ({cfg.n_layers} layers), 16 "
+               f"requests at phase 6's mix: "
                f"engine.run() {st['generated_tokens']} tokens in "
                f"{st['steps']} steps / {st['forwards']} forwards, "
                f"{tps_closed:.1f} tok/s over {closed_s * 1e3:.1f} ms "
@@ -4173,11 +4351,11 @@ def _launch_open(phase, card, **kw):
     launcher's printout logged."""
     torch.cuda.empty_cache()
     reset_launches(SERVE_KERNELS)
-    res = launch_serve.run("granite-3-2b", **kw)
+    res = launch_serve.run("granite-3-2b", layers=OPEN_LOOP_LAYERS, **kw)
     got = {n: launches_of(n) for n in SERVE_KERNELS}
     served = dict(got, paged_partials=got["paged_partials"]
                   - sweep_launches(res["paged_meta"]))
-    cfg = get_config("granite-3-2b")
+    cfg = get_config("granite-3-2b", n_layers=OPEN_LOOP_LAYERS)
     _b1_only(phase, f"(b) {res['arrivals']}", served, res["forwards"],
              cfg.n_layers)
     _check_tokens(f"{phase} (b)", res["tokens"], MIX_NEW, cfg.padded_vocab)
@@ -4202,29 +4380,49 @@ def _launch_open(phase, card, **kw):
 # ---------------------------------------------------------------------------
 # phase 7: train at full width
 # ---------------------------------------------------------------------------
-def _train_log(what, log_, B, S, card):
+def _train_log(what, log_, B, S, card, phase="train"):
     for r in log_:
-        log("train", f"{what} step {r['step']}: {r['seconds'] * 1e3:.1f} ms, "
-                     f"{B * S / r['seconds']:.0f} tokens/s, loss "
-                     f"{r['loss']:.4f}, grad norm {r['grad_norm']:.4f}, lr "
-                     f"{r['lr']:.2e} | {card}")
+        log(phase, f"{what} step {r['step']}: {r['seconds'] * 1e3:.1f} ms, "
+                   f"{B * S / r['seconds']:.0f} tokens/s, loss "
+                   f"{r['loss']:.4f}, grad norm {r['grad_norm']:.4f}, lr "
+                   f"{r['lr']:.2e} | {card}")
 
 
-def _train_run(cfg, per_step, B, S, steps, ckpt_dir, what, card):
-    """launch.train.run, its flash launches held to ``per_step`` a step."""
-    before = fa_kernel.flash_fwd.launches
+def _train_run(cfg, per_step, B, S, steps, ckpt_dir, what, card,
+               kernel="flash_attention", phase="train", every=3):
+    """launch.train.run, the launches of ``kernel`` held to ``per_step`` a
+    step."""
+    before = launches_of(kernel)
     out = launch_train.run(cfg, steps=steps, batch=B, seq=S,
-                           ckpt_dir=ckpt_dir, checkpoint_every=3)
-    launched = fa_kernel.flash_fwd.launches - before
+                           ckpt_dir=ckpt_dir, checkpoint_every=every)
+    launched = launches_of(kernel) - before
     if launched != per_step * len(out["log"]) or not out["log"]:
-        raise SystemExit(f"{what}: {launched} flash launches over "
+        raise SystemExit(f"{what}: {launched} {kernel} launches over "
                          f"{len(out['log'])} steps, expected {per_step} a "
                          f"step")
     losses = [r["loss"] for r in out["log"]]
     if not all(np.isfinite(losses)):
         raise SystemExit(f"{what}: loss {losses}")
-    _train_log(what, out["log"], B, S, card)
+    _train_log(what, out["log"], B, S, card, phase)
     return out, launched
+
+
+def _restored_bitwise(ckpt_dir, step, state, phase, t0):
+    """Exit unless ``ckpt_dir`` holds only ``step`` and it restores to
+    ``state`` bit for bit, leaf for leaf."""
+    ck = Checkpointer(ckpt_dir)
+    if ck.all_steps() != [step]:
+        raise SystemExit(f"checkpoints {ck.all_steps()}, expected [{step}]")
+    restored, manifest = ck.restore(step, like=state)
+    saved = tree_leaves(state)
+    back = tree_leaves(restored)
+    if len(saved) != len(back) or not all(
+            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+            for a, b in zip(saved, back)):
+        raise SystemExit("the restored checkpoint differs from the state")
+    log(phase, f"checkpoint at step {manifest['step']}: {len(back)} "
+               f"leaves in {len(manifest['leaves'])} files restored "
+               f"bitwise; phase wall {_since(t0):.1f} s so far")
 
 
 def phase_train(card, profile=False):
@@ -4241,22 +4439,10 @@ def phase_train(card, profile=False):
     torch.cuda.reset_peak_memory_stats()
     first, _ = _train_run(cfg, per_step, B, S, 3, TRAIN_CKPT,
                           f"{TRAIN_ARCH} bf16 B{B} S{S}", card)
-    ck = Checkpointer(TRAIN_CKPT)
-    if ck.all_steps() != [3]:
-        raise SystemExit(f"checkpoints {ck.all_steps()}, expected [3]")
-    restored, manifest = ck.restore(3, like=first["state"])
-    saved = tree_leaves(first["state"])
-    back = tree_leaves(restored)
-    if len(saved) != len(back) or not all(
-            a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
-            for a, b in zip(saved, back)):
-        raise SystemExit("the restored checkpoint differs from the state")
-    log("train", f"checkpoint at step {manifest['step']}: {len(back)} "
-                 f"leaves in {len(manifest['leaves'])} files restored "
-                 f"bitwise; phase wall {_since(t0):.1f} s so far")
+    _restored_bitwise(TRAIN_CKPT, 3, first["state"], "train", t0)
     loss0 = first["log"][0]["loss"]
     first_log = first["log"]
-    del first, restored, saved, back
+    del first
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     resumed, _ = _train_run(cfg, per_step, B, S, 6, TRAIN_CKPT,
@@ -4300,6 +4486,270 @@ def phase_train(card, profile=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 7b: the train stack's other families and options at full width
+# ---------------------------------------------------------------------------
+# qwen3-1.7b at TRAIN_SHAPES[1], one variant a run: (what, config
+# overrides, make_train_step options); the first is phase 7's step
+TRAIN_VARIANTS = (
+    ("remat full", {}, {}),
+    ("fused_xent", {}, {"fused_xent": True}),
+    ("int8_ef", {}, {"grad_compression": "int8_ef"}),
+    ("remat none", {"remat": "none"}, {}),
+    ("remat save_blocks", {"remat": "save_blocks"}, {}),
+    ("remat dots", {"remat": "dots"}, {}))
+
+
+def _timed_step(step, state, batch):
+    """One train step between CUDA events: (state, metrics, ms)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = step(state, batch)
+    end.record()
+    end.synchronize()
+    return state, metrics, start.elapsed_time(end)
+
+
+def _grad_rel_err(grads, ref):
+    """The largest per-leaf ||g - r|| / ||r|| of ``grads`` (on the card)
+    against ``ref`` (the same leaves on the host), and its leaf's index."""
+    worst, at = 0.0, -1
+    for i, (g, r) in enumerate(zip(grads, ref)):
+        r = r.to(g.device, torch.float32)
+        err = float(torch.linalg.vector_norm(g.float() - r)
+                    / torch.linalg.vector_norm(r).clamp_min(1e-30))
+        if err > worst:
+            worst, at = err, i
+    return worst, at
+
+
+def train_variant(what, cfg_kw, step_kw, card, ref_grads=None):
+    """Full-width qwen3-1.7b at TRAIN_SHAPES[1] built through
+    ``make_train_step`` with ``step_kw``.  First the loss and its gradient
+    alone at the initial parameters on step 0's batch, for their own peak
+    (the optimizer's fp32 temporaries left out) and for step 0's gradient
+    leaves: held against ``ref_grads`` (remat full's, on the host) when
+    given, else copied to the host and returned as them.  Then three
+    steps.  Returns a dict: the losses, the mean ms of steps 1 and 2, the
+    peak GiB over the steps, step 0's ``grad_norm`` (after the int8
+    round trip under int8_ef), the gradient's worst per-leaf relative
+    error and, under int8_ef, the residual's largest element against
+    half a quantization step of the largest gradient element and its
+    norm.  Exits unless B2 launched ``train_launches`` a step, the losses
+    are finite and, under int8_ef, ``grad_err`` holds 4 bytes a
+    parameter."""
+    cfg = get_config(TRAIN_ARCH, attention_impl="pallas", **cfg_kw)
+    model = LM(cfg)
+    opt = AdamWConfig(lr=warmup_cosine(3e-4, 10, 3))
+    state = init_train_state(
+        model, torch.Generator(device=model.device).manual_seed(0), opt,
+        step_kw.get("grad_compression"))
+    step = make_train_step(model, opt, **step_kw)
+    B, S = TRAIN_SHAPES[1]
+    stream = SyntheticLMStream(cfg, B, S)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, grads = value_and_grad(make_loss_fn(model, fused_xent=step_kw.get(
+        "fused_xent", False)))(state["params"], stream.batch_for_step(0))
+    torch.cuda.synchronize()
+    grad_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    grads = tree_leaves(grads)
+    out = {"grad_norm_g": float(global_norm(grads)),
+           "amax_g": float(max(g.abs().max() for g in grads))}
+    if ref_grads is None:
+        out["ref_grads"] = [g.cpu() for g in grads]
+        out["grad_err"], at = 0.0, -1
+    else:
+        out["grad_err"], at = _grad_rel_err(grads, ref_grads)
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = launches_of("flash_attention")
+    losses, ms = [], []
+    for i in range(3):
+        state, metrics, t = _timed_step(step, state, stream.batch_for_step(i))
+        losses.append(float(metrics["loss"]))
+        ms.append(t)
+        if i == 0:
+            out["grad_norm"] = float(metrics["grad_norm"])
+            if "grad_err" in state:
+                err = tree_leaves(state["grad_err"])
+                out["ef_max"] = float(max(e.abs().max() for e in err))
+                out["ef_norm"] = float(global_norm(err))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = launches_of("flash_attention") - before
+    want = 3 * train_launches(cfg)["flash_attention"]
+    if launched != want or not all(np.isfinite(losses)):
+        raise SystemExit(f"{what}: {launched} flash launches (expected "
+                         f"{want}), losses {losses}")
+    extra = ""
+    if "grad_err" in state:
+        n = sum(p.numel() for p in tree_leaves(state["params"]))
+        got = sum(t.numel() * t.element_size()
+                  for t in tree_leaves(state["grad_err"]))
+        if got != 4 * n:
+            raise SystemExit(f"{what}: grad_err {got} bytes, expected 4 x "
+                             f"{n} params")
+        extra = (f"; grad_err {got} bytes = 4 x {n} params; after step 0 "
+                 f"its largest element {out['ef_max']:.4e} (half a step of "
+                 f"the largest gradient element: {out['amax_g'] / 254:.4e})"
+                 f", its norm {out['ef_norm']:.4e}")
+    steady = (ms[1] + ms[2]) / 2
+    log("train-families", f"{TRAIN_ARCH} bf16 B{B} S{S} {what}: steps "
+                          f"{ms[0]:.1f} / {ms[1]:.1f} / {ms[2]:.1f} ms, "
+                          f"{B * S / steady * 1e3:.0f} tokens/s (steps 1-2), "
+                          f"loss {losses[0]!r} / {losses[1]!r} / "
+                          f"{losses[2]!r}, step 0 grad_norm "
+                          f"{out['grad_norm']!r} (of the gradient alone "
+                          f"{out['grad_norm_g']!r}), step 0's gradient "
+                          f"against remat full's: worst leaf {at} rel err "
+                          f"{out['grad_err']:.3e}, flash launches "
+                          f"{launched // 3} a step, peak {peak:.2f} GiB "
+                          f"(loss and gradient alone {grad_peak:.2f})"
+                          f"{extra} | {card}")
+    del state, step, model
+    torch.cuda.empty_cache()
+    out.update(losses=losses, steady=steady, peak=peak)
+    return out
+
+
+def _variant_faults(got):
+    """What in ``got`` (``train_variant``'s results by variant; the first
+    remat full) breaks the bounds: every variant's step 0 loss, and but
+    for int8_ef's (its updates differ by design) its step 2 loss, within
+    TRAIN_LOSS_RTOL of remat full's; the step 0 gradient within GRAD_RTOL
+    of remat full's leaf by leaf but under fused_xent (reported; its fp32
+    gradient is held by ``fused_xent_fp32``); step 0's grad_norm within
+    GRAD_RTOL of remat full's (fused_xent: FUSED_NORM_RTOL); under int8_ef
+    the residual's elements within half a quantization step (the largest
+    gradient element / 254) and step 0's grad_norm within the residual's
+    norm of the gradient's (the triangle inequality), each with
+    GRAD_RTOL's slack."""
+    base = got[TRAIN_VARIANTS[0][0]]
+    faults = []
+    for what, r in got.items():
+        for i in ((0,) if "ef_max" in r else (0, 2)):
+            drift = abs(r["losses"][i] / base["losses"][i] - 1)
+            if drift > TRAIN_LOSS_RTOL:
+                faults.append(f"{what}: step {i} loss {drift:.2e} from "
+                              f"remat full's")
+        fused = what == "fused_xent"
+        if not fused and r["grad_err"] > GRAD_RTOL:
+            faults.append(f"{what}: step 0 gradient rel err "
+                          f"{r['grad_err']:.2e}")
+        if "ef_max" in r:
+            if r["ef_max"] > r["amax_g"] / 254 * (1 + GRAD_RTOL):
+                faults.append(f"{what}: residual element {r['ef_max']:.3e}"
+                              f" past half a step {r['amax_g'] / 254:.3e}")
+            gap = abs(r["grad_norm"] - r["grad_norm_g"])
+            if gap > r["ef_norm"] + GRAD_RTOL * r["grad_norm_g"]:
+                faults.append(f"{what}: step 0 grad_norm {gap:.3e} from "
+                              f"the gradient's, past the residual's norm "
+                              f"{r['ef_norm']:.3e}")
+        elif abs(r["grad_norm"] / base["grad_norm"] - 1) > (
+                FUSED_NORM_RTOL if fused else GRAD_RTOL):
+            faults.append(f"{what}: step 0 grad_norm {r['grad_norm']!r} "
+                          f"against {base['grad_norm']!r}")
+    return faults
+
+
+def fused_xent_fp32(card):
+    """Step 0's gradient of full-width qwen3-1.7b in fp32 (remat full, B2
+    on the CUDA cores) at TRAIN_SHAPES[1], with the plain loss and with
+    ``fused_xent``: exits unless every leaf is within FUSED_FP32_RTOL.
+    In bf16 the two differ by more (7b (c)'s fused_xent row): the plain
+    path rounds the logits to bf16, and the tied table's gradient sums
+    thousands of bf16 terms in another order."""
+    cfg = get_config(TRAIN_ARCH, attention_impl="pallas",
+                     param_dtype="float32", compute_dtype="float32")
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0))
+    batch = SyntheticLMStream(cfg, *TRAIN_SHAPES[1]).batch_for_step(0)
+    (loss, _), plain = value_and_grad(make_loss_fn(model))(params, batch)
+    plain = [g.cpu() for g in tree_leaves(plain)]
+    (fused_loss, _), fused = value_and_grad(make_loss_fn(
+        model, fused_xent=True))(params, batch)
+    worst, at = _grad_rel_err(tree_leaves(fused), plain)
+    del model, params, plain, fused
+    torch.cuda.empty_cache()
+    log("train-families", f"{TRAIN_ARCH} fp32 B1 S{TRAIN_SHAPES[1][1]} "
+                          f"step 0: loss {float(loss)!r} plain, "
+                          f"{float(fused_loss)!r} fused_xent; gradients "
+                          f"worst leaf {at} rel err {worst:.3e} (bound "
+                          f"{FUSED_FP32_RTOL}) | {card}")
+    if worst > FUSED_FP32_RTOL:
+        raise SystemExit(f"fused_xent's fp32 gradient leaf {at} {worst:.3e}"
+                         f" from the plain loss's")
+
+
+def phase_train_families(card, profile=False):
+    """(a) full-width mamba2-780m through the launcher at TRAIN_SHAPES (B4
+    in every layer's forward, twice a step under remat full; its gradient
+    the plain scan's): 2 steps each, the first shape's ending in a
+    checkpoint restored bitwise; (b) whisper-base whole at AUDIO_TRAIN
+    over its 1500 frames through B2 (encoder and decoder, twice a step);
+    (c) qwen3-1.7b at TRAIN_SHAPES[1] under each of TRAIN_VARIANTS, held
+    together as ``_variant_faults`` says.  Returns the phase's B2
+    and B4 launches."""
+    t0 = datetime.datetime.now()
+    reset_launches(("flash_attention", "ssd_scan"))
+    cfg = get_config(SSM_ARCH)
+    per_step = train_launches(cfg)["ssd_scan"]
+    shutil.rmtree(TRAIN_SSM_CKPT, ignore_errors=True)
+    for (B, S), ckpt in zip(TRAIN_SHAPES, (TRAIN_SSM_CKPT, None)):
+        torch.cuda.reset_peak_memory_stats()
+        what = f"{SSM_ARCH} bf16 B{B} S{S}"
+        out, _ = _train_run(cfg, per_step, B, S, 2, ckpt, what, card,
+                            kernel="ssd_scan", phase="train-families",
+                            every=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log("train-families", f"{what}: B4 launches {per_step} a step, peak "
+                              f"{peak:.2f} GiB | {card}")
+        if ckpt:
+            _restored_bitwise(ckpt, 2, out["state"], "train-families", t0)
+            shutil.rmtree(ckpt, ignore_errors=True)
+        del out
+        torch.cuda.empty_cache()
+    cfg = get_config(AUDIO_ARCH, attention_impl="pallas")
+    B, S = AUDIO_TRAIN
+    torch.cuda.reset_peak_memory_stats()
+    out, _ = _train_run(cfg, train_launches(cfg)["flash_attention"], B, S, 2,
+                        None, f"{AUDIO_ARCH} bf16 B{B} S{S} over "
+                        f"{cfg.n_audio_ctx} frames", card,
+                        phase="train-families")
+    log("train-families", f"{AUDIO_ARCH}: B2 launches "
+                          f"{train_launches(cfg)['flash_attention']} a step "
+                          f"(6 encoder + 6 decoder layers, twice), peak "
+                          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f}"
+                          f" GiB | {card}")
+    del out
+    torch.cuda.empty_cache()
+    got, ref = {}, None
+    for what, cfg_kw, step_kw in TRAIN_VARIANTS:
+        got[what] = train_variant(what, cfg_kw, step_kw, card, ref)
+        if ref is None:
+            ref = got[what].pop("ref_grads")
+    del ref
+    faults = _variant_faults(got)
+    if faults:
+        raise SystemExit("; ".join(faults))
+    fused_xent_fp32(card)
+    log("train-families", f"{TRAIN_ARCH} every option's step 0 and 2 losses "
+                          f"(int8_ef: step 0's) within {TRAIN_LOSS_RTOL} of "
+                          f"remat full's, step 0 gradients within "
+                          f"{GRAD_RTOL} leaf by leaf (fused_xent: in fp32, "
+                          f"{FUSED_FP32_RTOL}; int8_ef: its residual within "
+                          f"half a step); phase wall {_since(t0):.1f} s | "
+                          f"{card}")
+    launches = {k: launches_of(k) for k in ("flash_attention", "ssd_scan")}
+    if profile:
+        for B, S in TRAIN_SHAPES:
+            profile_train_step(get_config(SSM_ARCH), B, S, card)
+    return launches
+
+
 def _since(t0):
     return (datetime.datetime.now() - t0).total_seconds()
 
@@ -4327,10 +4777,22 @@ def profile_train_step(cfg, B, S, card):
     wall = start.elapsed_time(end)
     kernels, ops = _kernel_rows(prof, 1)
     busy = sum(r[1] for r in kernels)
-    log("profile", f"train step {TRAIN_ARCH} B{B} S{S}: {wall:.1f} ms "
+    log("profile", f"train step {cfg.arch_id} B{B} S{S}: {wall:.1f} ms "
                    f"between events, kernels busy {busy:.1f} ms "
                    f"({100 * busy / wall:.1f}%), {sum(r[2] for r in kernels)} "
                    f"kernel launches | {card}")
+    # the plain backwards of B2 and B4: the device-side span of their
+    # ranges (the annotation's device row: its kernels and the gaps
+    # between them, which the profiler's host overhead widens)
+    for name in (fa_ops.PROFILE_RANGE, ssd_ops.PROFILE_RANGE):
+        rows = [e for e in prof.key_averages() if e.key == name]
+        if rows:
+            ms = max(_device_us(e) for e in rows) / 1e3
+            n = max(e.count for e in rows)
+            log("profile", f"  {name}: device-side span {ms:.1f} ms x{n}, "
+                           f"{100 * ms / wall:.1f}% of the step"
+                           if ms else f"  {name} x{n}: device time not "
+                                      f"measured")
     for what, rows in (("kernel", kernels), ("op", ops)):
         for key, ms, n in sorted(rows, key=lambda r: -r[1])[:8]:
             log("profile", f"  {what} {ms:.3f} ms  x{n}  {key[:70]}")
@@ -4745,7 +5207,7 @@ def main():
                     help="also profile pure decode forwards (granite bf16 "
                          "and int8, mamba2, qwen3 dense-cache, phi3.5-moe, "
                          "jamba and llama-3.2-vision int8, whisper-base) "
-                         "and train steps")
+                         "and train steps (qwen3-1.7b, mamba2-780m)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -4815,6 +5277,8 @@ def run_phases(args, t_start, table1_proc):
         done(what)
     launches["flash_attention"] = phase_train(card, args.profile)
     done("7 train")
+    _add(launches, phase_train_families(card, args.profile))
+    done("7b train-families")
     veceval_launches, veceval_rows = phase_veceval(card, hw)
     launches.update(veceval_launches)
     done("8 veceval")

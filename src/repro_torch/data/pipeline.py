@@ -5,9 +5,10 @@ Data for step k is a pure function of (seed, step, arch): numpy Philox
 keyed on (seed, step), so the batches are bitwise those of the reference
 stream, and a run resumed from a checkpoint continues the stream
 exactly.  The batches come back as torch tensors on the stream's device.
-Every family gets the plain batches, as in the reference; the vlm /
-audio extras (image embeddings, audio frames) are not ported yet (their
-training is ROADMAP A9's), and those families raise.
+Every family gets the plain batches; the vlm's also carry
+``image_embeds`` (B, num_image_tokens, d) and the audio's
+``audio_frames`` (B, n_audio_ctx, d), fp32, drawn from the same
+generator after the loss mask, as in the reference.
 """
 from __future__ import annotations
 
@@ -33,11 +34,6 @@ class SyntheticLMStream:
 
     def __init__(self, cfg: ModelConfig, batch: int, seq_len: int,
                  data_cfg: DataConfig = DataConfig(), device=None):
-        if cfg.family in ("vlm", "audio"):
-            raise NotImplementedError(
-                f"family {cfg.family!r}: the port's stream has no "
-                f"vlm / audio extras yet (ROADMAP A9: vlm and audio "
-                f"training)")
         self.cfg = cfg
         self.batch = batch
         self.seq_len = seq_len
@@ -61,8 +57,15 @@ class SyntheticLMStream:
         mask = np.ones((B, S), np.float32)
         if self.data_cfg.mask_pad:
             mask[labels == 0] = 0.0
-        return {"tokens": inputs, "labels": labels, "positions": positions,
-                "loss_mask": mask}
+        out = {"tokens": inputs, "labels": labels, "positions": positions,
+               "loss_mask": mask}
+        extra = {"vlm": ("image_embeds", self.cfg.num_image_tokens),
+                 "audio": ("audio_frames", self.cfg.n_audio_ctx)}
+        if self.cfg.family in extra:
+            key, n = extra[self.cfg.family]
+            emb = rng.standard_normal((B, n, self.cfg.d_model)) * 0.02
+            out[key] = emb.astype(np.float32)
+        return out
 
     def batch_for_step(self, step: int) -> Dict[str, torch.Tensor]:
         return {k: torch.from_numpy(a).to(self.device)

@@ -6,8 +6,8 @@ The counterpart of ``examples/quickstart.py``.
     python -m repro_torch.examples.quickstart --device cpu
 
 On the card the reduced config takes head_dim 64 (the paged kernel takes
-64 or 128).  The cross-attention families (vlm, audio) do not train in
-the port yet (ROADMAP A9): for them the example serves only.
+64 or 128).  Every family trains, the cross-attention ones on the
+stream's image embeddings or audio frames.
 """
 import argparse
 
@@ -47,18 +47,14 @@ def main(argv=None):
     opt = AdamWConfig(lr=1e-3)
     state = init_train_state(
         model, torch.Generator(device=dev).manual_seed(0), opt)
+    step = make_train_step(model, opt)
+    stream = SyntheticLMStream(cfg, batch=2, seq_len=32, device=dev)
     losses = []
-    if cfg.family in ("vlm", "audio"):
-        print(f"train: family {cfg.family!r} does not train in the port "
-              f"yet (ROADMAP A9)")
-    else:
-        step = make_train_step(model, opt)
-        stream = SyntheticLMStream(cfg, batch=2, seq_len=32, device=dev)
-        for i in range(3):
-            state, metrics = step(state, stream.batch_for_step(i))
-            losses.append(float(metrics["loss"]))
-            print(f"step {i}: loss={losses[-1]:.4f} "
-                  f"grad_norm={float(metrics['grad_norm']):.3f}")
+    for i in range(3):
+        state, metrics = step(state, stream.batch_for_step(i))
+        losses.append(float(metrics["loss"]))
+        print(f"step {i}: loss={losses[-1]:.4f} "
+              f"grad_norm={float(metrics['grad_norm']):.3f}")
 
     # prefill + a few greedy decode steps through the continuous engine;
     # the cross-context families bring their stub frontend context

@@ -6,11 +6,14 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
       --reduced --device cpu --steps 4 --batch 2 --seq 32
 
-The flags are the JAX launcher's, and ``--device`` (``cuda`` unless it
-names another).  ``run(cfg, ...)`` is what ``main()`` calls; it takes a
-config, so a caller can pick ``attention_impl="pallas"`` (the CUDA flash
-kernel) with ``get_config(arch, attention_impl="pallas")``.  ``--mesh``
-raises ``NotImplementedError`` (ROADMAP A10).  Checkpoints go to
+Every family trains: the vlm and audio on the stream's image embeddings
+and audio frames; a mamba layer's scan runs in the SSD kernel on the
+card, its gradient the plain scan's.  The flags are the JAX launcher's,
+and ``--device`` (``cuda`` unless it names another).  ``run(cfg, ...)``
+is what ``main()`` calls; it takes a config, so a caller can pick
+``attention_impl="pallas"`` (the CUDA flash kernel) with
+``get_config(arch, attention_impl="pallas")``.  ``--mesh`` raises
+``NotImplementedError`` (ROADMAP A10).  Checkpoints go to
 ``checkpoints/launch_train`` under the repository root unless
 ``--ckpt-dir`` names another directory.
 """

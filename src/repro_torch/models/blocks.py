@@ -13,11 +13,29 @@ holds ``moe``, the MoE, whose load-balance loss the stack sums in train
 mode; a mamba layer has one where ``d_ff > 0`` or it holds ``moe``
 (hybrid).  A decoder layer that holds ``xattn`` (whisper's) attends to
 the context between its self-attention and its FFN; the vlm's cross
-layer is that cross-attention (gated) and an FFN alone.  In train mode
-``remat="full"`` wraps each layer (hybrid, vlm: each sub-layer) in a
-non-reentrant ``torch.utils.checkpoint``: only the layer's input is
-kept, and the backward runs the layer's forward again — the reference's
-``jax.checkpoint`` with ``save_only_these_names("layer_input")``.
+layer is that cross-attention (gated) and an FFN alone.
+
+A layer is a residual chain of blocks (self-attention, cross-attention,
+the mamba mixer, the FFN), each ``x + f(x)`` with its pre-norm inside
+``f``.  Train mode rematerialises each layer (hybrid, vlm: each
+sub-layer) as ``remat`` says, through non-reentrant
+``torch.utils.checkpoint``, where the reference wraps its scan body in
+``jax.checkpoint``:
+
+- ``"full"``: only the layer's input is kept, and the backward runs the
+  layer's forward again (``save_only_these_names("layer_input")``);
+- ``"save_blocks"``: each block is checkpointed on its own, so the
+  residual stream between blocks — the layer's input and the sums of
+  the block outputs the reference names ``block_out`` — is kept and
+  every block's interior is recomputed
+  (``save_only_these_names("layer_input", "block_out")``);
+- ``"dots"``: the layer is checkpointed under a selective policy that
+  keeps the outputs of the matrix products (aten ``mm``, ``bmm``,
+  ``addmm``, ``baddbmm``) and recomputes the rest
+  (``checkpoint_dots``).  A kernel's launch inside an autograd Function
+  is no aten op: it runs again in the recompute, as under ``"full"``.
+
+All four give the same gradients.
 """
 from __future__ import annotations
 
@@ -25,12 +43,16 @@ import functools
 from typing import Sequence
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.models import attention, layers, mamba2, moe
 from repro_torch.models.layers import dtype_of
 
-REMAT_MODES = ("none", "full")
+REMAT_MODES = ("none", "full", "save_blocks", "dots")
+_aten = torch.ops.aten
+DOT_OPS = frozenset({_aten.mm.default, _aten.bmm.default,
+                     _aten.addmm.default, _aten.baddbmm.default})
 
 
 # ---------------------------------------------------------------------------
@@ -147,8 +169,32 @@ def _mlp_or_moe(p, x, cfg, *, with_aux: bool):
     return layers.mlp(x, p["mlp"]), aux
 
 
+def _call(f, x):
+    return f(x)
+
+
+def _kept(f, x):
+    """A block under ``remat="save_blocks"``: its own checkpoint."""
+    return checkpoint(f, x, use_reentrant=False)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_dots():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _ffn_block(p, x, cfg, *, train):
+    """``ffn(ln2(x))``: (out, aux) as ``_mlp_or_moe``."""
+    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
+    return _mlp_or_moe(p, h, cfg, with_aux=train)
+
+
 def _cross_block(p, x, cfg, *, mode, ctx, cache):
-    """``x + xattn(lnx(x))``.  Train and prefill modes attend to ``ctx``,
+    """``xattn(lnx(x))``.  Train and prefill modes attend to ``ctx``,
     prefill also copying its K/V into ``cache`` ({"k", "v"}: this
     layer's (B, T, NKV, H) cross K/V) in place; decode mode attends over
     ``cache`` and never writes it."""
@@ -156,17 +202,17 @@ def _cross_block(p, x, cfg, *, mode, ctx, cache):
     if mode == "decode":
         a, _ = attention.cross_attn(p["xattn"], h, cfg,
                                     cached_kv=(cache["k"], cache["v"]))
-        return x + a
+        return a
     a, (k, v) = attention.cross_attn(p["xattn"], h, cfg, ctx=ctx)
     if mode == "prefill":
         cache["k"].copy_(k)
         cache["v"].copy_(v)
-    return x + a
+    return a
 
 
 def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
                cache=None, write=None, paged=None, causal=True, ctx=None,
-               cross=None):
+               cross=None, block=_call):
     """One pre-norm decoder layer.  Train mode attends over the whole
     sequence (causally unless ``causal=False``: the audio encoder);
     prefill mode attends causally and writes the prompt's K/V to the
@@ -175,64 +221,74 @@ def attn_layer(p, x, cfg, *, mode="decode", rope, positions=None,
     under ``paged``, else over the dense cache.  A layer holding
     ``xattn`` (the audio decoder's) then attends to the context:
     ``ctx`` in train and prefill modes, its K/V ``cross`` ({"k", "v"})
-    in prefill (written) and decode (read) modes.  Returns (x, aux): the
-    FFN's aux loss in train mode, else ``None``."""
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    if mode == "train":
-        a = attention.attn_train(p["attn"], h, cfg, rope=rope, causal=causal)
-    elif mode == "prefill":
-        a = attention.attn_prefill(p["attn"], h, cfg, rope=rope, cache=cache)
-    elif mode == "decode":
-        a = attention.attn_decode(p["attn"], h, cfg, positions=positions,
-                                  rope=rope, cache=cache, write=write,
-                                  paged=paged)
-    else:
+    in prefill (written) and decode (read) modes.  ``block(f, x)`` runs
+    each block ``f`` (``_kept`` under ``remat="save_blocks"``).  Returns
+    (x, aux): the FFN's aux loss in train mode, else ``None``."""
+    if mode not in ("train", "prefill", "decode"):
         raise NotImplementedError(f"mode={mode!r}")
-    x = x + a
+
+    def self_attn(x):
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        if mode == "train":
+            return attention.attn_train(p["attn"], h, cfg, rope=rope,
+                                        causal=causal)
+        if mode == "prefill":
+            return attention.attn_prefill(p["attn"], h, cfg, rope=rope,
+                                          cache=cache)
+        return attention.attn_decode(p["attn"], h, cfg, positions=positions,
+                                     rope=rope, cache=cache, write=write,
+                                     paged=paged)
+
+    x = x + block(self_attn, x)
     if "xattn" in p:
-        x = _cross_block(p, x, cfg, mode=mode, ctx=ctx, cache=cross)
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    f, aux = _mlp_or_moe(p, h, cfg, with_aux=mode == "train")
+        x = x + block(functools.partial(_cross_block, p, cfg=cfg, mode=mode,
+                                        ctx=ctx, cache=cross), x)
+    f, aux = block(functools.partial(_ffn_block, p, cfg=cfg,
+                                     train=mode == "train"), x)
     return x + f, aux
 
 
-def cross_layer(p, x, cfg, *, mode="decode", ctx=None, cache=None):
+def cross_layer(p, x, cfg, *, mode="decode", ctx=None, cache=None,
+                block=_call):
     """The vlm's gated cross-attention + FFN (Llama-3.2-Vision style):
     ``ctx`` in train and prefill modes, the layer's cross K/V ``cache``
     in prefill (written) and decode (read) modes.  Returns (x, aux) as
     ``attn_layer``."""
-    x = _cross_block(p, x, cfg, mode=mode, ctx=ctx, cache=cache)
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    f, aux = _mlp_or_moe(p, h, cfg, with_aux=mode == "train")
+    x = x + block(functools.partial(_cross_block, p, cfg=cfg, mode=mode,
+                                    ctx=ctx, cache=cache), x)
+    f, aux = block(functools.partial(_ffn_block, p, cfg=cfg,
+                                     train=mode == "train"), x)
     return x + f, aux
 
 
-def mamba_layer(p, x, cfg, *, mode, state=None, n_valid=None):
+def mamba_layer(p, x, cfg, *, mode, state=None, n_valid=None, block=_call):
     """One pre-norm Mamba-2 layer, then its FFN where it has one (``ln2``).
     ``state`` ({"h", "conv"} views of the layer's slice of the recurrent
     state) and ``n_valid`` apply to decode mode only.  Returns (x, the
     prefill state or None, aux): the FFN's aux loss in train mode (0
     without an MoE), else ``None``."""
-    h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
-    y, new_state = mamba2.mamba_forward(
-        p["mamba"], h, cfg, state=state if mode == "decode" else None,
-        mode=mode, n_valid=n_valid if mode == "decode" else None)
+    def mixer(x):
+        h = layers.rms_norm(x, p["ln1"], cfg.norm_eps)
+        return mamba2.mamba_forward(
+            p["mamba"], h, cfg, state=state if mode == "decode" else None,
+            mode=mode, n_valid=n_valid if mode == "decode" else None)
+
+    y, new_state = block(mixer, x)
     x = x + y
     train = mode == "train"
     if "ln2" not in p:
         return x, new_state, (torch.zeros((), dtype=torch.float32,
                                           device=x.device) if train
                               else None)
-    h = layers.rms_norm(x, p["ln2"], cfg.norm_eps)
-    f, aux = _mlp_or_moe(p, h, cfg, with_aux=train)
+    f, aux = block(functools.partial(_ffn_block, p, cfg=cfg, train=train), x)
     return x + f, new_state, aux
 
 
-def _mamba_step(p, x, cfg, *, mode, state, n_valid):
+def _mamba_step(p, x, cfg, *, mode, state, n_valid, block=_call):
     """A mamba layer as the stack runs it: prefill copies the final state
     and conv tail into the layer's ``state`` views.  Returns (x, aux)."""
     x, st, aux = mamba_layer(p, x, cfg, mode=mode, state=state,
-                             n_valid=n_valid)
+                             n_valid=n_valid, block=block)
     if mode == "prefill":
         state["h"].copy_(st["h"])
         state["conv"].copy_(st["conv"])
@@ -320,27 +376,33 @@ def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
         ssm = cache["ssm"] if cfg.family == "hybrid" else cache
     aux = (torch.zeros((), dtype=torch.float32, device=x.device) if train
            else None)
+    remat = remat if train else "none"
+    block = _kept if remat == "save_blocks" else _call
     for p, kind, c in sublayers(layer_params, cfg):
         if kind == "attn":
             fn = functools.partial(
                 attn_layer, p, cfg=cfg, mode=mode, rope=rope,
                 positions=positions, write=write, paged=paged,
-                causal=causal, ctx=ctx,
+                causal=causal, ctx=ctx, block=block,
                 cache=None if train else {"k": kv["k"][c],
                                           "v": kv["v"][c]},
                 cross=(None if train or "xattn" not in p
                        else _cross_views(cache, c)))
         elif kind == "cross":
             fn = functools.partial(
-                cross_layer, p, cfg=cfg, mode=mode, ctx=ctx,
+                cross_layer, p, cfg=cfg, mode=mode, ctx=ctx, block=block,
                 cache=None if train else _cross_views(cache, c))
         else:
             fn = functools.partial(
                 _mamba_step, p, cfg=cfg, mode=mode, n_valid=n_valid,
+                block=block,
                 state=None if train else {"h": ssm["h"][c],
                                           "conv": ssm["conv"][c]})
-        if train and remat == "full":
+        if remat == "full":
             x, a = checkpoint(fn, x, use_reentrant=False)
+        elif remat == "dots":
+            x, a = checkpoint(fn, x, use_reentrant=False,
+                              context_fn=_save_dots)
         else:
             x, a = fn(x)
         if train:

@@ -134,7 +134,8 @@ def mamba_forward(params: Params, x: torch.Tensor, cfg,
     and conv state for the decode steps that follow), ``decode`` (``state``
     updated in place over the S step columns; ``n_valid`` (B,) the real,
     left-aligned tokens of each row, ``None`` meaning all S).  On the card
-    train mode raises: the SSD kernel has no backward yet."""
+    train mode's gradient runs the plain scan again
+    (``ssd_ops.SSDChunked``)."""
     s = cfg.ssm
     Bsz, S, _ = x.shape
     d_inner, nheads, _ = dims(cfg)

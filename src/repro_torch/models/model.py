@@ -313,6 +313,15 @@ class LM:
                                   cfg.rope_theta)
 
     def _forward_train(self, params, tokens, positions, extra):
+        x, aux = self.hidden_train(params, tokens, positions, extra)
+        return self._unembed(params, x), None, aux
+
+    def hidden_train(self, params: Params, tokens: torch.Tensor,
+                     positions: torch.Tensor,
+                     extra: Optional[Dict[str, torch.Tensor]] = None):
+        """The train forward up to the final norm, without the unembedding
+        (the fused cross-entropy's input): returns (hidden states (B, S,
+        d) in the compute dtype, aux as ``forward``'s)."""
         cfg = self.cfg
         x = layers.embed(tokens, params["embed"], self.compute_dtype)
         ctx, enc_aux = self._context(params, "train", extra, cfg.remat)
@@ -321,12 +330,14 @@ class LM:
                                   remat=cfg.remat)
         if enc_aux is not None:
             aux = aux + enc_aux
-        return self._logits(params, x), None, aux
+        return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
     def _logits(self, params, x):
-        cfg = self.cfg
-        x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
-        emb = params["embed"] if cfg.tie_embeddings else params["unembed"]
+        x = layers.rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self._unembed(params, x)
+
+    def _unembed(self, params, x):
+        emb = params["embed"] if self.cfg.tie_embeddings else params["unembed"]
         return layers.unembed(x, emb).float()
 
 

@@ -1,5 +1,5 @@
-"""AdamW and LR schedules, counterpart of ``repro.optim``.  Gradient
-compression (``repro.optim.compression``, ``int8_ef``) is not ported."""
+"""AdamW, LR schedules and int8 error-feedback gradient compression
+(``optim.compression``), counterpart of ``repro.optim``."""
 from repro_torch.optim.adamw import (  # noqa: F401
     AdamWConfig,
     adamw_update,

@@ -1,13 +1,14 @@
-"""Train-step builder: loss -> grad -> (optional microbatch accumulation)
--> AdamW update.
+"""The train step: loss -> grad -> (optional microbatch accumulation,
+optional int8-EF gradient compression) -> AdamW update.
 
 Counterpart of ``repro.train.step``.  ``state`` is a plain dict:
-``{"params", "opt": {m, v, count}, "step"}``.  The gradient is
-``torch.autograd`` where the reference takes ``jax.value_and_grad``; the
-params and moments are updated in place (``optim.adamw``).  Not ported:
-the sharding specs (``train_state_specs``, ``batch_specs``: ROADMAP A10),
-``fused_xent`` and ``grad_compression="int8_ef"`` (ROADMAP A9); they
-raise ``NotImplementedError``.
+``{"params", "opt": {m, v, count}, "step", ["grad_err"]}``.  The
+gradient is ``torch.autograd`` where the reference takes
+``jax.value_and_grad``; the params, the moments and the error-feedback
+residual are updated in place (``optim.adamw``, ``optim.compression``).
+A batch's ``image_embeds`` / ``audio_frames`` reach the forward as its
+``extra``.  Not ported: the sharding specs (``train_state_specs``,
+``batch_specs``: ROADMAP A10); they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.models.model import LM
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim import compression as comp
 from repro_torch.train import losses
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -25,18 +27,31 @@ def _not_ported(what: str, item: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
 
 
+EXTRA_KEYS = ("image_embeds", "audio_frames")
+
+
 def make_loss_fn(model: LM, *, z_loss: float = 0.0,
                  fused_xent: bool = False) -> Callable:
-    if fused_xent:
-        raise _not_ported("fused_xent", "A9")
+    """``loss_fn(params, batch) -> (loss, metrics)``.  ``fused_xent``: the
+    loss is ``losses.fused_cross_entropy`` over the final hidden states
+    (no logits, no ``z_loss``, no accuracy), as in the reference."""
     cfg = model.cfg
 
     def loss_fn(params, batch):
-        logits, _, aux = model.forward(params, batch["tokens"],
-                                       batch["positions"], mode="train")
-        loss, metrics = losses.cross_entropy(
-            logits, batch["labels"], cfg.vocab_size,
-            mask=batch.get("loss_mask"), z_loss=z_loss)
+        extra = {k: batch[k] for k in EXTRA_KEYS if k in batch}
+        if fused_xent:
+            x, aux = _backbone_hidden(model, params, batch, extra)
+            emb = params["embed"] if cfg.tie_embeddings else params["unembed"]
+            loss, metrics = losses.fused_cross_entropy(
+                x, emb["table"], batch["labels"], cfg.vocab_size,
+                mask=batch.get("loss_mask"))
+        else:
+            logits, _, aux = model.forward(
+                params, batch["tokens"], batch["positions"], mode="train",
+                extra=extra)
+            loss, metrics = losses.cross_entropy(
+                logits, batch["labels"], cfg.vocab_size,
+                mask=batch.get("loss_mask"), z_loss=z_loss)
         if cfg.moe is not None:
             loss = loss + cfg.moe.aux_loss_weight * aux
             metrics["moe_aux"] = aux
@@ -44,6 +59,16 @@ def make_loss_fn(model: LM, *, z_loss: float = 0.0,
         return loss, metrics
 
     return loss_fn
+
+
+def _backbone_hidden(model: LM, params, batch, extra):
+    """The forward up to the final hidden states (for fused xent); the
+    vlm's context is its image embeddings.  The enc-dec raises, as in
+    the reference."""
+    if model.cfg.family == "audio":
+        raise NotImplementedError("fused xent for enc-dec not wired")
+    return model.hidden_train(params, batch["tokens"], batch["positions"],
+                              extra)
 
 
 def value_and_grad(loss_fn: Callable) -> Callable:
@@ -67,16 +92,18 @@ def init_train_state(model: LM, generator: Optional[torch.Generator],
                      params=None) -> Dict[str, Any]:
     """Fresh state from ``model.init_params(generator)``, or around the
     given ``params`` (e.g. the reference's, through
-    ``weights.params_from_numpy``)."""
-    if grad_compression is not None:
-        raise _not_ported(f"grad_compression={grad_compression!r}", "A9")
+    ``weights.params_from_numpy``).  ``grad_compression="int8_ef"`` adds
+    the zero fp32 residual ``grad_err``."""
     if params is None:
         params = model.init_params(generator)
-    return {
+    state = {
         "params": params,
         "opt": init_opt_state(params),
         "step": torch.zeros((), dtype=torch.int32, device=model.device),
     }
+    if grad_compression == "int8_ef":
+        state["grad_err"] = comp.init_error_state(params)
+    return state
 
 
 def train_state_specs(model: LM, grad_compression: Optional[str] = None):
@@ -92,8 +119,6 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
                     grad_compression: Optional[str] = None,
                     z_loss: float = 0.0,
                     fused_xent: bool = False) -> Callable:
-    if grad_compression is not None:
-        raise _not_ported(f"grad_compression={grad_compression!r}", "A9")
     grad_fn = value_and_grad(make_loss_fn(model, z_loss=z_loss,
                                           fused_xent=fused_xent))
 
@@ -119,10 +144,14 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
             metrics["loss"] = loss_sum / microbatches
         else:
             (_, metrics), grads = grad_fn(params, batch)
+        new_state = dict(state)
+        if grad_compression == "int8_ef":
+            grads, new_state["grad_err"] = comp.ef_compress_tree(
+                grads, state["grad_err"])
         new_params, new_opt, opt_metrics = adamw_update(
             grads, state["opt"], params, opt_cfg)
         metrics.update(opt_metrics)
-        new_state = dict(state, params=new_params, opt=new_opt,
+        new_state.update(params=new_params, opt=new_opt,
                          step=state["step"] + 1)
         return new_state, metrics
 

@@ -62,8 +62,11 @@ def test_quickstart_greedy_tokens_are_the_jax_engines():
 
 
 def test_quickstart_serves_a_cross_attention_family():
+    """whisper trains on the stream's audio frames (as every family does,
+    as in the reference's quickstart), then serves."""
     out = quickstart.main(["--device", "cpu", "--arch", "whisper-base"])
-    assert out["losses"] == [] and out["tokens"].shape == (2, 8)
+    assert len(out["losses"]) == 3 and np.all(np.isfinite(out["losses"]))
+    assert out["tokens"].shape == (2, 8)
 
 
 def test_serve_decode_on_the_cpu(capsys):

@@ -9,7 +9,9 @@ kernels at jamba-v0.1-52b's shapes (the SSD scan at 128 heads and N 16,
 the int8 GEMM at its experts and mamba projections), and the port's
 engines (dense, moe, ssm and hybrid, bf16/fp32 and int8 weights, the
 paged kernel on and off) and train step on the card against the same on
-the CPU.  The serving features: both attention kernels at the verify
+the CPU (dense, ssm and audio; the SSD scan's gradient at mamba2-780m's
+and jamba-v0.1-52b's layers; the fused cross-entropy against the plain
+loss).  The serving features: both attention kernels at the verify
 width of speculative decoding (Sq 5, a ragged ``n_valid`` of 0 to 5 a
 row), the verify forward's discarded columns finite, and the engine with
 ``spec_decode`` and with ``prefix_cache`` on the card against the CPU.
@@ -61,7 +63,10 @@ from repro_torch.models.model import LM
 from repro_torch.models.quant import quantize_params
 from repro_torch.quantum import gates, qsim
 from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
+from repro_torch.data import SyntheticLMStream
+from repro_torch.train import make_loss_fn, value_and_grad
 from repro_torch.train.parity import card_step_matches_cpu
+from repro_torch.tree import tree_leaves
 
 pytestmark = pytest.mark.gpu
 
@@ -763,9 +768,48 @@ def test_train_step_on_card_matches_cpu(card):
     params = LM(cfg, device="cpu").init_params(
         torch.Generator().manual_seed(0))
     got, launches = card_step_matches_cpu(cfg, params, batch=4, seq=48)
-    assert launches == cfg.n_layers
+    assert launches == {"flash_attention": cfg.n_layers, "ssd_scan": 0}
     for k, want in got["cpu"].items():
         assert abs(got["cuda"][k] - want) <= 1e-4 * abs(want), (k, got)
+
+
+@pytest.mark.parametrize("arch,remat,want", [
+    ("mamba2-780m", "none", {"flash_attention": 0, "ssd_scan": 4}),
+    ("mamba2-780m", "full", {"flash_attention": 0, "ssd_scan": 8}),
+    ("whisper-base", "none", {"flash_attention": 4, "ssd_scan": 0}),
+    ("whisper-base", "dots", {"flash_attention": 8, "ssd_scan": 0})])
+def test_train_step_on_card_matches_cpu_ssm_and_audio(card, arch, remat,
+                                                      want):
+    """One train step of reduced mamba2-780m (the SSD kernel forward, the
+    plain scan's gradient through ``SSDChunked``) and of reduced
+    whisper-base (the flash kernel in the encoder and the decoder, the
+    stream's audio frames) through ``card_step_matches_cpu``: loss and
+    grad norm within 1e-4 relative; the kernels launched once a layer's
+    forward, twice under remat (the recompute)."""
+    cfg = reduced_config(arch, attention_impl="pallas", remat=remat)
+    params = LM(cfg, device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    got, launches = card_step_matches_cpu(cfg, params, batch=2, seq=40)
+    assert launches == want
+    for k, w in got["cpu"].items():
+        assert abs(got["cuda"][k] - w) <= 1e-4 * abs(w), (k, got)
+
+
+def test_fused_xent_on_card_matches_plain_loss(card):
+    """Reduced qwen3-1.7b on the card, fp32, TF32 off: the loss and every
+    gradient of ``make_loss_fn(fused_xent=True)`` against the plain loss
+    (rtol 1e-5 for the loss; gradients rtol 1e-4, atol 1e-6)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config("qwen3-1.7b", vocab_size=20000)
+    model = LM(cfg, device=card)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0))
+    batch = SyntheticLMStream(cfg, 2, 64, device=card).batch_for_step(0)
+    (fused, _), gf = value_and_grad(make_loss_fn(model, fused_xent=True))(
+        params, batch)
+    (plain, _), gp = value_and_grad(make_loss_fn(model))(params, batch)
+    torch.testing.assert_close(fused, plain, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(gf), tree_leaves(gp)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
 
 
 def _ssd_args(card, b, S, h, P, N):
@@ -830,7 +874,9 @@ def test_ssd_kernel_is_fp32_grade(card):
 
 def test_ssd_stream_layout_and_gradient_on_card(card):
     """``ops.ssd_scan`` (one stream a row, A/D per stream) on the card
-    against the CPU; a call that needs a gradient raises on the card."""
+    against the CPU; under autograd it launches the kernel once, and the
+    gradient of every input on the card matches the CPU's (the plain
+    scan's on both): rtol 1e-4, atol 1e-5."""
     rng = np.random.default_rng(0)
     BH, S, P, N = 4, 96, 16, 32
     f = np.float32
@@ -846,9 +892,47 @@ def test_ssd_stream_layout_and_gradient_on_card(card):
         *[a.to(card) for a in args], chunk=32))
     torch.testing.assert_close(got.cpu(), ssd_ops.ssd_scan(*args, chunk=32),
                                rtol=2e-3, atol=2e-3)
-    with pytest.raises(NotImplementedError, match="SSD backward"):
-        ssd_ops.ssd_scan(x.to(card).requires_grad_(),
-                         *[a.to(card) for a in args[1:]], chunk=32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gy = torch.randn((BH, S, P), generator=torch.Generator().manual_seed(1))
+    grads = {}
+    for dev in (card, torch.device("cpu")):
+        live = [a.to(dev).requires_grad_() for a in args]
+        y = (_counted(ssd_kernel.ssd_scan_fwd,
+                      lambda: ssd_ops.ssd_scan(*live, chunk=32))
+             if dev.type == "cuda" else ssd_ops.ssd_scan(*live, chunk=32))
+        grads[dev.type] = torch.autograd.grad(y, live, gy.to(dev))
+    for name, a, b in zip("x dt B C A D".split(), grads["cuda"],
+                          grads["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-5,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("h,N", [(48, 128), (128, 16)])
+def test_ssd_gradient_at_layer_shapes(card, h, N):
+    """B4 under autograd at mamba2-780m's layer (48 heads, P 64, N 128,
+    chunk 256) and jamba-v0.1-52b's (128 heads, N 16), b 1, S 2048: the
+    forward launches the kernel once, y matches the plain scan within
+    2e-3, and the gradient of every input (the cotangents of y and
+    h_final both) matches autograd through ``ref.ssd_chunked`` on the
+    same inputs within rtol 1e-4, atol 1e-5 of each gradient's largest
+    element (the same plain scan recomputed)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = _ssd_args(card, 1, 2048, h, 64, N)
+    g = torch.Generator(device=card).manual_seed(2)
+    live = [a.clone().requires_grad_() for a in args]
+    y, hf = _counted(ssd_kernel.ssd_scan_fwd,
+                     lambda: ssd_ops.ssd_chunked(*live, chunk=256))
+    gy = torch.randn(y.shape, generator=g, device=card)
+    gh = torch.randn(hf.shape, generator=g, device=card)
+    got = torch.autograd.grad((y, hf), live, (gy, gh))
+    ref_live = [a.clone().requires_grad_() for a in args]
+    wy, wh = ssd_ref.ssd_chunked(*ref_live, chunk=256)
+    torch.testing.assert_close(y, wy, rtol=2e-3, atol=2e-3)
+    want = torch.autograd.grad((wy, wh), ref_live, (gy, gh))
+    for name, a, b in zip("x dt A B C D".split(), got, want):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * scale,
+                                   msg=name)
 
 
 def test_ssm_engines_on_card_match_cpu(card):

@@ -177,8 +177,9 @@ def test_gradient_matches_jax_and_stays_finite_past_overflow():
 def test_cpu_runs_the_plain_version_and_other_devices_the_kernel():
     """A CPU tensor never reaches the kernel (its counter stays); any
     other device goes to the kernel, which refuses a tensor that is not on
-    a Hopper card — no fallback.  A call that would need a gradient off
-    the CPU raises before any launch: the kernel has no backward."""
+    a Hopper card — no fallback.  A call that needs a gradient off the
+    CPU goes to the kernel too (``SSDChunked``'s forward), and raises
+    there: the plain forward never stands in."""
     d = _t(_model(10, 1, 20, 2, 16, 16))
     before = K.ssd_scan_fwd.launches
     ops.ssd_chunked(**d, chunk=16)
@@ -187,7 +188,7 @@ def test_cpu_runs_the_plain_version_and_other_devices_the_kernel():
     with pytest.raises(RuntimeError, match="CUDA device"):
         ops.ssd_chunked(**meta, chunk=16)
     meta["x"].requires_grad_()
-    with pytest.raises(NotImplementedError, match="SSD backward"):
+    with pytest.raises(RuntimeError, match="CUDA device"):
         ops.ssd_chunked(**meta, chunk=16)
     with torch.no_grad(), pytest.raises(RuntimeError, match="CUDA device"):
         ops.ssd_chunked(**meta, chunk=16)

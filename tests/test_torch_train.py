@@ -8,7 +8,8 @@ weights carried over by ``params_from_numpy`` and the same batches.
   kernel in interpret mode) and ``remat`` none / full: 1e-4.
 - the loss and every gradient of ``make_loss_fn`` against
   ``jax.value_and_grad`` (the JAX ``reference`` impl: its Pallas forward
-  has no gradient): loss rtol 1e-5; gradients rtol 1e-4, atol 1e-6.
+  has no gradient) under the same ``remat`` mode, each of the four:
+  loss rtol 1e-5; gradients rtol 1e-4, atol 1e-6.
 - three steps of ``make_train_step`` against the jitted JAX step with
   ``microbatches`` 1 and 2: loss, grad_norm and lr per step (rtol 1e-5)
   and every param after the third step, the decayed norm scales
@@ -46,8 +47,9 @@ from repro_torch.launch import train as launch_train
 from repro_torch.models.model import LM
 from repro_torch.optim import AdamWConfig, warmup_cosine
 from repro_torch.optim.adamw import decay_mask
-from repro_torch.train import (init_train_state, losses, make_loss_fn,
-                               make_train_step, value_and_grad)
+from repro_torch.train import (batch_specs, init_train_state, losses,
+                               make_loss_fn, make_train_step,
+                               train_state_specs, value_and_grad)
 from repro_torch.train.trainer import SimulatedFailure, Trainer, TrainerConfig
 from repro_torch.weights import params_from_numpy, params_to_numpy
 
@@ -99,9 +101,11 @@ def test_train_logits_match_jax(arch, impl, remat):
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "granite-3-2b"])
 @pytest.mark.parametrize("impl,remat", [("reference", "none"),
                                         ("pallas", "none"),
-                                        ("pallas", "full")])
+                                        ("pallas", "full"),
+                                        ("pallas", "save_blocks"),
+                                        ("pallas", "dots")])
 def test_loss_and_grads_match_jax(arch, impl, remat):
-    jmodel, jparams = _jax_model(arch)
+    jmodel, jparams = _jax_model(arch, remat=remat)
     model, params = _port(arch, jparams, attention_impl=impl, remat=remat)
     jb, pb = _batches(model.cfg, 1)
     (jloss, jmetrics), jgrads = jax.value_and_grad(
@@ -371,15 +375,17 @@ def test_launcher_run_trains_and_resumes(tmp_path):
 
 
 def test_unported_parts_raise():
+    """The sharding specs and ``--mesh`` (ROADMAP A10) raise; fused xent,
+    int8_ef and the remat modes are ported (tests/test_torch_train_extras.py,
+    tests/test_torch_remat.py); a remat mode the reference lacks raises."""
     model = LM(reduced_config("qwen3-1.7b"), device="cpu")
-    opt = AdamWConfig()
-    with pytest.raises(NotImplementedError):
-        make_train_step(model, opt, grad_compression="int8_ef")
-    with pytest.raises(NotImplementedError):
-        make_loss_fn(model, fused_xent=True)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="A10"):
+        train_state_specs(model, grad_compression="int8_ef")
+    with pytest.raises(NotImplementedError, match="A10"):
+        batch_specs(model.cfg)
+    with pytest.raises(NotImplementedError, match="A10"):
         launch_train.main(["--reduced", "--device", "cpu", "--mesh", "2x2"])
-    bad = LM(reduced_config("qwen3-1.7b", remat="dots"), device="cpu")
+    bad = LM(reduced_config("qwen3-1.7b", remat="offload"), device="cpu")
     params = bad.init_params(torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
         bad.forward(params, torch.ones((1, 4), dtype=torch.long),
