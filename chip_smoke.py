@@ -219,9 +219,10 @@ Phases (one line each; any failure exits nonzero and prints no result):
              ``launch.serve.run(static=True)``: 8 prompts of 2048 tokens,
              32 new tokens each; the prefill runs the SSD kernel, 48
              launches (one a layer).  (b) the ContinuousBatchingEngine on
-             4 requests drawn as phase 6's (8 slots, 32-256 prompt
-             tokens, 32 new, prefill chunk 32): its prefill is the
-             token-by-token recurrence, so 0 SSD launches.  Each prints
+             8 requests drawn as phase 6's (8 slots, 32-256 prompt
+             tokens, 32 new, prefill chunk 32), the model cut to 16 of
+             its 48 layers (the script's time): its prefill
+             is the token-by-token recurrence, so 0 SSD launches.  Each prints
              tokens/s, step p50 (and the static prefill ms) from CUDA
              events and peak memory.  (c) the first 1024 tokens of (a)'s
              first prompt through the recurrence in one decode forward
@@ -311,12 +312,12 @@ Phases (one line each; any failure exits nonzero and prints no result):
              CUDA-event ms of one install and of the encoder in it.
 6k. serve-features — the serving features at full width, every engine
              with check=True (no error finding): (a) granite-3-2b bf16
-             cut to 10 of its 40 layers (for the script's time), 16
+             cut to 5 of its 40 layers (for the script's time), 16
              requests sharing a 256-token prefix plus 16-128 own
              tokens at phase 6's mix, ``prefix_cache`` off then on:
              identical tokens, prefix hits > 0; (b) granite-3-2b, 8
              requests repeating a 32-token phrase 4-8 times, 64 new,
-             ``spec_decode`` off then on (spec_k 4): the paged kernel 10
+             ``spec_decode`` off then on (spec_k 4): the paged kernel 5
              launches a forward, verify forwards included; (c)
              mamba2-780m at full width cut to 8 of its 48 layers (its
              prefill runs token by token), as (b): the two-pass verify's
@@ -328,9 +329,9 @@ Phases (one line each; any failure exits nonzero and prints no result):
              memory; (b) and (c) the share of greedy tokens alike on and
              off (reported only: bf16).
 6l. serve-open-loop — the open-loop front end, granite-3-2b bf16 at
-             full width cut to 10 of its 40 layers (for the script's
+             full width cut to 5 of its 40 layers (for the script's
              time) and phase 6's engine shape, every run through
-             the paged kernel (10 launches a forward, checked): (a) 16
+             the paged kernel (5 launches a forward, checked): (a) 16
              requests through ``engine.run()``, then ``reset()`` and the
              same requests through ``OpenLoopFrontend(clock="wall")``
              over closed-loop arrivals: identical tokens and steps, both
@@ -354,6 +355,41 @@ Phases (one line each; any failure exits nonzero and prints no result):
              goodput under the launcher's default SLO; the last run's
              recorded trace (written to a temporary directory) replayed
              through the launcher to identical tokens.
+6m. serve-mesh — sharded serving over spawned ranks that share the
+             one card through ``gloo`` (NCCL refuses two ranks on one
+             device; the script prints each mesh and its backend).  First
+             B1 at the shard shapes: ``decode_partials`` (B1 over one
+             rank's slice of the cache at its ``kv_offset``) against a
+             plain masked softmax over the slice, granite's heads at 8
+             slots, the second half of (a)'s 256-token cache at Sq 1 and
+             (a)'s 128-token prefill chunk, and of a 512- and a 400-token
+             cache (a 200-key slice, a partial last tile) at Sq 1 and 32:
+             rows whose keys all lie before the slice (a fully masked
+             shard), chunks crossing its start (a negative shifted
+             position), bf16 and fp32, softcap 0 and 30, at 2e-3; (a)'s
+             128-key slice in bf16 timed beside SDPA over the slice and
+             the bytes bound.  (a) granite-3-2b at full width
+             in fp32, mesh 2x2 with SP-KV and the prefix cache: 8
+             requests of 32-200 tokens sharing a 32-token prefix on 4
+             slots, 16 greedy tokens: every rank's tokens identical to
+             the unsharded engine's on the card (same seeded weights,
+             each rank drawing them layer by layer and keeping its
+             blocks); prints ``sharding_meta``, each rank's parameter
+             bytes against the whole tree's, B1's launches on each rank
+             (all in the ``kv_offset`` mode, > 0 on every rank).  (b)
+             granite-3-2b bf16 cut to 5 of its 40 layers, mesh 1x2 (the
+             heads, the MLP and the vocabulary split): the first prefill
+             chunk's max |dlogit| against the unsharded forward, held
+             within 0.25, which the same chunk with wo's sum over the
+             model axis dropped (a planted fault) must exceed; 4
+             requests with the pure-decode step's p50 on rank 0 and the
+             share of it inside the collectives (CUDA events), beside
+             the unsharded engine's p50 (two ranks time-sharing one card
+             say nothing of a deployment over cards).  (c) granite-3-2b
+             cut to 5 layers in int8 with fp32 compute, mesh 1x2, 4
+             requests of 8 tokens: tokens identical to the unsharded int8
+             engine's, B5 launched on both ranks.  Any rank's failure or
+             timeout fails the phase.
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -373,7 +409,8 @@ Phases (one line each; any failure exits nonzero and prints no result):
              restored bitwise; (b) whisper-base whole at B 8 x S 128 over
              8 x 1500 frames (the stream's ``audio_frames``) with
              attention_impl "pallas": B2 24 launches a step (6 encoder + 6
-             decoder layers, twice); (c) qwen3-1.7b at B 1 x S 4096, three
+             decoder layers, twice); (c) qwen3-1.7b cut to 14 of its 28
+             layers (the script's time) at B 1 x S 4096, three
              steps each built through ``make_train_step``: remat full,
              ``fused_xent``, ``grad_compression="int8_ef"`` (grad_err 4
              bytes a parameter, checked), remat none, save_blocks and
@@ -515,12 +552,14 @@ from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
 from repro_torch.examples import serve_decode as ex_serve_decode  # noqa: E402
 from repro_torch.checkpoint import Checkpointer  # noqa: E402
 from repro_torch.data import SyntheticLMStream  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
 from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import blocks  # noqa: E402
 from repro_torch.models.attention import query_lens  # noqa: E402
 from repro_torch.models.decode_state import (  # noqa: E402
     get_adapter, stub_context)
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.layers import dtype_of  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.models.quant import matmul_q, quantize_params  # noqa: E402
@@ -531,6 +570,8 @@ from repro_torch.train import (  # noqa: E402
     init_train_state, make_loss_fn, make_train_step, value_and_grad)
 from repro_torch.train.parity import (  # noqa: E402
     card_step_matches_cpu, train_launches)
+from repro_torch.parallel import axes as paxes  # noqa: E402
+from repro_torch.parallel.sharding import rules_for  # noqa: E402
 from repro_torch.tree import tree_leaves  # noqa: E402
 from repro_torch.quantum import gates  # noqa: E402
 from repro_torch.perf.measure import measure, measure_group  # noqa: E402
@@ -619,6 +660,9 @@ SSM_STATIC = dict(slots=8, prompt_len=2048, gen_len=32)
 # the recurrence check's prompt: cut from 16 and 2048 (then 1024, for
 # phase 6l's time) to keep the script near its time budget
 SSM_MIX_REQUESTS = 8
+# 6b (b)'s continuous engine: cut from 48 layers for the script's time
+# (its forwards are the host's: ~450 ms each at 48 layers)
+SSM_MIX_LAYERS = 16
 SSM_RECURRENCE_LEN = 512
 # the int8 serving path: full-width granite-3-2b, weight-only int8
 INT8_ARCH = "granite-3-2b"
@@ -642,8 +686,9 @@ MOE_D, MOE_FF, MOE_ROWS = 4096, 6400, 640
 MIX = dict(n_slots=8, max_len=512, page_size=16, prefill_chunk=32)
 MIX_NEW = 32
 # phases 6k's and 6l's granite-3-2b, cut from 40 layers for the script's
-# time budget (host-bound steps; 6l's open-loop runs are paced by them)
-OPEN_LOOP_LAYERS = 10
+# time budget (host-bound steps; 6l's open-loop runs are paced by them,
+# and phase 6m shares the budget)
+OPEN_LOOP_LAYERS = 5
 # the hybrid family: jamba-v0.1-52b at full width in int8 (6h), static at
 # MOE_STATIC and 8 requests drawn as phase 6's; its expert d_ff, its
 # mamba projections' widths (B and C: d_state 16; dt: 128 heads) and the
@@ -3280,8 +3325,8 @@ def phase_serve_ssm(card, profile=False):
     torch.cuda.empty_cache()
 
     # (b) the continuous engine, SSM_MIX_REQUESTS requests drawn as phase
-    # 6's (its recurrent prefill runs token by token)
-    model = LM(cfg)
+    # 6's (its recurrent prefill runs token by token), SSM_MIX_LAYERS deep
+    model = LM(get_config(SSM_ARCH, n_layers=SSM_MIX_LAYERS))
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
     ssd_kernel.ssd_scan_fwd.launches = 0
@@ -4380,6 +4425,417 @@ def _launch_open(phase, card, **kw):
 # ---------------------------------------------------------------------------
 # phase 7: train at full width
 # ---------------------------------------------------------------------------
+# phase 6m: sharded serving over ranks on the one card
+# ---------------------------------------------------------------------------
+MESH_ARCH = "granite-3-2b"
+MESH_LAYERS = 5               # (b) and (c): cut from 40 for the time budget
+# a chunk as wide as a rank's slice of the cache under SP-KV (256 / 2)
+MESH_ENGINE = dict(max_len=256, page_size=16, prefill_chunk=128)
+MESH_PREFIX = 32              # (a): the requests' shared prefix, 2 pages
+MESH_TIMEOUT_S = 300          # a world of ranks, start to results
+MESH_THREADS = 2              # each rank's torch threads: 4 ranks, 8 cores
+MESH_TOL = 2e-3               # B1 at the shard shapes, as phase 3's TOL
+# (b): the bf16 first chunk's max |dlogit| against the unsharded forward
+# (0.0625-0.078 in sound runs); a wo product left unsummed must exceed it
+MESH_DLOGIT = 0.25
+
+
+def _mesh_prompts(cfg, n, shared=0, lo=32, hi=200, seed=7):
+    """``n`` prompts of lo..hi tokens, the first ``shared`` of them the
+    same in every prompt."""
+    rng = np.random.default_rng(seed)
+    head = rng.integers(1, cfg.vocab_size, size=shared)
+    return [np.concatenate([head, rng.integers(
+        1, cfg.vocab_size, size=int(rng.integers(lo, hi + 1)) - shared)])
+            for _ in range(n)]
+
+
+def _mesh_cfg(job):
+    kw = {} if job["layers"] is None else {"n_layers": job["layers"]}
+    if job["dtype"] == "float32":
+        kw.update(param_dtype="float32", compute_dtype="float32")
+    return get_config(MESH_ARCH, **kw)
+
+
+def _mesh_serve(eng, prompts, new, time_steps=False):
+    """Serve every prompt (greedy); returns (tokens by request,
+    pure-decode step ms, the collectives' ms inside them).  With
+    ``time_steps`` each pure-decode step's events and the collectives'
+    events inside it are read after the step."""
+    rids = [eng.submit(p, new) for p in prompts]
+    step_ms, coll_ms = [], []
+    mesh = eng.mesh
+    while True:
+        if mesh is not None and time_steps:
+            mesh.timing = []
+        more = eng.step()
+        plan = eng.last_plan
+        if (time_steps and plan is not None and plan.n_decode
+                and not plan.n_prefill_tokens):
+            step_ms.append(eng.stats.steps[-1].device_ms())
+            if mesh is not None:
+                coll_ms.append(sum(a.elapsed_time(b)
+                                   for a, b in mesh.timing))
+        if not more:
+            break
+    if mesh is not None:
+        mesh.timing = None
+    out = eng.results()
+    return [np.asarray(out[r]) for r in rids], step_ms, coll_ms
+
+
+def _first_chunk_logits(eng, prompt):
+    """Logits of the engine's first step (request 0's first prefill
+    chunk, batch 1 on slot 0 through the paged kernel), on a fresh cache;
+    the cache is zeroed again after."""
+    n = min(eng.sched.prefill_chunk, len(prompt))
+    toks = torch.as_tensor(prompt[:n], device=eng.device)[None].long()
+    pos = torch.arange(n, device=eng.device)[None]
+    row = eng.model.cache_row(eng.cache, 0)
+    with eng._ctx():
+        logits, _ = eng.model.forward(
+            eng.params, toks, pos, mode="decode", cache=row,
+            n_valid=torch.full((1,), n, dtype=torch.int32,
+                               device=eng.device),
+            paged=eng._paged_state(None))
+    eng.reset()
+    return logits
+
+
+def _unsummed_wo_logits(eng, prompt):
+    """``_first_chunk_logits`` with a fault planted: the attention's
+    row-parallel ``wo`` product left unsummed over the model axis (each
+    rank keeps its own heads' share).  (b)'s |dlogit| limit must reject
+    it."""
+    summed = model_layers.row_parallel
+    model_layers.row_parallel = lambda y, p, full_in, name: (
+        y if name == "heads" else summed(y, p, full_in, name))
+    try:
+        return _first_chunk_logits(eng, prompt).cpu().numpy()
+    finally:
+        model_layers.row_parallel = summed
+
+
+MESH_KERNELS = ("paged_partials", "wq_gemm")
+
+
+def _mesh_rank(rank, jobs):
+    """One rank: every job in order (each a mesh, a config, requests);
+    the counts of B1 (and of its kv_offset mode) and B5 set to 0 just
+    before each job serves and read just after."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = []
+    for job in jobs:
+        cfg = _mesh_cfg(job)
+        mesh = mesh_lib.parse_mesh(job["mesh"])
+        model = LM(cfg, device=mesh.device)
+        rules = rules_for(cfg, mesh, sp_kv=job["sp_kv"])
+        params = model.init_params(
+            torch.Generator(device=mesh.device).manual_seed(0),
+            int8=job["int8"],
+            shard=lambda t, sp: paxes.shard_tree(t, sp, mesh, rules))
+        eng = ContinuousBatchingEngine(
+            model, params, n_slots=job["slots"], mesh=mesh,
+            sp_kv=job["sp_kv"], prefix_cache=job["prefix"],
+            check=job["prefix"], **MESH_ENGINE)
+        del params
+        res = dict(name=job["name"], mesh=repr(mesh),
+                   meta=eng.sharding_meta, param_bytes=quant_bytes(
+                       eng.params))
+        if job["logits"]:
+            res["logits"] = _first_chunk_logits(
+                eng, job["prompts"][0]).cpu().numpy()
+            res["unsummed_logits"] = _unsummed_wo_logits(
+                eng, job["prompts"][0])
+        reset_launches(MESH_KERNELS)
+        pa_ops.decode_partials.launches = 0
+        toks, step_ms, coll_ms = _mesh_serve(eng, job["prompts"],
+                                             job["new"], job["time"])
+        torch.cuda.synchronize()
+        res.update(tokens=toks, step_ms=step_ms, coll_ms=coll_ms,
+                   launches={n: launches_of(n) for n in MESH_KERNELS},
+                   kv_offset_launches=pa_ops.decode_partials.launches,
+                   prefix_hits=eng.stats.prefix_hit_tokens,
+                   errors=[f.format() for f in eng.check_findings
+                           if f.severity == "error"])
+        out.append(res)
+        del eng
+        torch.cuda.empty_cache()
+    return out
+
+
+def spkv_plain(q, k, v, positions, kv_valid, off, softcap):
+    """``decode_partials``' function plainly, on absolute positions: the
+    scores of the slice's keys (cache positions off ... off + S - 1) under
+    the mask ``t <= position and t < kv_valid``; fp32 (m, l, acc) shaped
+    (B, NQ, Sq)[, H], masked keys adding exactly 0."""
+    B, Sq, NQ, H = q.shape
+    S, NKV = k.shape[1], k.shape[2]
+    G = NQ // NKV
+    kT = k.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    vT = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    s = torch.einsum("bqnh,bnkh->bnqk", q.float(), kT) * H ** -0.5
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    t = off + torch.arange(S, device=q.device)
+    mask = ((t[None, None, None] <= positions[:, None, :, None])
+            & (t[None, None, None] < kv_valid[:, None, None, None]))
+    s = torch.where(mask, s, pa_ref.NEG_INF)
+    m = s.amax(-1)
+    p = torch.where(mask, torch.exp(s - m[..., None]), 0.0)
+    return m, p.sum(-1), torch.einsum("bnqk,bnkh->bnqh", p, vT)
+
+
+# (slice length = offset, each row's kv_valid, the query lengths): the
+# second shard of (a)'s cache, at Sq 1 and (a)'s prefill chunk (timed);
+# granite's second shard of a 512-token cache, and of a 400-token one,
+# whose 200-key slice ends in a partial 32-key tile, at Sq 1 and 32
+_S_SHARD = MESH_ENGINE["max_len"] // 2
+SPKV_SHARDS = ((_S_SHARD, (0, _S_SHARD // 2, _S_SHARD, _S_SHARD + 12,
+                           _S_SHARD + _S_SHARD // 2, 2 * _S_SHARD - 27,
+                           2 * _S_SHARD - 6, 2 * _S_SHARD),
+                (1, MESH_ENGINE["prefill_chunk"])),
+               (256, (0, 100, 256, 270, 300, 401, 480, 512), (1, 32)),
+               (200, (0, 100, 200, 214, 250, 301, 380, 400), (1, 32)))
+
+
+def kernels_spkv(card, hw):
+    """B1 through ``decode_partials`` at a rank's shard of granite's
+    cache (8 slots, the second half of the cache: ``SPKV_SHARDS``, the
+    first (a)'s own); rows whose keys all lie before the slice and rows
+    into it; the chunks end at each row's valid length, so a row 12 or
+    14 keys into the slice has a chunk that starts before it."""
+    worst, rows, n = 0.0, [], 0
+    for i, (S, valid, sqs) in enumerate(SPKV_SHARDS):
+        w, r, k = _spkv_shard(S, valid, sqs, hw, timed=i == 0)
+        worst, n = max(worst, w), n + k
+        rows += r
+    shapes = "; ".join(f"{S} keys at Sq {' and '.join(map(str, sqs))}"
+                       for S, _, sqs in SPKV_SHARDS)
+    log("serve-mesh", f"B1 at the shard shapes: {n} cases ok (slices of "
+                      f"{shapes}; bf16 and fp32, softcap 0 and {SOFTCAP:g}; "
+                      f"rows with no key in the slice, chunks starting "
+                      f"before it), max abs err {worst:.2e} | bf16 granite "
+                      f"8 slots, slice {_S_SHARD} at {_S_SHARD} ((a)'s "
+                      f"second shard): {' | '.join(rows)} | {card}")
+    return worst
+
+
+def _spkv_shard(S, valid, sqs, hw, timed):
+    dev = torch.device("cuda")
+    B, NKV, G, H, off = 8, 8, 4, 64, S
+    valid = torch.tensor(valid, dtype=torch.int32, device=dev)
+    worst, rows, n = 0.0, [], 0
+    for sq in sqs:
+        pos = ((valid - sq).clamp_min(0)[:, None]
+               + torch.arange(sq, device=dev)[None]).to(torch.int32)
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.Generator(device=dev).manual_seed(sq)
+            q = torch.randn((B, sq, NKV * G, H), generator=g, device=dev)
+            k = torch.randn((B, S, NKV, H), generator=g, device=dev).to(dtype)
+            v = torch.randn((B, S, NKV, H), generator=g, device=dev).to(dtype)
+            for softcap in (0.0, SOFTCAP):
+                qs = q * (SOFTCAP_Q_SCALE if softcap else 1.0)
+                got = pa_ops.decode_partials(qs, k, v, pos, valid,
+                                             kv_offset=off, softcap=softcap)
+                want = spkv_plain(qs, k, v, pos, valid, off, softcap)
+                name = (f"B1 kv_offset {off} of S {S} Sq{sq} "
+                        f"{str(dtype)[6:]} softcap {softcap:g}")
+                live = want[1] > 0
+                for g_, w_, what in zip(got, want, ("m", "l", "acc")):
+                    if not torch.isfinite(g_).all():
+                        raise SystemExit(f"{name}: non-finite {what}")
+                    if what == "m":
+                        g_, w_ = g_[live], w_[live]
+                    torch.testing.assert_close(
+                        g_, w_, atol=MESH_TOL, rtol=MESH_TOL,
+                        msg=lambda m_: f"{name} {what}: {m_}")
+                if (got[1][~live] != 0).any() or (got[2][~live] != 0).any():
+                    raise SystemExit(f"{name}: a query with no key in the "
+                                     f"slice has l or acc != 0")
+                out_k = got[2] / got[1].clamp_min(1e-30)[..., None]
+                out_p = want[2] / want[1].clamp_min(1e-30)[..., None]
+                worst = max(worst, float((out_k - out_p).abs().max()))
+                n += 1
+            if dtype != torch.bfloat16 or not timed:
+                continue
+            mask = ((off + torch.arange(S, device=dev))[None, None]
+                    <= pos[..., None]) & (
+                (off + torch.arange(S, device=dev))[None, None]
+                < valid[:, None, None])
+            qT = q.to(dtype).transpose(1, 2).contiguous()
+            kT, vT = k.transpose(1, 2).contiguous(), v.transpose(
+                1, 2).contiguous()
+            t = time_three({
+                "kernel": lambda: pa_ops.decode_partials(
+                    q, k, v, pos, valid, kv_offset=off),
+                "plain": lambda: spkv_plain(q, k, v, pos, valid, off, 0.0),
+                "library": lambda: F.scaled_dot_product_attention(
+                    qT, kT, vT, attn_mask=mask[:, None], enable_gqa=True)})
+            keys = (valid - off).clamp(0, S).double()
+            nbytes = float(2 * keys.sum() * NKV * H * k.element_size()
+                           + q.numel() * 4 + 2 * B * 4
+                           + B * NKV * G * sq * (H + 2) * 4)
+            flops = float(4 * keys.sum() * NKV * G * sq * H)
+            b_s, b_by = hw.bound_s(flops, nbytes, torch.bfloat16)
+            rows.append(
+                f"Sq{sq}: kernel_ms {t['kernel']:.4f} plain_ms "
+                f"{t['plain']:.4f} library_ms {t['library']:.4f} bound_ms "
+                f"{b_s * 1e3:.4f} ({b_by})")
+    return worst, rows, n
+
+
+def _mesh_jobs(cfg_a, cfg_b):
+    prompts_a = _mesh_prompts(cfg_a, 8, shared=MESH_PREFIX)
+    prompts_b = _mesh_prompts(cfg_b, 4, seed=8)
+    job = dict(layers=None, dtype="float32", int8=False, sp_kv=False,
+               prefix=False, logits=False, time=False)
+    a = dict(job, name="a", mesh="2x2", sp_kv=True, prefix=True, slots=4,
+             prompts=prompts_a, new=16)
+    b = dict(job, name="b", mesh="1x2", layers=MESH_LAYERS,
+             dtype="bfloat16", slots=4, prompts=prompts_b[:4], new=16,
+             logits=True, time=True)
+    c = dict(job, name="c", mesh="1x2", layers=MESH_LAYERS, int8=True,
+             slots=4, prompts=prompts_b, new=8)
+    return a, b, c
+
+
+def _mesh_unsharded(job):
+    """The unsharded engine's run of a job on the card (same seeded
+    weights): (tokens, the first chunk's logits or None, pure-decode
+    step ms, the whole tree's bytes)."""
+    cfg = _mesh_cfg(job)
+    model = LM(cfg)
+    params = model.init_params(
+        torch.Generator(device=model.device).manual_seed(0),
+        int8=job["int8"])
+    eng = ContinuousBatchingEngine(model, params, n_slots=job["slots"],
+                                   prefix_cache=job["prefix"],
+                                   **MESH_ENGINE)
+    logits = (_first_chunk_logits(eng, job["prompts"][0]).cpu().numpy()
+              if job["logits"] else None)
+    toks, step_ms, _ = _mesh_serve(eng, job["prompts"], job["new"],
+                                   job["time"])
+    nbytes = quant_bytes(params)
+    del eng, params
+    torch.cuda.empty_cache()
+    return toks, logits, step_ms, nbytes
+
+
+def _same_tokens(phase, want, ranks):
+    for res in ranks:
+        if len(res["tokens"]) != len(want) or not all(
+                np.array_equal(a, b) for a, b in zip(res["tokens"], want)):
+            raise SystemExit(f"{phase}: a rank's tokens differ from the "
+                             f"unsharded engine's")
+
+
+def phase_serve_mesh(card, hw):
+    """6m: B1 at the shard shapes, then (a), (b), (c) (see the module
+    docstring); returns the ranks' B1 and B5 launches."""
+    t0 = datetime.datetime.now()
+    kernels_spkv(card, hw)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a, b, c = _mesh_jobs(_mesh_cfg(dict(layers=None, dtype="float32")),
+                         _mesh_cfg(dict(layers=MESH_LAYERS,
+                                        dtype="bfloat16")))
+    want = {job["name"]: _mesh_unsharded(job) for job in (a, b, c)}
+    log("serve-mesh", f"the unsharded runs done, {_since(t0):.1f} s into "
+                      f"6m")
+    launches = {}
+    # (a): 4 ranks, 2x2 with SP-KV
+    ranks = [r[0] for r in mesh_lib.spawn_ranks(
+        _mesh_rank, 4, ([a],), timeout=MESH_TIMEOUT_S,
+        threads=MESH_THREADS)]
+    _same_tokens("serve-mesh (a)", want["a"][0], ranks)
+    for rank, res in enumerate(ranks):
+        if res["errors"]:
+            raise SystemExit(f"serve-mesh (a) rank {rank}: {res['errors']}")
+        if res["kv_offset_launches"] == 0 or res["launches"][
+                "paged_partials"] != res["kv_offset_launches"]:
+            raise SystemExit(f"serve-mesh (a) rank {rank}: B1 launches "
+                             f"{res['launches']['paged_partials']}, "
+                             f"{res['kv_offset_launches']} of them at a "
+                             f"kv_offset")
+        _add(launches, res["launches"])
+    meta = ranks[0]["meta"]
+    log("serve-mesh", f"(a) {MESH_ARCH} fp32 full width (40 layers), "
+                      f"{ranks[0]['mesh'].split(';')[0]}) over 4 spawned "
+                      f"ranks on one card, backend "
+                      f"{ranks[0]['mesh'].split('; ')[2]}: 8 requests of "
+                      f"{a['prompts'][0].size}..."
+                      f"{max(p.size for p in a['prompts'])} tokens "
+                      f"(a {MESH_PREFIX}-token shared prefix, prefix hits "
+                      f"{ranks[0]['prefix_hits']}) on 4 slots, 16 new: "
+                      f"tokens identical to the unsharded engine's on every "
+                      f"rank | sharding_meta {json.dumps(meta)} | param "
+                      f"bytes a rank "
+                      f"{[r['param_bytes'] for r in ranks]} of the whole "
+                      f"tree's {want['a'][3]} | B1 launches a rank "
+                      f"{[r['launches']['paged_partials'] for r in ranks]}"
+                      f", in the kv_offset mode "
+                      f"{[r['kv_offset_launches'] for r in ranks]} | "
+                      f"{_since(t0):.1f} s into 6m | {card}")
+    # (b) and (c): 2 ranks, 1x2
+    ranks = mesh_lib.spawn_ranks(_mesh_rank, 2, ([b, c],),
+                                 timeout=MESH_TIMEOUT_S,
+                                 threads=MESH_THREADS)
+    rb, rc = [r[0] for r in ranks], [r[1] for r in ranks]
+    dlogit, planted = (max(float(np.abs(r[key] - want["b"][1]).max())
+                           for r in rb)
+                       for key in ("logits", "unsummed_logits"))
+    if not all(np.isfinite(r["logits"]).all() for r in rb):
+        raise SystemExit("serve-mesh (b): non-finite logits")
+    if not dlogit <= MESH_DLOGIT:
+        raise SystemExit(f"serve-mesh (b): the first chunk's max |dlogit| "
+                         f"{dlogit:.4e} is over {MESH_DLOGIT}")
+    if not planted > MESH_DLOGIT:
+        raise SystemExit(f"serve-mesh (b): with wo left unsummed the max "
+                         f"|dlogit| is {planted:.4e}, within the limit "
+                         f"{MESH_DLOGIT}: the limit catches no fault")
+    steps = rb[0]["step_ms"]
+    if not steps:
+        raise SystemExit("serve-mesh (b): no pure-decode step")
+    p50 = statistics.median(steps)
+    share = sum(rb[0]["coll_ms"]) / sum(steps)
+    agree = np.mean([np.array_equal(x, y) for x, y in
+                     zip(rb[0]["tokens"], want["b"][0])])
+    for res in rb:
+        _add(launches, res["launches"])
+    log("serve-mesh", f"(b) {MESH_ARCH} bf16 cut to {MESH_LAYERS} of 40 "
+                      f"layers, {rb[0]['mesh'].split(';')[0]}) over 2 ranks "
+                      f"on one card ({rb[0]['mesh'].split('; ')[2]}): first "
+                      f"chunk's max |dlogit| {dlogit:.4e} against the "
+                      f"unsharded forward, within {MESH_DLOGIT} (with wo's "
+                      f"sum over the model axis dropped: {planted:.4e}, "
+                      f"rejected) | pure-decode step p50 "
+                      f"{p50:.3f} ms on rank 0 ({len(steps)} steps), "
+                      f"{100 * share:.1f}% of it inside the collectives; "
+                      f"the unsharded engine's p50 "
+                      f"{statistics.median(want['b'][2]):.3f} ms | requests "
+                      f"whose greedy tokens equal the unsharded engine's "
+                      f"{agree:.3f} (bf16: reported only) | two ranks "
+                      f"time-sharing one card through host-staged gloo "
+                      f"collectives: these times say nothing of a "
+                      f"deployment over several cards | "
+                      f"{_since(t0):.1f} s into 6m | {card}")
+    _same_tokens("serve-mesh (c)", want["c"][0], rc)
+    if any(r["launches"]["wq_gemm"] == 0 for r in rc):
+        raise SystemExit("serve-mesh (c): a rank launched no int8 GEMM")
+    for res in rc:
+        _add(launches, res["launches"])
+    log("serve-mesh", f"(c) {MESH_ARCH} int8 fp32 compute cut to "
+                      f"{MESH_LAYERS} layers, {rc[0]['mesh'].split(';')[0]}"
+                      f"), 4 requests of 8 tokens: tokens identical to the "
+                      f"unsharded int8 engine's on both ranks | B5 launches "
+                      f"a rank {[r['launches']['wq_gemm'] for r in rc]}, B1 "
+                      f"{[r['launches']['paged_partials'] for r in rc]} | "
+                      f"param bytes a rank {[r['param_bytes'] for r in rc]}"
+                      f" of {want['c'][3]} | {card}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def _train_log(what, log_, B, S, card, phase="train"):
     for r in log_:
         log(phase, f"{what} step {r['step']}: {r['seconds'] * 1e3:.1f} ms, "
@@ -4491,6 +4947,9 @@ def phase_train(card, profile=False):
 # ---------------------------------------------------------------------------
 # qwen3-1.7b at TRAIN_SHAPES[1], one variant a run: (what, config
 # overrides, make_train_step options); the first is phase 7's step
+# 7b (c)'s qwen3-1.7b, cut from 28 layers for the script's time (its
+# options are held against remat full's at the same depth)
+TRAIN_VARIANT_LAYERS = 14
 TRAIN_VARIANTS = (
     ("remat full", {}, {}),
     ("fused_xent", {}, {"fused_xent": True}),
@@ -4525,8 +4984,8 @@ def _grad_rel_err(grads, ref):
 
 
 def train_variant(what, cfg_kw, step_kw, card, ref_grads=None):
-    """Full-width qwen3-1.7b at TRAIN_SHAPES[1] built through
-    ``make_train_step`` with ``step_kw``.  First the loss and its gradient
+    """qwen3-1.7b at full width, ``TRAIN_VARIANT_LAYERS`` deep, at
+    TRAIN_SHAPES[1] built through ``make_train_step`` with ``step_kw``.  First the loss and its gradient
     alone at the initial parameters on step 0's batch, for their own peak
     (the optimizer's fp32 temporaries left out) and for step 0's gradient
     leaves: held against ``ref_grads`` (remat full's, on the host) when
@@ -4539,7 +4998,8 @@ def train_variant(what, cfg_kw, step_kw, card, ref_grads=None):
     norm.  Exits unless B2 launched ``train_launches`` a step, the losses
     are finite and, under int8_ef, ``grad_err`` holds 4 bytes a
     parameter."""
-    cfg = get_config(TRAIN_ARCH, attention_impl="pallas", **cfg_kw)
+    cfg = get_config(TRAIN_ARCH, attention_impl="pallas",
+                     n_layers=TRAIN_VARIANT_LAYERS, **cfg_kw)
     model = LM(cfg)
     opt = AdamWConfig(lr=warmup_cosine(3e-4, 10, 3))
     state = init_train_state(
@@ -4655,14 +5115,16 @@ def _variant_faults(got):
 
 
 def fused_xent_fp32(card):
-    """Step 0's gradient of full-width qwen3-1.7b in fp32 (remat full, B2
-    on the CUDA cores) at TRAIN_SHAPES[1], with the plain loss and with
+    """Step 0's gradient of qwen3-1.7b at full width, TRAIN_VARIANT_LAYERS
+    deep, in fp32 (remat full, B2 on the CUDA cores) at TRAIN_SHAPES[1],
+    with the plain loss and with
     ``fused_xent``: exits unless every leaf is within FUSED_FP32_RTOL.
     In bf16 the two differ by more (7b (c)'s fused_xent row): the plain
     path rounds the logits to bf16, and the tied table's gradient sums
     thousands of bf16 terms in another order."""
     cfg = get_config(TRAIN_ARCH, attention_impl="pallas",
-                     param_dtype="float32", compute_dtype="float32")
+                     n_layers=TRAIN_VARIANT_LAYERS, param_dtype="float32",
+                     compute_dtype="float32")
     model = LM(cfg)
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(0))
@@ -5272,7 +5734,8 @@ def run_phases(args, t_start, table1_proc):
             ("6i serve-vlm", lambda: phase_serve_vlm(card, args.profile)),
             ("6j serve-audio", lambda: phase_serve_audio(card, args.profile)),
             ("6k serve-features", lambda: phase_serve_features(card)),
-            ("6l serve-open-loop", lambda: phase_serve_open_loop(card))):
+            ("6l serve-open-loop", lambda: phase_serve_open_loop(card)),
+            ("6m serve-mesh", lambda: phase_serve_mesh(card, hw))):
         _add(launches, serve())
         done(what)
     launches["flash_attention"] = phase_train(card, args.profile)

@@ -22,8 +22,11 @@ engine's, only the step count and tok/s change):
         --speculative --spec-k 6
 
 Times are CUDA-event times of the engine's steps on the card; on the CPU
-nothing is timed.  ``--mesh`` and ``--sp-kv`` (sharded serving) raise
-``NotImplementedError``: the device mesh is ROADMAP A10.
+nothing is timed.  ``--mesh`` and ``--sp-kv`` raise
+``NotImplementedError``: this example serves in one process, and sharded
+serving runs through the launcher's ranks (``python -m
+repro_torch.launch.serve --mesh 2x2 --sp-kv``); the example's own mesh
+is ROADMAP A10's.
 """
 import argparse
 
@@ -57,11 +60,12 @@ def main(argv=None):
                     help="reuse shared page-aligned prompt prefixes from "
                          "released requests' pooled pages")
     ap.add_argument("--mesh", default=None,
-                    help="shard the decode slots over a device mesh "
-                         "(not ported: ROADMAP A10)")
+                    help="shard the decode slots over a device mesh (in "
+                         "this example not yet: ROADMAP A10; the "
+                         "launcher serves sharded)")
     ap.add_argument("--sp-kv", action="store_true",
-                    help="shard the KV cache's sequence axis (not "
-                         "ported: ROADMAP A10)")
+                    help="shard the KV cache's sequence axis (in this "
+                         "example not yet: ROADMAP A10)")
     ap.add_argument("--open-loop", action="store_true",
                     help="requests arrive as a Poisson process through "
                          "the open-loop front end")
@@ -78,8 +82,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mesh is not None or args.sp_kv:
         raise NotImplementedError(
-            "sharded serving (--mesh, --sp-kv) is not ported yet (ROADMAP "
-            "A10: the device mesh)")
+            "this example serves in one process: sharded serving (--mesh, "
+            "--sp-kv) runs through python -m repro_torch.launch.serve "
+            "--mesh (the example's mesh: ROADMAP A10)")
     dev = resolve_device(args.device)
 
     cfg = example_config(args.arch, dev)

@@ -8,6 +8,12 @@ the plain version (``ref.paged_partials``); a CUDA tensor launches the
 CUDA kernel (``kernel.paged_flash_decode``) or raises — there is no
 fallback.  The normalization ``acc / max(l, 1e-30)`` is a torch op, as
 ``_finalize`` is jnp in the reference.
+
+``decode_partials`` is the SP-KV half: grouped (m, l, acc) partials over a
+dense slice of the cache whose first position is ``kv_offset``, which
+``models.attention._attn_decode_spkv`` combines across the slices.  On
+the card it is the same kernel over the slice viewed as one page a row,
+with the mask shifted by the offset.
 """
 from __future__ import annotations
 
@@ -67,6 +73,46 @@ def paged_attention(q, k_pages, v_pages, page_idx, positions, kv_valid, *,
         return (m.reshape(B, NQ, Sq), l.reshape(B, NQ, Sq),
                 acc.reshape(B, NQ, Sq, H))
     return _finalize(m, l, acc, q.dtype)
+
+
+def decode_partials(q, k, v, positions, kv_valid, *, kv_offset=0,
+                    softcap: float = 0.0):
+    """Grouped-GQA flash-decode partials over a dense KV slice (the
+    reference's signature; no head repeat).
+
+    q: (B, Sq, NQ, H); k/v: (B, S, NKV, H), cache positions kv_offset ...
+    kv_offset + S - 1; positions: (B, Sq) absolute, contiguous per row;
+    kv_valid: (B,) absolute; kv_offset: an int or (B,).  Returns fp32
+    ``(m, l, acc)`` shaped (B, NQ, Sq) / (B, NQ, Sq) / (B, NQ, Sq, H).
+
+    Each row of the slice is one page of S tokens (``page_idx`` the
+    identity), and the mask ``t + off <= pos0 + c && t + off <
+    kv_valid`` is the kernel's own with ``pos0 - off`` (negative where a
+    chunk's first columns lie before the slice) and ``clamp(kv_valid -
+    off, 0, S)``.  A row with no valid key in the slice gets m = NEG_INF,
+    l = 0, acc = 0 (the reference's jnp version has l = S and acc the sum
+    of v there instead; the cross-slice combine weighs both by exp(NEG_INF
+    - m) = 0, and the combined output of a row with no valid key anywhere
+    is zero here).  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel (``decode_partials.launches`` counts those
+    launches apart) or raises."""
+    B, S, NKV, H = k.shape
+    # an int offset stays on the host (no copy to the card, no sync)
+    off = (kv_offset.to(device=q.device, dtype=torch.int32)
+           if torch.is_tensor(kv_offset) else int(kv_offset))
+    pos0 = positions[:, 0].to(torch.int32) - off
+    valid = (kv_valid.to(torch.int32) - off).clamp(0, S)
+    page_idx = torch.arange(B, dtype=torch.int32,
+                            device=q.device).view(B, 1)
+    out = paged_attention(q, k, v, page_idx, pos0[:, None], valid,
+                          page_size=S,
+                          softcap=softcap, return_partials=True)
+    if q.device.type != "cpu":
+        decode_partials.launches += 1
+    return out
+
+
+decode_partials.launches = 0
 
 
 def combine_partials(parts, dtype=torch.float32):

@@ -87,21 +87,40 @@ time, or under ``--clock model`` the modeled one; on the CPU it needs
 ``--min-prompt-len`` is the shortest prompt drawn (by default half of
 ``--prompt-len``, the reference's band).
 
-Not ported yet, each raising ``NotImplementedError`` with its ROADMAP
-item: ``--mesh`` and ``--sp-kv``.
+``--mesh N|NxM|NxMxK`` serves sharded (the dense family): the launcher
+spawns the mesh's ranks on this host, one process a position, or joins
+``torchrun``'s world when its environment is set; each rank draws the
+same seeded weights layer by layer and keeps its blocks, serves the
+same requests, and rank 0's results print once.  The decode slots shard
+over the ``data`` axes and heads, the MLP and the vocabulary over
+``model``; ``--sp-kv`` shards the KV cache's sequence axis over
+``model`` instead of its heads (it needs a model axis).  On the card the
+ranks use NCCL where each has a card of its own, ``gloo`` where they
+share one; on the CPU ``gloo``.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --reduced --device cpu --mesh 2x2 --sp-kv
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
+      --mesh 2x2 --sp-kv --slots 8 --prompt-len 256
 """
 from __future__ import annotations
 
 import argparse
+import math
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.decode_state import stub_context
 from repro_torch.models.model import LM
 from repro_torch.models.quant import param_bytes
+from repro_torch.parallel import axes as paxes
+from repro_torch.parallel.sharding import rules_for
 from repro_torch.serve.arrivals import (closed_loop_arrivals,
                                         gamma_arrivals, poisson_arrivals,
                                         save_trace, trace_arrivals)
@@ -109,11 +128,8 @@ from repro_torch.serve.engine import ContinuousBatchingEngine, StaticBatchEngine
 from repro_torch.serve.frontend import CLOCKS, OpenLoopFrontend
 from repro_torch.serve.slo import SLO
 
-# option -> (the value that means "off", the ROADMAP item that ports it)
-NOT_PORTED = {
-    "mesh": (None, "A10: the device mesh"),
-    "sp_kv": (False, "A10: the sequence-parallel KV cache"),
-}
+# how long a spawned world of ranks may serve before it is killed
+RANK_TIMEOUT_S = 3600.0
 
 
 def _p50(ms):
@@ -135,7 +151,7 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         slo_tbt: Optional[float] = None,
         record_trace: Optional[str] = None,
         min_prompt_len: Optional[int] = None,
-        **options) -> Dict[str, Any]:
+        mesh: Optional[str] = None, sp_kv: bool = False) -> Dict[str, Any]:
     """Serve ``requests`` (default 2 x ``slots``; ``slots`` with
     ``static``) random prompts and return what the launcher prints: the
     prompts and generated tokens, counts, the bytes of the tree in the
@@ -161,14 +177,77 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     default 3x the run's p50s), ``slo``, ``arrivals`` (the process's
     label), ``makespan_s`` and ``completed_arrivals``; ``record_trace``
     writes those as a replayable trace.  Prompts are ``min_prompt_len``
-    (default ``prompt_len // 2``) to ``prompt_len`` tokens."""
-    for name, value in options.items():
-        if name not in NOT_PORTED:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-        off, item = NOT_PORTED[name]
-        if value != off:
+    (default ``prompt_len // 2``) to ``prompt_len`` tokens.
+
+    ``mesh`` (a ``parse_mesh`` spec) and ``sp_kv`` serve sharded (see the
+    module docstring): every rank's result is the same; rank 0's is
+    returned, with ``mesh`` (the engine's ``sharding_meta``) and
+    ``rank_param_bytes`` (each rank's bytes of the served tree)."""
+    kw = dict(locals())
+    dims = mesh_lib.parse_mesh_dims(mesh)
+    if dims is not None or sp_kv:
+        _check_mesh_options(kw, dims)
+        world = math.prod(dims[0])
+        if world > 1 and not dist.is_initialized():
+            if "WORLD_SIZE" not in os.environ:
+                device_type = "cpu" if str(device) == "cpu" else "cuda"
+                res = mesh_lib.spawn_ranks(
+                    _serve_rank, world, (kw,), device_type=device_type,
+                    timeout=RANK_TIMEOUT_S,
+                    threads=(max(1, (os.cpu_count() or 1) // world)
+                             if device_type == "cpu" else 0))
+                first = res[0]["tokens"]
+                if any(sorted(r["tokens"]) != sorted(first) or not all(
+                        np.array_equal(r["tokens"][k], first[k])
+                        for k in first) for r in res):
+                    raise RuntimeError("the ranks returned different tokens")
+                res[0]["rank_param_bytes"] = [r["param_bytes"] for r in res]
+                return res[0]
+            mesh_lib.init_process_group(
+                int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+                device_type="cpu" if str(device) == "cpu" else "cuda",
+                init_method="env://")
+        res = _serve(**kw)
+        res["rank_param_bytes"] = [res["param_bytes"]]
+        return res
+    return _serve(**kw)
+
+
+def _check_mesh_options(kw: Dict[str, Any], dims) -> None:
+    """The launcher's refusals of a sharded run, before any rank starts."""
+    cfg = (reduced_config(kw["arch"]) if kw["reduced"]
+           else get_config(kw["arch"]))
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"--mesh / --sp-kv for the {cfg.family} family: not ported yet "
+            f"(ROADMAP A10: sharded serving covers the dense family)")
+    if kw["sp_kv"] and (dims is None or "model" not in dims[1]):
+        raise SystemExit("--sp-kv needs --mesh with a model axis "
+                         "(e.g. --mesh 2x2)")
+    if kw["static"]:
+        raise ValueError("the static engine serves unsharded: drop --static")
+    for flag, on in (("--open-loop", kw["open_loop"]),
+                     ("--speculative", kw["speculative"]),
+                     ("--chunk-policy stall_free",
+                      kw["chunk_policy"] != "fixed")):
+        if on:
             raise NotImplementedError(
-                f"{name}={value!r} is not ported yet (ROADMAP {item})")
+                f"{flag} under --mesh: not ported yet (ROADMAP A10)")
+
+
+def _serve_rank(rank: int, kw: Dict[str, Any]) -> Dict[str, Any]:
+    """A spawned rank's run: the launcher's serving with its mesh."""
+    return _serve(**kw)
+
+
+def _serve(arch, *, reduced, slots, requests, prompt_len, gen_len,
+           prefill_chunk, page_size, temperature, static, int8, layers,
+           device, prefix_cache, prefix_pool, speculative, spec_k,
+           chunk_policy, tbt_target, open_loop, clock, rate, arrival, cv,
+           trace, slo_ttft, slo_tbt, record_trace, min_prompt_len, mesh,
+           sp_kv) -> Dict[str, Any]:
+    """``run``'s serving, in this process (a rank of ``mesh``'s world when
+    one is given)."""
     if static and (prefix_cache or speculative):
         raise ValueError("the static engine has no prefix cache and no "
                          "speculative decoding: drop --static")
@@ -188,13 +267,21 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
     depth = {} if layers is None else {"n_layers": layers}
     cfg = (reduced_config(arch, **depth) if reduced
            else get_config(arch, **depth))
-    model = LM(cfg, device=device)
+    grid = mesh_lib.parse_mesh(mesh, device="cpu" if str(device) == "cpu"
+                               else None)
+    model = LM(cfg, device=device if grid is None else grid.device)
     dev = model.device
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
+    shard = None
+    if grid is not None:
+        # each layer cut to this rank's blocks as it is drawn
+        rules = rules_for(cfg, grid, sp_kv=sp_kv)
+        shard = (lambda tree, specs:  # noqa: E731
+                 paxes.shard_tree(tree, specs, grid, rules))
     params = model.init_params(torch.Generator(device=dev).manual_seed(0),
-                               int8=int8)
+                               int8=int8, shard=shard)
     init_peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                  if on_card else None)
     rng = np.random.default_rng(1)
@@ -224,7 +311,8 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
             page_size=page_size, prefill_chunk=prefill_chunk,
             chunk_policy=chunk_policy, tbt_target_s=tbt_target,
             prefix_cache=prefix_cache, prefix_pool=prefix_pool,
-            spec_decode=speculative, spec_k=spec_k)
+            spec_decode=speculative, spec_k=spec_k, mesh=grid,
+            sp_kv=sp_kv)
         n_req = requests or 2 * slots
         if open_loop:
             front = OpenLoopFrontend(engine, clock=clock)
@@ -259,7 +347,8 @@ def run(arch: str = "granite-3-2b", *, reduced: bool = False,
         generated_tokens=st["generated_tokens"], steps=st["steps"],
         forwards=st["forwards"], run_ms=None, tokens_per_s=None,
         prefill_ms=None, step_ms_p50=None, peak_gib=None,
-        engine_summary=st, open_loop=open_loop, latency=None)
+        engine_summary=st, open_loop=open_loop, latency=None,
+        mesh=None if static else engine.sharding_meta)
     if not static:
         res["prefix_cache"] = engine.prefix_cache
         res["speculative"] = engine.spec_decode
@@ -352,6 +441,13 @@ def report(res: Dict[str, Any]) -> str:
         line += (f" | speculative: accept_rate {res['accept_rate']:.2f} "
                  f"({res['accepted_draft_tokens']}/"
                  f"{res['drafted_tokens']} drafted tokens)")
+    if res.get("mesh"):
+        sm = res["mesh"]
+        line += (f" | mesh {sm['mesh']}: {sm.get('slot_shards', 1)} slot "
+                 f"shard(s), sp_kv={sm['sp_kv']}, rank params "
+                 f"{[round(b / 1e9, 3) for b in res['rank_param_bytes']]} GB"
+                 + (f"; forced replication: {sm['forced_replication']}"
+                    if sm["forced_replication"] else ""))
     line += f" | sample: {list(map(int, first[:12]))}"
     if res["open_loop"]:
         line += "\n" + _open_loop_lines(res)
@@ -417,8 +513,14 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
                          "(token-addressable families only)")
     ap.add_argument("--prefix-pool", type=int, default=8,
                     help="max pooled prefix entries (LRU bound)")
-    ap.add_argument("--mesh", default=None, help="not ported (A10)")
-    ap.add_argument("--sp-kv", action="store_true", help="not ported (A10)")
+    ap.add_argument("--mesh", default=None,
+                    help="serve sharded over a mesh of ranks: N (data), "
+                         "NxM (data x model) or NxMxK (pod x data x "
+                         "model); decode slots shard over (pod, data)")
+    ap.add_argument("--sp-kv", action="store_true",
+                    help="also shard the KV cache's sequence axis over "
+                         "'model' (sequence-parallel flash decoding); "
+                         "needs a mesh with a model axis")
     ap.add_argument("--min-prompt-len", type=int, default=None,
                     help="shortest prompt drawn (default: half of "
                          "--prompt-len)")
@@ -484,7 +586,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
               record_trace=args.record_trace,
               min_prompt_len=args.min_prompt_len,
               mesh=args.mesh, sp_kv=args.sp_kv)
-    print(report(res), flush=True)
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(report(res), flush=True)
     return res
 
 

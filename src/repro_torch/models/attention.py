@@ -23,6 +23,16 @@ without RoPE; over the context itself through ``chunked_attention``, or
 over its installed K/V, which on the card is one launch of the
 flash-decode kernel with every key valid.  A gated cross-attention's
 output is scaled by ``tanh(gate_attn)``.
+
+Under a sharding context (``parallel.axes``; the serving engine's mesh)
+``attn_decode`` computes with the heads a rank holds: column-parallel
+``wq``/``wk``/``wv`` give its query and KV heads, which must be whole
+heads with whole GQA groups, and the row-parallel ``wo`` is summed over
+the heads axis.  Where the rules map the cache length (``"kv_seq"``) to
+a mesh axis, ``_attn_decode_spkv`` runs instead: the sequence-parallel
+flash decode, each rank over its slice of the cache, the fp32 partials
+combined by a max and two sums over that axis (the reference's
+``shard_map`` body).
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.models import layers
 from repro_torch.models.layers import dense, rms_norm_nd
+from repro_torch.parallel import axes as paxes
+from repro_torch.parallel import collectives
 
 
 @dataclasses.dataclass
@@ -82,13 +94,38 @@ def decode_write(pos: torch.Tensor, S: int, S_cache: int,
                        kv_valid=(pos + step).to(torch.int32))
 
 
+def shard_write(w: DecodeWrite, offset: int, S_shard: int) -> DecodeWrite:
+    """``w`` (over the whole cache) as the write into one rank's slice
+    [offset, offset + S_shard) of the cache length: columns outside it
+    are dropped.  Each column keeps a distinct local target while the
+    step is no wider than the slice (the engine checks it)."""
+    keep = w.keep & (w.cols >= offset) & (w.cols < offset + S_shard)
+    return DecodeWrite(rows=w.rows, cols=(w.cols - offset) % S_shard,
+                       keep=keep, kv_valid=w.kv_valid)
+
+
 # ---------------------------------------------------------------------------
-# projections
+# projections, and their logical axes
 # ---------------------------------------------------------------------------
+def attention_specs(cfg, cross: bool = False) -> Dict:
+    p = {
+        "wq": layers.dense_specs("embed", "heads"),
+        "wk": layers.dense_specs("embed", "kv_heads"),
+        "wv": layers.dense_specs("embed", "kv_heads"),
+        "wo": layers.dense_specs("heads", "embed"),
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = {"scale": (None,)}
+        p["k_norm"] = {"scale": (None,)}
+    if cross:
+        p["gate_attn"] = ()
+    return p
+
+
 def _project_q(params, x, cfg):
+    """(B, S, heads, H): every head, or a rank's column-parallel block."""
     B, S, _ = x.shape
-    q = dense(x, params["wq"]).reshape(B, S, cfg.n_heads,
-                                       cfg.resolved_head_dim)
+    q = dense(x, params["wq"]).reshape(B, S, -1, cfg.resolved_head_dim)
     if cfg.qk_norm:
         q = rms_norm_nd(q, params["q_norm"]["scale"], cfg.norm_eps)
     return q
@@ -96,9 +133,9 @@ def _project_q(params, x, cfg):
 
 def _project_kv(params, x, cfg):
     B, S, _ = x.shape
-    h, nkv = cfg.resolved_head_dim, cfg.n_kv_heads
-    k = dense(x, params["wk"]).reshape(B, S, nkv, h)
-    v = dense(x, params["wv"]).reshape(B, S, nkv, h)
+    h = cfg.resolved_head_dim
+    k = dense(x, params["wk"]).reshape(B, S, -1, h)
+    v = dense(x, params["wv"]).reshape(B, S, -1, h)
     if cfg.qk_norm:
         k = rms_norm_nd(k, params["k_norm"]["scale"], cfg.norm_eps)
     return k, v
@@ -294,17 +331,88 @@ def attn_decode(params, x, cfg, *, positions, rope, cache, write: DecodeWrite,
     if cfg.rope_theta > 0:
         q = layers.apply_rope(q, *rope)
         k = layers.apply_rope(k, *rope)
-    _write_kv(cache["k"], k, write)
-    _write_kv(cache["v"], v, write)
-    if paged is not None:
-        out = _paged_attention_with_cache(
-            q, cache["k"], cache["v"], paged, positions=positions,
-            kv_valid_len=write.kv_valid, softcap=cfg.attn_logit_softcap)
+    if paxes.rule_axes("kv_seq"):
+        out = _attn_decode_spkv(q, k, v, cfg, positions=positions,
+                                cache=cache, write=write)
     else:
-        out = _full_attention_with_cache(
-            q, cache["k"], cache["v"], positions=positions,
-            kv_valid_len=write.kv_valid, softcap=cfg.attn_logit_softcap)
-    return _out_proj(params, out)
+        _write_kv(cache["k"], k, write)
+        _write_kv(cache["v"], v, write)
+        if paged is not None:
+            out = _paged_attention_with_cache(
+                q, cache["k"], cache["v"], paged, positions=positions,
+                kv_valid_len=write.kv_valid, softcap=cfg.attn_logit_softcap)
+        else:
+            out = _full_attention_with_cache(
+                q, cache["k"], cache["v"], positions=positions,
+                kv_valid_len=write.kv_valid, softcap=cfg.attn_logit_softcap)
+    return layers.row_parallel(_out_proj(params, out), params["wo"],
+                               cfg.n_heads * cfg.resolved_head_dim, "heads")
+
+
+def _gather_heads(cfg, q, k, v):
+    """q, k, v (B, S, heads, H) with every head: where a rank holds a
+    block of a tensor's heads, the blocks are gathered over its axis; q,
+    k and v split over the same axes go in one collective."""
+    parts = [(t, name, whole) for t, name, whole in (
+        (q, "heads", cfg.n_heads), (k, "kv_heads", cfg.n_kv_heads),
+        (v, "kv_heads", cfg.n_kv_heads))]
+    split = [t.shape[2] < whole for t, _, whole in parts]
+    if not any(split):
+        return q, k, v
+    axes = {paxes.rule_axes(name) for (_, name, _), s in zip(parts, split)
+            if s}
+    if all(split) and len(axes) == 1:
+        B, S, _, H = q.shape
+        sizes = [t.shape[2] for t, _, _ in parts]
+        fused = torch.cat([q, k, v], dim=2)[:, :, None]
+        fused = collectives.all_gather(fused, 2, axes.pop())
+        return tuple(t.reshape(B, S, -1, H) for t in torch.split(
+            fused, sizes, dim=3))
+    return tuple(collectives.all_gather(t, 2, paxes.rule_axes(name))
+                 if s else t for (t, name, _), s in zip(parts, split))
+
+
+def _attn_decode_spkv(q, k, v, cfg, *, positions, cache,
+                      write: DecodeWrite):
+    """Sequence-parallel decode (the reference's ``_attn_decode_spkv``):
+    the cache length is split over the ``"kv_seq"`` axis, a rank holding
+    positions [offset, offset + S_shard) of every KV head.
+
+    q/k/v are gathered over their head axes first (the reference's
+    ``in_specs`` replicate them over the model axis), in one collective
+    where they split alike; each rank writes
+    the step's K/V into its slice (columns outside it or past ``n_valid``
+    are dropped), computes flash-decode partials over it
+    (``decode_partials`` at ``kv_offset``: the paged kernel on the card),
+    and the partials combine across the axis: m by a max, l and acc by
+    one sum after the ``exp(m - max)`` correction, then ``acc / max(l,
+    1e-30)``.  A rank whose slice holds no valid key contributes m =
+    NEG_INF, l = 0, acc = 0; a row with no valid key anywhere (an idle
+    slot) comes out zero and NaN-free.  Returns (B, Sq, heads, H) in q's
+    dtype: this rank's block of the query heads where ``wo`` is split
+    over heads, else all of them."""
+    nq_local = q.shape[2]
+    q, k, v = _gather_heads(cfg, q, k, v)
+    S_shard = cache["k"].shape[1]
+    offset = paxes.rule_index("kv_seq") * S_shard
+    local = shard_write(write, offset, S_shard)
+    _write_kv(cache["k"], k, local)
+    _write_kv(cache["v"], v, local)
+    m, l, acc = pa_ops.decode_partials(
+        q, cache["k"], cache["v"], positions, write.kv_valid,
+        kv_offset=offset, softcap=cfg.attn_logit_softcap)
+    kv_axes = paxes.rule_axes("kv_seq")
+    m_glob = collectives.all_reduce_max(m.clone(), kv_axes)
+    corr = torch.exp(m - m_glob)
+    # l and acc summed in one collective: (B, NQ, Sq, H + 1)
+    la = collectives.all_reduce_sum(
+        torch.cat([acc * corr[..., None], (l * corr)[..., None]], dim=-1),
+        kv_axes)
+    out = la[..., :-1] / la[..., -1].clamp_min(1e-30)[..., None]
+    out = out.transpose(1, 2).to(q.dtype)
+    if nq_local < cfg.n_heads:
+        out = out.narrow(2, paxes.rule_index("heads") * nq_local, nq_local)
+    return out
 
 
 def query_lens(positions, kv_valid_len, S_cache: int) -> torch.Tensor:

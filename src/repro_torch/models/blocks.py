@@ -36,6 +36,12 @@ sub-layer) as ``remat`` says, through non-reentrant
   is no aten op: it runs again in the recompute, as under ``"full"``.
 
 All four give the same gradients.
+
+``*_layer_specs`` are the reference's logical-axis spec trees of each
+kind of layer (one layer's, without the stacked ``layers`` axis).  Under
+a sharding context the MLP's down projection is row-parallel: its
+product is summed over the ``mlp`` axis where a rank holds a block of
+``d_ff``.
 """
 from __future__ import annotations
 
@@ -156,6 +162,48 @@ def init_mamba_layer(generator: torch.Generator, cfg, device,
 
 
 # ---------------------------------------------------------------------------
+# logical axes
+# ---------------------------------------------------------------------------
+def _ffn_specs(cfg, use_moe: bool):
+    if use_moe:
+        return {"moe": moe.moe_specs(cfg)}
+    return {"mlp": layers.mlp_specs(cfg.mlp_type)}
+
+
+def attn_layer_specs(cfg, use_moe: bool, cross: bool = False):
+    p = {"ln1": layers.rmsnorm_specs(),
+         "attn": attention.attention_specs(cfg, cross=cross),
+         "ln2": layers.rmsnorm_specs()}
+    p.update(_ffn_specs(cfg, use_moe))
+    return p
+
+
+def decoder_layer_specs(cfg):
+    """The audio decoder layer's: ``attn_layer_specs`` with ``lnx`` and
+    ``xattn``."""
+    p = attn_layer_specs(cfg, use_moe=False)
+    p["lnx"] = layers.rmsnorm_specs()
+    p["xattn"] = attention.attention_specs(cfg, cross=False)
+    return p
+
+
+def mamba_layer_specs(cfg, use_moe: bool = False, with_ffn: bool = True):
+    p = {"ln1": layers.rmsnorm_specs(), "mamba": mamba2.mamba_specs(cfg)}
+    if with_ffn and (cfg.d_ff > 0 or use_moe):
+        p["ln2"] = layers.rmsnorm_specs()
+        p.update(_ffn_specs(cfg, use_moe))
+    return p
+
+
+def cross_layer_specs(cfg, use_moe: bool = False):
+    p = {"lnx": layers.rmsnorm_specs(),
+         "xattn": attention.attention_specs(cfg, cross=True),
+         "ln2": layers.rmsnorm_specs()}
+    p.update(_ffn_specs(cfg, use_moe))
+    return p
+
+
+# ---------------------------------------------------------------------------
 # layers
 # ---------------------------------------------------------------------------
 def _mlp_or_moe(p, x, cfg, *, with_aux: bool):
@@ -166,7 +214,8 @@ def _mlp_or_moe(p, x, cfg, *, with_aux: bool):
         return moe.moe_apply(p["moe"], x, cfg, with_aux=with_aux)
     aux = (torch.zeros((), dtype=torch.float32, device=x.device)
            if with_aux else None)
-    return layers.mlp(x, p["mlp"]), aux
+    return layers.row_parallel(layers.mlp(x, p["mlp"]), p["mlp"]["down"],
+                               cfg.d_ff, "mlp"), aux
 
 
 def _call(f, x):

@@ -80,7 +80,7 @@ def _is_counter(leaf: torch.Tensor, spec) -> bool:
 
 
 def copy_state_prefix(state: Params, specs: Params, src: int, dst: int,
-                      n_tokens: int) -> Params:
+                      n_tokens: int, kv_offset: int = 0) -> Params:
     """Token-range copy between slots, in place: the device half of the
     prefix cache (the reference's ``copy_state_prefix``).
 
@@ -92,16 +92,20 @@ def copy_state_prefix(state: Params, specs: Params, src: int, dst: int,
     trims in place: only the entries past ``n_tokens`` are zeroed.  The
     source rows are read before anything of ``dst`` is written, and for
     ``src != dst`` the two rows do not overlap.  Only adapters with
-    ``prefix_cachable`` may be driven through this."""
+    ``prefix_cachable`` may be driven through this.  ``kv_offset``: the
+    cache position of the leaves' first ``kv_seq`` entry, where a rank
+    holds a slice of the cache length (its part of the prefix is the
+    first ``n_tokens - kv_offset`` entries, clamped to the slice)."""
     for leaf, spec in state_leaves(state, specs):
         bax = spec.index("batch")
         if "kv_seq" in spec:
             tax = spec.index("kv_seq")
+            n = min(max(n_tokens - kv_offset, 0), leaf.shape[tax])
             row = leaf.narrow(bax, dst, 1)
             if src != dst:
-                row.narrow(tax, 0, n_tokens).copy_(
-                    leaf.narrow(bax, src, 1).narrow(tax, 0, n_tokens))
-            row.narrow(tax, n_tokens, leaf.shape[tax] - n_tokens).zero_()
+                row.narrow(tax, 0, n).copy_(
+                    leaf.narrow(bax, src, 1).narrow(tax, 0, n))
+            row.narrow(tax, n, leaf.shape[tax] - n).zero_()
         elif _is_counter(leaf, spec):
             leaf.narrow(bax, dst, 1).fill_(n_tokens)
     return state

@@ -9,6 +9,15 @@ with the same keys as the JAX parameter tree.  An int8 serving pack
 (``models.quant``: ``{"q", "scale"}`` in place of a dense ``w``, or as an
 embedding ``table``) goes through the int8 GEMM in ``dense`` and the
 unembed, and is dequantized per gathered row in ``embed``.
+
+The ``*_specs`` functions are the reference's logical-axis names of each
+parameter (``parallel.axes``).  Under a sharding context a rank holds its
+block of each sharded weight, and the layers compute on it: the
+embedding is vocab-parallel (a masked lookup of the rank's rows, then a
+sum over the vocab axis), the unembed gives the rank's logits, gathered
+over the vocab axis, and a row-parallel product (``row_parallel``: the
+MLP's down projection, attention's output projection) is summed over
+its axis.  Without a context nothing changes.
 """
 from __future__ import annotations
 
@@ -18,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.quant import is_qpack, matmul_q
+from repro_torch.parallel import axes as paxes
+from repro_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -48,6 +59,10 @@ def rms_norm_nd(x: torch.Tensor, scale: torch.Tensor,
     return x * r * scale.to(x.dtype)
 
 
+def rmsnorm_specs() -> Params:
+    return {"scale": ("embed",)}
+
+
 def rms_norm(x: torch.Tensor, params: Params,
              eps: float = 1e-5) -> torch.Tensor:
     return rms_norm_nd(x, params["scale"], eps)
@@ -56,28 +71,74 @@ def rms_norm(x: torch.Tensor, params: Params,
 # ---------------------------------------------------------------------------
 # linear, embeddings
 # ---------------------------------------------------------------------------
+def dense_specs(in_axis, out_axis) -> Params:
+    return {"w": (in_axis, out_axis)}
+
+
+def in_dim(params: Params) -> int:
+    """The contraction dim a rank holds of a dense weight or q-pack."""
+    return (params["w"] if "w" in params else params["q"]).shape[0]
+
+
 def dense(x: torch.Tensor, params: Params) -> torch.Tensor:
     if "w" not in params:               # int8 serving pack (models.quant)
         return matmul_q(x, params)
     return x @ params["w"].to(x.dtype)
 
 
+def row_parallel(y: torch.Tensor, params: Params, full_in: int,
+                 name: str) -> torch.Tensor:
+    """``y``, the product of a rank's block of a dense weight's input
+    rows: the sum over logical axis ``name``'s ranks where the weight's
+    input dim is split (``full_in`` its whole size), else ``y``."""
+    if paxes.active() and in_dim(params) < full_in:
+        return collectives.all_reduce_sum(y, paxes.rule_axes(name))
+    return y
+
+
+def embedding_specs() -> Params:
+    return {"table": ("vocab", "embed")}
+
+
+def _rows(table) -> int:
+    return (table["q"] if is_qpack(table) else table).shape[0]
+
+
+def _lookup(table, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    if is_qpack(table):
+        return (table["q"][tokens].to(dtype)
+                * table["scale"][tokens][..., None].to(dtype))
+    return table.to(dtype)[tokens]
+
+
 def embed(tokens: torch.Tensor, params: Params,
-          compute_dtype: torch.dtype) -> torch.Tensor:
+          compute_dtype: torch.dtype, vocab: int = 0) -> torch.Tensor:
     """Row gather (the reference's one-hot matmul gives the same bits);
-    an int8 table gathers rows and scales each by its own scale."""
+    an int8 table gathers rows and scales each by its own scale.  Where a
+    rank holds fewer than ``vocab`` rows (vocab-parallel), it looks up
+    the tokens in its block, zeros the others and sums over the vocab
+    axis: each token's row comes from one rank, plus exact zeros."""
     t = params["table"]
-    if is_qpack(t):
-        return (t["q"][tokens].to(compute_dtype)
-                * t["scale"][tokens][..., None].to(compute_dtype))
-    return t.to(compute_dtype)[tokens]
+    rows = _rows(t)
+    if not vocab or rows == vocab:
+        return _lookup(t, tokens, compute_dtype)
+    local = tokens - paxes.rule_index("vocab") * rows
+    inside = (local >= 0) & (local < rows)
+    x = _lookup(t, local.clamp(0, rows - 1), compute_dtype)
+    x = torch.where(inside[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                      device=x.device))
+    return collectives.all_reduce_sum(x, paxes.rule_axes("vocab"))
 
 
-def unembed(x: torch.Tensor, params: Params) -> torch.Tensor:
+def unembed(x: torch.Tensor, params: Params, vocab: int = 0) -> torch.Tensor:
     """Project back to (padded) vocab logits.  An int8 (V, d) table is read
     in place as the transposed weight: its per-row scale is the
-    per-output-channel scale."""
-    return matmul_q(x, params["table"], transposed=True)
+    per-output-channel scale.  A rank holding fewer than ``vocab`` rows
+    computes its block of the logits, gathered over the vocab axis."""
+    y = matmul_q(x, params["table"], transposed=True)
+    if vocab and _rows(params["table"]) < vocab:
+        y = collectives.all_gather(y, -1, paxes.rule_axes("vocab"))
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -109,6 +170,16 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ---------------------------------------------------------------------------
 # MLP: SwiGLU where the params hold a gate, else GELU (whisper's)
 # ---------------------------------------------------------------------------
+def mlp_specs(mlp_type: str = "swiglu") -> Params:
+    p = {
+        "up": dense_specs("embed", "mlp"),
+        "down": dense_specs("mlp", "embed"),
+    }
+    if mlp_type != "gelu":
+        p["gate"] = dense_specs("embed", "mlp")
+    return p
+
+
 def mlp(x: torch.Tensor, params: Params) -> torch.Tensor:
     if "gate" in params:
         h = F.silu(dense(x, params["gate"])) * dense(x, params["up"])

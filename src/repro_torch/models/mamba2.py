@@ -28,6 +28,24 @@ def dims(cfg):
     return d_inner, nheads, conv_dim
 
 
+def mamba_specs(cfg) -> Dict:
+    """The reference's logical axes of a Mamba-2 mixer's parameters."""
+    return {
+        "wz": ("embed", "mlp"),
+        "wx": ("embed", "mlp"),
+        "wB": ("embed", None),
+        "wC": ("embed", None),
+        "wdt": ("embed", "heads"),
+        "out": ("mlp", "embed"),
+        "conv_w": (None, None),   # tiny depthwise taps: replicated
+        "conv_b": (None,),
+        "A_log": ("heads",),
+        "D": ("heads",),
+        "dt_bias": ("heads",),
+        "norm_scale": ("mlp",),
+    }
+
+
 def init_mamba(generator: torch.Generator, cfg, device) -> Params:
     """Random parameters with the reference's initializer scales, drawn
     from ``generator`` (on ``device``).  ``A_log``, ``D`` and ``dt_bias``

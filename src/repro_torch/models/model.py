@@ -35,10 +35,20 @@ or what ``install_slot_context`` put there.  A parameter tree from
 ``models.quant.quantize_params`` or ``init_params(int8=True)`` (int8
 packs) runs every mode's matmuls through the int8 GEMM kernel, the
 experts one call an expert and projection.
+
+``param_specs`` is the reference's logical-axis spec tree, keyed as the
+port's tree (a spec dict a layer).  Under a sharding context (the
+serving engine's mesh: ``parallel.axes``) a decode-mode forward of the
+dense family runs on this rank's blocks of the parameters and the cache:
+a vocab-parallel embedding and unembedding, column- and row-parallel
+projections, and the sequence-parallel decode where the cache length is
+split (``attention._attn_decode_spkv``).  ``init_params(shard=...)``
+cuts each layer to the rank's block as it is drawn, so a rank never
+holds more than one whole layer.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -46,6 +56,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.common import resolve_device
 from repro_torch.models import attention, blocks, decode_state, layers, quant
 from repro_torch.models.layers import dtype_of
+from repro_torch.parallel import axes as paxes
 
 Params = Dict[str, Any]
 
@@ -81,7 +92,9 @@ class LM:
         return torch.ones((n,), dtype=self.param_dtype, device=self.device)
 
     def init_params(self, generator: Optional[torch.Generator], *,
-                    int8: bool = False) -> Params:
+                    int8: bool = False,
+                    shard: Optional[Callable[[Params, Params], Params]] = None
+                    ) -> Params:
         """Random parameters with the reference's initializer scales,
         drawn from ``generator`` (which must live on ``self.device``).
 
@@ -90,30 +103,88 @@ class LM:
         in the param dtype: the embedding tables and each layer (hybrid,
         vlm: each sub-layer of a period; audio: the encoder's layers
         too) are drawn and quantized before the next is drawn, so the
-        peak is the int8 tree and one layer in the param dtype."""
+        peak is the int8 tree and one layer in the param dtype.
+
+        ``shard(tree, specs)``: applied to each piece as it is drawn (and
+        quantized) with its spec tree (``layout_specs`` of the piece), e.g.
+        a rank's ``parallel.axes.shard_tree``: the same draws, each piece
+        cut before the next is drawn."""
         cfg = self.cfg
         d = cfg.d_model
         g = generator
-        q = quant.quantize_params if int8 else (lambda tree: tree)
+        specs = self.param_specs()
+
+        def q(tree, spec):
+            if int8:
+                tree = quant.quantize_params(tree)
+            if shard is None:
+                return tree
+            return shard(tree, quant.quantize_specs(spec, tree) if int8
+                         else spec)
+
         p: Params = {
             "embed": q({"table": self._normal(g, (cfg.padded_vocab, d),
-                                              0.02)}),
+                                              0.02)}, specs["embed"]),
             "final_norm": {"scale": self._ones(d)},
         }
         if not cfg.tie_embeddings:
             p["unembed"] = q({"table": self._normal(
-                g, (cfg.padded_vocab, d), 0.02)})
-        p["stack"] = [self._init_layer(g, i, q)
+                g, (cfg.padded_vocab, d), 0.02)}, specs["unembed"])
+        p["stack"] = [self._init_layer(g, i, q, specs["stack"][i])
                       for i in range(self.n_periods)]
         if cfg.is_encdec:
+            enc = specs["encoder"]["stack"]
             p["encoder"] = {
                 "stack": [q(blocks.init_attn_layer(g, cfg, self.device,
-                                                   use_moe=False))
-                          for _ in range(cfg.n_encoder_layers)],
+                                                   use_moe=False), enc[i])
+                          for i in range(cfg.n_encoder_layers)],
                 "final_norm": {"scale": self._ones(d)}}
         return p
 
-    def _init_layer(self, g, i: int, q) -> Params:
+    def param_specs(self) -> Params:
+        """The reference's logical-axis spec of every parameter, keyed as
+        ``init_params``' tree (one spec dict a stack entry)."""
+        cfg = self.cfg
+        p: Params = {"embed": layers.embedding_specs(),
+                     "final_norm": layers.rmsnorm_specs()}
+        if not cfg.tie_embeddings:
+            p["unembed"] = layers.embedding_specs()
+        p["stack"] = [self._layer_specs(i) for i in range(self.n_periods)]
+        if cfg.is_encdec:
+            p["encoder"] = {
+                "stack": [blocks.attn_layer_specs(cfg, use_moe=False)
+                          for _ in range(cfg.n_encoder_layers)],
+                "final_norm": layers.rmsnorm_specs()}
+        return p
+
+    def _layer_specs(self, i: int) -> Params:
+        cfg = self.cfg
+        if cfg.family == "ssm":
+            return blocks.mamba_layer_specs(cfg, with_ffn=cfg.d_ff > 0)
+        if cfg.family == "audio":
+            return blocks.decoder_layer_specs(cfg)
+        if cfg.family == "vlm":
+            per = cfg.cross_attn_period
+            period = {f"s{j}": blocks.attn_layer_specs(cfg, use_moe=False)
+                      for j in range(per - 1)}
+            period["cross"] = blocks.cross_layer_specs(cfg)
+            return period
+        if cfg.family != "hybrid":
+            return blocks.attn_layer_specs(cfg, cfg.layer_uses_moe(i))
+        spec = {"attn": blocks.attn_layer_specs,
+                "mamba": blocks.mamba_layer_specs}
+        return {f"s{j}": spec[cfg.layer_kind(j)](cfg, cfg.layer_uses_moe(j))
+                for j in range(cfg.attn_period)}
+
+    def layout_specs(self, params: Params) -> Params:
+        """The spec tree of ``params``: ``param_specs``, or where the tree
+        holds int8 packs, ``quant.quantize_specs`` of it."""
+        specs = self.param_specs()
+        if quant.has_qpack(params):
+            return quant.quantize_specs(specs, params)
+        return specs
+
+    def _init_layer(self, g, i: int, q, spec) -> Params:
         """Stack entry i, each layer passed through ``q`` as it is drawn:
         a layer (audio: the decoder layer with its cross-attention), or a
         period of sub-layers ``s0``… — hybrid: attention where
@@ -121,22 +192,24 @@ class LM:
         vlm: attention layers, then the gated ``cross`` layer."""
         cfg, dev = self.cfg, self.device
         if cfg.family == "ssm":
-            return q(blocks.init_mamba_layer(g, cfg, dev))
+            return q(blocks.init_mamba_layer(g, cfg, dev), spec)
         if cfg.family == "audio":
-            return q(blocks.init_decoder_layer(g, cfg, dev))
+            return q(blocks.init_decoder_layer(g, cfg, dev), spec)
         if cfg.family == "vlm":
             per = cfg.cross_attn_period
-            period = {f"s{j}": q(blocks.init_attn_layer(g, cfg, dev, False))
+            period = {f"s{j}": q(blocks.init_attn_layer(g, cfg, dev, False),
+                                 spec[f"s{j}"])
                       for j in range(per - 1)}
-            period["cross"] = q(blocks.init_cross_layer(g, cfg, dev))
+            period["cross"] = q(blocks.init_cross_layer(g, cfg, dev),
+                                spec["cross"])
             return period
         if cfg.family != "hybrid":
             return q(blocks.init_attn_layer(g, cfg, dev,
-                                            cfg.layer_uses_moe(i)))
+                                            cfg.layer_uses_moe(i)), spec)
         init = {"attn": blocks.init_attn_layer,
                 "mamba": blocks.init_mamba_layer}
         return {f"s{j}": q(init[cfg.layer_kind(j)](
-            g, cfg, dev, cfg.layer_uses_moe(j)))
+            g, cfg, dev, cfg.layer_uses_moe(j)), spec[f"s{j}"])
             for j in range(cfg.attn_period)}
 
     def init_param_bytes(self) -> int:
@@ -178,14 +251,18 @@ class LM:
                                                   delta)
 
     def install_cache_prefix(self, cache: Params, src_slot: int,
-                             dst_slot: int, n_tokens: int) -> Params:
+                             dst_slot: int, n_tokens: int,
+                             kv_offset: int = 0) -> Params:
         """Copy the first ``n_tokens`` K/V entries of ``src_slot``'s rows
         into ``dst_slot`` and set its position counter to ``n_tokens``,
         in place: the device half of the prefix cache (only for
         ``decode_state.prefix_cachable`` families); ``src_slot ==
-        dst_slot`` trims in place."""
+        dst_slot`` trims in place.  ``kv_offset``: the first cache
+        position of a rank's slice of the cache length (sequence-
+        parallel serving)."""
         return decode_state.copy_state_prefix(cache, self.cache_specs(),
-                                              src_slot, dst_slot, n_tokens)
+                                              src_slot, dst_slot, n_tokens,
+                                              kv_offset=kv_offset)
 
     def install_slot_context(self, params: Params, cache: Params, slot: int,
                              extra: Dict[str, Any]) -> Params:
@@ -280,7 +357,13 @@ class LM:
                 f"mode={mode!r}: the port runs train, prefill and decode "
                 f"modes")
         cfg = self.cfg
-        x = layers.embed(tokens, params["embed"], self.compute_dtype)
+        if paxes.active() and (mode != "decode" or cfg.family != "dense"):
+            raise NotImplementedError(
+                f"a {cfg.family} forward in mode {mode!r} under a mesh: the "
+                f"port shards the dense family's decode mode only (ROADMAP "
+                f"A10)")
+        x = layers.embed(tokens, params["embed"], self.compute_dtype,
+                         cfg.padded_vocab)
         if cfg.family == "ssm":
             x, _ = blocks.run_stack(x, params["stack"], cfg, mode=mode,
                                     cache=cache, n_valid=n_valid)
@@ -295,8 +378,9 @@ class LM:
                                     ctx=ctx)
             kv["pos"].add_(tokens.shape[1])
             return self._logits(params, x), cache
-        write = attention.decode_write(kv["pos"], tokens.shape[1],
-                                       kv["k"].shape[2], n_valid)
+        write = attention.decode_write(
+            kv["pos"], tokens.shape[1],
+            kv["k"].shape[2] * paxes.rule_size("kv_seq"), n_valid)
         x, _ = blocks.run_stack(x, params["stack"], cfg,
                                 positions=positions, rope=rope, cache=cache,
                                 write=write, paged=paged, n_valid=n_valid)
@@ -338,7 +422,7 @@ class LM:
 
     def _unembed(self, params, x):
         emb = params["embed"] if self.cfg.tie_embeddings else params["unembed"]
-        return layers.unembed(x, emb).float()
+        return layers.unembed(x, emb, self.cfg.padded_vocab).float()
 
 
 def build_model(cfg: ModelConfig, device=None) -> LM:

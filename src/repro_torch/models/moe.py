@@ -30,6 +30,16 @@ from repro_torch.models.quant import is_qpack
 Params = Dict[str, Any]
 
 
+def moe_specs(cfg) -> Dict:
+    """The reference's logical axes of an MoE layer's parameters."""
+    return {
+        "router": ("embed", None),
+        "gate": ("expert", "embed", "expert_mlp"),
+        "up": ("expert", "embed", "expert_mlp"),
+        "down": ("expert", "expert_mlp", "embed"),
+    }
+
+
 def init_moe(generator: torch.Generator, cfg, device) -> Params:
     """Router fp32 (d, E), gate/up (E, d, f), down (E, f, d) with the
     reference's scales, drawn from ``generator`` in that order.  The

@@ -14,8 +14,11 @@ pack through the int8 GEMM (``kernels.wq_gemm``: the CUDA kernel on the
 card, its plain version on the CPU), so the quantized tree drops into the
 unmodified forward.  Per-output-channel symmetric scales keep (x @ q)·s
 == x @ (q·s) up to rounding; the only error is the int8 rounding of the
-weights (~0.4% relative).  The reference's ``quantize_specs`` waits for
-the port's sharding (ROADMAP A10).
+weights (~0.4% relative).  ``quantize_specs`` is the spec tree of a
+quantized model, which only sharding reads: a q-pack is sliced as its
+weight, its ``scale`` follows the weight's out axis (whole where only the
+contraction dim is split), so each rank's slice goes through the int8
+GEMM on its own.
 """
 from __future__ import annotations
 
@@ -61,6 +64,17 @@ def quant_table(t: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 def is_qpack(p: Any) -> bool:
     return isinstance(p, dict) and set(p.keys()) == {"q", "scale"}
+
+
+def has_qpack(tree: Any) -> bool:
+    """Whether a parameter tree holds an int8 pack anywhere."""
+    if is_qpack(tree):
+        return True
+    if isinstance(tree, dict):
+        return any(has_qpack(v) for v in tree.values())
+    if isinstance(tree, list):
+        return any(has_qpack(v) for v in tree)
+    return False
 
 
 def matmul_q(x: torch.Tensor, w: Any, transposed: bool = False
@@ -111,3 +125,43 @@ def quantize_params(params: Dict[str, Any]) -> Dict[str, Any]:
 def param_bytes(tree: Any) -> int:
     """Bytes of every tensor in a parameter tree."""
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def quantize_specs(specs: Dict[str, Any], params: Dict[str, Any]
+                   ) -> Dict[str, Any]:
+    """Mirror ``quantize_params`` over the logical-axis spec tree (the
+    port's layout: per-layer lists).  q keeps the weight's spec; scale
+    takes the spec's out-dim axis.  ``params``, the float tree or the
+    quantized one (anything of that structure whose leaves have
+    ``ndim``), says which leaves are the weights ``quantize_params``
+    packs."""
+
+    def scale_spec(v: tuple) -> tuple:
+        # scales reduce over the contraction (second-to-last) dim
+        return tuple(v[:-2]) + (v[-1],)
+
+    def ndim(x) -> int:
+        return x["q"].ndim if is_qpack(x) else getattr(x, "ndim", 0)
+
+    def walk(spec, leaf):
+        if isinstance(spec, list):
+            return [walk(s, t) for s, t in zip(spec, leaf)]
+        if not isinstance(spec, dict):
+            return spec
+        if set(spec) == {"w"} and ndim(leaf.get("w", leaf)) == 2:
+            return {"q": spec["w"], "scale": scale_spec(spec["w"])}
+        if set(spec) == {"table"}:
+            return {"table": {"q": spec["table"],
+                              "scale": (spec["table"][0],)}}
+        out = {}
+        for k, v in spec.items():
+            sv = leaf.get(k) if isinstance(leaf, dict) else None
+            if k in _MOE_KEYS and ndim(sv) == 3:
+                out[k] = {"q": v, "scale": scale_spec(v)}
+            elif k in _MAMBA_KEYS and "A_log" in spec and ndim(sv) == 2:
+                out[k] = {"q": v, "scale": scale_spec(v)}
+            else:
+                out[k] = walk(v, sv)
+        return out
+
+    return walk(specs, params)

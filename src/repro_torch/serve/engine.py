@@ -88,18 +88,37 @@ shapes.  On the CPU no sweep can be timed:
 tune, and ``paged_kernel=False`` tunes nothing (``paged_meta`` is
 ``None``).
 
-Not ported yet (each raises ``NotImplementedError`` if asked for): the
-device mesh (``mesh``, ``rules``, ``sp_kv``) and build-time trace
-analysis (``analyze``).  For a family
+Sharded serving (``mesh``, ``rules``, ``sp_kv``; the dense family): one
+engine a rank of a ``launch.mesh.Mesh``, every rank with the same host
+scheduler and cache bookkeeping, each holding only its block of every
+parameter and of the cache (``mesh_layout``: the reference's logical-axis
+rules resolved over the mesh, ``sharding_meta`` its ``layout_report``).
+The slots split over the ``batch`` axes (``n_shards``, the cache's slot
+shards): a rank runs the decode forward over its slots and the prefill
+rows of its slots, and the sampled tokens are combined over those axes
+before the host commits them, so every rank makes the same host
+decisions (EOS, admissions, prefix donors) and returns the same results.
+The model axis splits heads, the MLP and the vocabulary; ``sp_kv=True``
+splits the cache length over it instead of the KV heads, unless the
+cache length does not divide (the reference's honesty rule: the rule is
+stripped and the decision recorded).  A mesh of one position is the
+unsharded engine.  Under a mesh, speculative decoding, the stall-free
+policy, the open-loop front end and every family but dense raise
+``NotImplementedError`` (ROADMAP A10).
+
+Not ported yet (raises ``NotImplementedError`` if asked for):
+build-time trace analysis (``analyze``).  For a family
 whose state cannot be cut to a token prefix (ssm, hybrid)
 ``prefix_cache=True`` warns and serves with the pool off, as the
 reference does.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import math
 import warnings
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -108,10 +127,15 @@ from repro_torch.analysis.findings import Finding
 from repro_torch.analysis.schedcheck import SchedChecker
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import costmodel
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import decode_state
 from repro_torch.models.attention import PagedDecodeState
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import LM
+from repro_torch.models.quant import has_qpack
+from repro_torch.parallel import axes as paxes
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import layout_report, rules_for
 from repro_torch.serve import sampling
 from repro_torch.serve.cache import PagedKVCache
 from repro_torch.serve.draft import NGramDrafter
@@ -120,9 +144,7 @@ from repro_torch.serve.scheduler import (Request, RequestState, Scheduler,
 
 # reference engine options this port does not have yet, with the value
 # that means "off"; anything else raises NotImplementedError
-_NOT_PORTED = {
-    "mesh": None, "rules": None, "sp_kv": False, "analyze": False,
-}
+_NOT_PORTED = {"analyze": False}
 
 
 def make_prefill_step(model: LM) -> Callable:
@@ -175,6 +197,136 @@ def _record(stats, events, **counts) -> None:
         events[1].record()
         rec.start, rec.end = events
     stats.steps.append(rec)
+
+
+# ---------------------------------------------------------------------------
+# mesh layout
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class MeshLayout:
+    """What ``mesh_layout`` resolves: the rules that run (``kv_seq``
+    stripped where SP-KV cannot), the slot shards and their mesh axes,
+    the resolved spec of every cache leaf and parameter, and the
+    forced-replication decisions, in the reference's order."""
+    rules: Dict[str, Any]
+    sp_kv: bool
+    n_shards: int
+    batch_axes: tuple
+    cache_specs: Any
+    param_specs: Any
+    decisions: List[str]
+
+
+def mesh_layout(model: LM, params, *, n_slots: int, max_len: int,
+                spec_k: int, mesh, rules, sp_kv: bool) -> MeshLayout:
+    """The reference engine's ``_init_mesh_layout`` without the device
+    puts: reads only ``mesh.shape``.  ``params``: the whole tree, or
+    anything of its structure with whole shapes (the meta device's)."""
+    extra_decisions: List[str] = []
+    if sp_kv:
+        # honesty over intent: sp_kv only runs when the kv_seq rule
+        # resolves to axes this mesh has and their size divides the cache
+        # length; otherwise the rule is stripped and, if it named axes,
+        # the decision recorded
+        kv_rule = rules.get("kv_seq")
+        kv_axes = tuple(a for a in (kv_rule if isinstance(kv_rule, tuple)
+                                    else (kv_rule,) if kv_rule else ())
+                        if a in mesh.shape)
+        size = (math.prod(mesh.shape[a] for a in kv_axes)
+                if kv_axes else 0)
+        if not kv_axes or max_len % size:
+            sp_kv = False
+            rules = dict(rules, kv_seq=None)
+            if kv_axes:
+                extra_decisions.append(
+                    f"sp_kv disabled: cache length {max_len} not "
+                    f"divisible by mesh axes {kv_axes} (size {size})")
+    with paxes.sharding_ctx(mesh, rules):
+        spec = paxes.resolve_spec(("batch",), (n_slots,))
+        axs = paxes.entry_axes(spec[0] if len(spec) else None)
+        n_shards = math.prod(mesh.shape[a] for a in axs) if axs else 1
+        meta = LM(model.cfg, device="meta")
+        cache = paxes.tree_shardings(model.cache_specs(),
+                                     meta.init_cache(n_slots, max_len),
+                                     mesh, rules)
+        # the slot, output-row and draft buffers (whole on every rank
+        # here), resolved as the reference resolves them
+        for shape in ((n_slots,), (3 * n_slots, max_len),
+                      (n_slots, spec_k + 1)):
+            paxes.resolve_spec(("batch", None)[:len(shape)], shape)
+        pspecs = paxes.tree_shardings(model.layout_specs(params), params,
+                                      mesh, rules)
+        decisions = extra_decisions + paxes.decisions()
+    return MeshLayout(dict(rules), sp_kv, n_shards, axs, cache, pspecs,
+                      decisions)
+
+
+def _split(entry, mesh) -> int:
+    return paxes.axes_size(mesh, paxes.entry_axes(entry))
+
+
+def _spec_at(spec, dim: int):
+    return spec[dim] if dim < len(spec) else None
+
+
+def check_dense_layout(cfg, lay: MeshLayout, mesh) -> None:
+    """Raise ``NotImplementedError`` where a rank's blocks are not what
+    the rank-local attention computes on: whole heads, and (without
+    SP-KV) its query heads' whole GQA groups beside them in its
+    projections and its cache."""
+    attn = lay.param_specs["stack"][0]["attn"]
+    out_dim = 1
+    q_split = _split(_spec_at(attn["wq"].get("w", attn["wq"].get("q")),
+                              out_dim), mesh)
+    kv_spec = attn["wk"].get("w", attn["wk"].get("q"))
+    kv_split = _split(_spec_at(kv_spec, out_dim), mesh)
+    cache_heads = _split(_spec_at(lay.cache_specs["k"], 3), mesh)
+    if cfg.n_heads % q_split or cfg.n_kv_heads % kv_split:
+        raise NotImplementedError(
+            f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
+            f"{cfg.resolved_head_dim} split {q_split} / {kv_split} ways: "
+            f"the resolved blocks cut a head (the rules resolve on the "
+            f"flattened heads x head_dim dim); serve with rules that "
+            f"replicate 'heads' / 'kv_heads' or on another mesh")
+    if lay.sp_kv:
+        return
+    if not q_split == kv_split == cache_heads:
+        raise NotImplementedError(
+            f"query heads split {q_split} ways, KV projections {kv_split}, "
+            f"cached KV heads {cache_heads}: a rank would hold query heads "
+            f"whose GQA group's KV heads live on another rank (n_kv_heads "
+            f"% model != 0); serve with sp_kv=True or rules that replicate "
+            f"'heads'")
+
+
+def _local_tree(tree, whole, specs, mesh):
+    """``tree`` as this rank's blocks: each leaf whose shape is the whole
+    leaf's is cut (a copy); one already of its block's shape is kept."""
+    if isinstance(tree, dict):
+        return {k: _local_tree(tree[k], whole[k], specs[k], mesh)
+                for k in tree}
+    if isinstance(tree, list):
+        return [_local_tree(*a, mesh) for a in zip(tree, whole, specs)]
+    full = tuple(whole.shape)
+    block = paxes.local_shape(full, specs, mesh)
+    if tuple(tree.shape) == full:
+        if block == full:
+            return tree
+        return paxes.local_slice(tree, specs, mesh).clone(
+            memory_format=torch.contiguous_format)
+    if tuple(tree.shape) == block:
+        return tree
+    raise ValueError(f"a parameter of shape {tuple(tree.shape)} is neither "
+                     f"the whole {full} nor this rank's block {block}")
+
+
+def _local_zeros(whole, specs, mesh, device):
+    """Zeros of this rank's block of every leaf of a (meta) tree."""
+    if isinstance(whole, dict):
+        return {k: _local_zeros(whole[k], specs[k], mesh, device)
+                for k in whole}
+    return torch.zeros(paxes.local_shape(whole.shape, specs, mesh),
+                       dtype=whole.dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +498,8 @@ class ContinuousBatchingEngine:
                  page_budget: Optional[int] = None,
                  eos_id: Optional[int] = None, seed: int = 0,
                  prefix_cache: bool = False, prefix_pool: int = 8,
+                 mesh: Optional[Mesh] = None, rules=None,
+                 sp_kv: bool = False,
                  paged_kernel: Optional[bool] = None, retune: bool = False,
                  spec_decode: bool = False, spec_k: int = 4,
                  check: Optional[bool] = None, **kwargs):
@@ -355,6 +509,12 @@ class ContinuousBatchingEngine:
             if value != _NOT_PORTED[name]:
                 raise NotImplementedError(
                     f"{name}={value!r} is not ported yet")
+        if mesh is not None:
+            _check_meshable(model, mesh, spec_decode, chunk_policy)
+        elif sp_kv:
+            raise NotImplementedError(
+                "sp_kv=True splits the cache length over a mesh's model "
+                "axis: pass mesh= (a launch.mesh.Mesh with a model axis)")
         if spec_decode and spec_k < 1:
             raise ValueError(
                 f"spec_decode=True needs spec_k >= 1, got {spec_k}")
@@ -373,10 +533,26 @@ class ContinuousBatchingEngine:
         self.device = model.device
         self.n_slots = n_slots
         self.max_len = max_len
+        # the mesh layout: this rank's slots [_slot_lo, _slot_lo +
+        # _n_local), its first cache position (SP-KV) and its blocks of
+        # the parameters; without a mesh, every slot and whole tensors
+        self.mesh = mesh
+        self.sp_kv = bool(sp_kv)
+        self.rules = None
+        self.n_shards = 1
+        self.sharding_meta: Optional[Dict[str, Any]] = None
+        self._slot_lo, self._n_local, self._kv_offset = 0, n_slots, 0
+        self._batch_axes: tuple = ()
+        self._layout: Optional[MeshLayout] = None
+        if mesh is not None:
+            self.rules = (dict(rules) if rules is not None
+                          else rules_for(model.cfg, mesh, sp_kv=sp_kv))
+            self._init_mesh_layout(prefill_chunk)
         self.kv = PagedKVCache(
             n_slots, max_len, page_size, page_budget=page_budget,
             slot_aux_tokens=model.decode_state.context_tokens(model.cfg),
-            prefix_pool=prefix_pool if self.prefix_cache else 0)
+            prefix_pool=prefix_pool if self.prefix_cache else 0,
+            n_shards=self.n_shards)
         self.sched = Scheduler(self.kv, prefill_chunk=prefill_chunk,
                                eos_id=eos_id, chunk_policy=chunk_policy,
                                tbt_target_s=tbt_target_s,
@@ -408,16 +584,25 @@ class ContinuousBatchingEngine:
         self.paged_kernel = (bool(paged_kernel) if paged_kernel is not None
                              else True)
         self._paged = model.decode_state.paged and self.paged_kernel
-        self._page_idx = (torch.as_tensor(self.kv.page_index_array(),
-                                          device=self.device)
-                          if self._paged else None)
+        self._page_idx = None
+        if self._paged:
+            # this rank's slots' rows of the page map, over its own pool
+            lo, n = self._slot_lo, self._n_local
+            pages = self.kv.page_index_array()[lo:lo + n]
+            self._page_idx = torch.as_tensor(
+                pages - lo * self.kv.pages_per_slot, device=self.device)
         # the pure-decode forward's KV split count (None: split_plan's)
         self._paged_splits: Optional[int] = None
         self.paged_meta: Optional[Dict] = None
         if self.paged_kernel:
             self.paged_meta = self._tune_paged_kernel(retune)
         self._n_out_rows = 3 * n_slots
-        self.cache = self.model.init_cache(self.n_slots, self.max_len)
+        if self._layout is None:
+            self.cache = self.model.init_cache(self.n_slots, self.max_len)
+        else:
+            self.cache = _local_zeros(
+                LM(model.cfg, device="meta").init_cache(n_slots, max_len),
+                self._layout.cache_specs, mesh, self.device)
         # a recurrent family's verify runs twice: its state (every leaf
         # that is not a K/V entry: conv windows, SSD h, position counters)
         # is copied here before the first pass and back before the second
@@ -433,9 +618,11 @@ class ContinuousBatchingEngine:
                                     dtype=torch.int32, device=self.device)
         self._prev_sampled = torch.zeros((self.n_slots,), dtype=torch.int32,
                                          device=self.device)
-        self._seed = seed
+        # each slot shard draws its own temperature noise (the ranks of one
+        # shard alike); shard 0's seed is the unsharded engine's
+        self._seed = seed + self._slot_lo // max(self._n_local, 1)
         self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(seed)
+        self._gen.manual_seed(self._seed)
         self._free_rows = list(range(self._n_out_rows))
         self._slot_row = np.full((self.n_slots,), -1, np.int32)
         self._pending: List[Request] = []        # finished, tokens unread
@@ -450,6 +637,55 @@ class ContinuousBatchingEngine:
         self.last_plan: Optional[StepPlan] = None
         self.last_sampled_rids: List[tuple] = []
         self.last_admitted_rids: List[int] = []
+
+    # -- mesh -----------------------------------------------------------
+    def _init_mesh_layout(self, prefill_chunk: int) -> None:
+        """Resolve the layout over ``self.mesh`` (``mesh_layout``), check
+        that the rank-local layers can run it, and keep this rank's
+        blocks of the parameters (a whole leaf is cut; a leaf already of
+        its block's shape is kept)."""
+        model, mesh = self.model, self.mesh
+        whole = LM(model.cfg, device="meta").init_params(
+            None, int8=has_qpack(self.params))
+        lay = mesh_layout(model, whole, n_slots=self.n_slots,
+                          max_len=self.max_len, spec_k=0, mesh=mesh,
+                          rules=self.rules, sp_kv=self.sp_kv)
+        check_dense_layout(model.cfg, lay, mesh)
+        self._layout = lay
+        self.rules, self.sp_kv, self.n_shards = (lay.rules, lay.sp_kv,
+                                                 lay.n_shards)
+        self._batch_axes = lay.batch_axes
+        self._n_local = self.n_slots // self.n_shards
+        self._slot_lo = paxes.axes_index(mesh, lay.batch_axes) * self._n_local
+        if self.sp_kv:
+            kv_axes = paxes.entry_axes(_spec_at(lay.cache_specs["k"], 2))
+            s_shard = self.max_len // paxes.axes_size(mesh, kv_axes)
+            if prefill_chunk > s_shard:
+                raise ValueError(
+                    f"prefill_chunk {prefill_chunk} is wider than a rank's "
+                    f"slice of the cache ({s_shard} positions): a step's "
+                    f"K/V write needs a distinct target a column")
+            self._kv_offset = paxes.axes_index(mesh, kv_axes) * s_shard
+        self.params = _local_tree(self.params, whole, lay.param_specs, mesh)
+        self.sharding_meta = layout_report(mesh, lay.rules, lay.decisions,
+                                           n_shards=self.n_shards,
+                                           sp_kv=self.sp_kv)
+
+    def _ctx(self):
+        """The sharding context a forward runs in (none without a mesh)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return paxes.sharding_ctx(self.mesh, self.rules)
+
+    def _owns(self, slot: int) -> bool:
+        return self._slot_lo <= slot < self._slot_lo + self._n_local
+
+    def _gather_slots(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's slots' values (dim 0) -> every slot's, over the
+        slot shards' axes (a no-op without a mesh)."""
+        if self.mesh is None:
+            return t
+        return collectives.all_gather(t, 0, self._batch_axes, self.mesh)
 
     @property
     def snapshot_bytes(self) -> int:
@@ -472,6 +708,10 @@ class ContinuousBatchingEngine:
             # no attention KV on the decode path: nothing to tune
             return {"skipped": f"family {cfg.family!r} has no attention "
                                f"KV cache"}
+        if self.mesh is not None:
+            return {"skipped": "under a mesh: each rank launches at "
+                               "split_plan's count (the sweep times the "
+                               "unsharded shape)"}
         if self.device.type != "cuda":
             if retune:
                 raise RuntimeError(
@@ -515,31 +755,37 @@ class ContinuousBatchingEngine:
         """The decode rows' (tokens, positions), the first ``width``
         columns of the plan's: each row's input token is the previous
         step's on-device sample (``token_src``), drafts ride behind it."""
-        tokens = self._dev(plan.tokens[:, :width], torch.long)
-        token_src = self._dev(plan.token_src, torch.bool)
-        tokens[:, 0] = torch.where(token_src, self._prev_sampled.long(),
+        rows = slice(self._slot_lo, self._slot_lo + self._n_local)
+        tokens = self._dev(plan.tokens[rows, :width], torch.long)
+        token_src = self._dev(plan.token_src[rows], torch.bool)
+        tokens[:, 0] = torch.where(token_src,
+                                   self._prev_sampled[rows].long(),
                                    tokens[:, 0])
-        return tokens, self._dev(plan.positions[:, :width], torch.long)
+        return tokens, self._dev(plan.positions[rows, :width], torch.long)
 
     def _forward_decode(self, tokens, positions, n_valid,
                         splits: Optional[int] = None) -> torch.Tensor:
-        logits, self.cache = self.model.forward(
-            self.params, tokens, positions, mode="decode", cache=self.cache,
-            n_valid=n_valid, paged=self._paged_state(self._page_idx, splits))
+        with self._ctx():
+            logits, self.cache = self.model.forward(
+                self.params, tokens, positions, mode="decode",
+                cache=self.cache, n_valid=n_valid,
+                paged=self._paged_state(self._page_idx, splits))
         self.stats.forwards += 1
         return logits
 
     def _decode_step(self, plan: StepPlan) -> None:
         """The plain single-column step (with ``spec_decode`` on, a step
-        where no row carries a draft: the no-draft fast path)."""
+        where no row carries a draft: the no-draft fast path).  Under a
+        mesh, over this rank's slots; the samples are then gathered."""
+        rows = slice(self._slot_lo, self._slot_lo + self._n_local)
         tokens, positions = self._decode_inputs(plan, 1)
-        logits = self._forward_decode(tokens, positions,
-                                      self._dev(plan.n_valid, torch.int32),
-                                      splits=self._paged_splits)
-        temps = self._dev(plan.temperatures, torch.float32)
-        nxt = sampling.sample_tokens(
+        logits = self._forward_decode(
+            tokens, positions, self._dev(plan.n_valid[rows], torch.int32),
+            splits=self._paged_splits)
+        temps = self._dev(plan.temperatures[rows], torch.float32)
+        nxt = self._gather_slots(sampling.sample_tokens(
             logits[:, 0], temps, self._gen,
-            any_temp=bool((plan.temperatures > 0).any()))
+            any_temp=bool((plan.temperatures > 0).any())))
         sample = [s for s in range(self.n_slots)
                   if plan.out_idx[s] < self.max_len]
         self._commit_samples(nxt, sample, sample,
@@ -604,25 +850,44 @@ class ContinuousBatchingEngine:
                                           acc[sl].gather(1, last)[:, 0])
         return n_accept, acc
 
-    def _prefill_row(self, pf) -> None:
-        row = self.model.cache_row(self.cache, pf.slot)
-        logits, row = self.model.forward(
-            self.params, self._dev(pf.tokens, torch.long),
-            self._dev(pf.positions, torch.long), mode="decode", cache=row,
-            n_valid=self._dev(pf.n_valid, torch.int32),
-            paged=self._paged_state(None))
-        self.model.set_cache_row(self.cache, pf.slot, row)
-        # the sample comes from the last valid column (it only commits
-        # when the chunk completes the prompt)
+    def _prefill_row(self, pf) -> torch.Tensor:
+        """One prefill chunk's batch-1 forward on its slot's row; returns
+        the (1,) sample of its last valid column (it only commits when
+        the chunk completes the prompt)."""
+        slot = pf.slot - self._slot_lo
+        row = self.model.cache_row(self.cache, slot)
+        with self._ctx():
+            logits, row = self.model.forward(
+                self.params, self._dev(pf.tokens, torch.long),
+                self._dev(pf.positions, torch.long), mode="decode",
+                cache=row, n_valid=self._dev(pf.n_valid, torch.int32),
+                paged=self._paged_state(None))
+        self.model.set_cache_row(self.cache, slot, row)
         last_col = max(int(pf.n_valid[0]) - 1, 0)
-        nxt = sampling.sample_tokens(
+        return sampling.sample_tokens(
             logits[:, last_col],
             torch.full((1,), pf.temperature, dtype=torch.float32,
                        device=self.device),
             self._gen, any_temp=pf.temperature > 0)
-        if pf.out_idx < self.max_len:
-            self._commit_samples(nxt, [pf.slot], [0], [int(pf.out_idx)])
-        self.stats.forwards += 1
+
+    def _prefill_rows(self, plan: StepPlan) -> None:
+        """The plan's prefill rows.  Under a mesh each runs on the ranks
+        of its slot's shard, and the samples are summed over the slot
+        shards (every other rank adds 0) before they are committed."""
+        if not plan.prefills:
+            return
+        nxt = torch.zeros((len(plan.prefills),), dtype=torch.int32,
+                          device=self.device)
+        for i, pf in enumerate(plan.prefills):
+            if self._owns(pf.slot):
+                nxt[i:i + 1] = self._prefill_row(pf)
+            self.stats.forwards += 1
+        if self.mesh is not None:
+            nxt = collectives.all_reduce_sum(nxt, self._batch_axes,
+                                             self.mesh)
+        for i, pf in enumerate(plan.prefills):
+            if pf.out_idx < self.max_len:
+                self._commit_samples(nxt, [pf.slot], [i], [int(pf.out_idx)])
 
     def _admit(self, plan: StepPlan) -> None:
         """Three-phase (re-)admission of the plan's reset slots: zero the
@@ -640,11 +905,17 @@ class ContinuousBatchingEngine:
                 zero_mask[slot] = False
                 prefix_installs.append((int(req.prefix_src), int(slot),
                                         int(req.prefix_len)))
-        if zero_mask.any():
+        lo, n = self._slot_lo, self._n_local
+        local_zero = zero_mask[lo:lo + n]
+        if local_zero.any():
             self.model.reset_cache_slots(
-                self.cache, self._dev(zero_mask, torch.bool))
+                self.cache, self._dev(local_zero, torch.bool))
         for src, dst, n_tok in prefix_installs:
-            self.model.install_cache_prefix(self.cache, src, dst, n_tok)
+            # a donor and its admitted slot share a slot shard
+            if self._owns(dst):
+                self.model.install_cache_prefix(self.cache, src - lo,
+                                                dst - lo, n_tok,
+                                                kv_offset=self._kv_offset)
         for slot in np.nonzero(plan.reset_mask)[0]:
             req = self.sched.active.get(int(slot))
             if req is not None and req.extra:
@@ -688,8 +959,7 @@ class ContinuousBatchingEngine:
                 verify = self._verify_step(plan)
             else:
                 self._decode_step(plan)
-        for pf in plan.prefills:
-            self._prefill_row(pf)
+        self._prefill_rows(plan)
         # which requests sampled a token this step and which were first
         # scheduled, recorded before the commit while the slot -> rid map
         # is live (a slot admitted and preempted within this same plan is
@@ -838,7 +1108,8 @@ class ContinuousBatchingEngine:
                                self.kv.page_size,
                                page_budget=self.kv.page_budget,
                                slot_aux_tokens=self.kv.slot_aux_tokens,
-                               prefix_pool=self.kv.prefix_pool)
+                               prefix_pool=self.kv.prefix_pool,
+                               n_shards=self.n_shards)
         self.sched = Scheduler(self.kv,
                                prefill_chunk=self.sched.prefill_chunk,
                                eos_id=self.sched.eos_id,
@@ -852,7 +1123,7 @@ class ContinuousBatchingEngine:
         if self.check:
             self.checker = SchedChecker.attach(self.kv, self.sched)
         self.model.reset_cache_slots(
-            self.cache, torch.ones((self.n_slots,), dtype=torch.bool,
+            self.cache, torch.ones((self._n_local,), dtype=torch.bool,
                                    device=self.device))
         self._out_buf.zero_()
         self._prev_sampled.zero_()
@@ -978,6 +1249,28 @@ class ContinuousBatchingEngine:
         results = self.run()
         return torch.as_tensor(np.stack([results[r] for r in rids]),
                                device=self.device)
+
+
+def _check_meshable(model: LM, mesh, spec_decode: bool,
+                    chunk_policy: str) -> None:
+    """Raise ``NotImplementedError`` for what is not served under a mesh
+    yet (ROADMAP A10)."""
+    if not isinstance(mesh, Mesh):
+        raise NotImplementedError(
+            f"mesh={mesh!r}: the port serves over a repro_torch.launch.mesh."
+            f"Mesh of torch.distributed ranks (launch.mesh.parse_mesh / "
+            f"make_mesh), not another kind of mesh")
+    what = []
+    if model.cfg.family != "dense":
+        what.append(f"the {model.cfg.family} family")
+    if spec_decode:
+        what.append("speculative decoding")
+    if chunk_policy != "fixed":
+        what.append(f"chunk_policy={chunk_policy!r}")
+    if what:
+        raise NotImplementedError(
+            f"{', '.join(what)} under a mesh: not ported yet (ROADMAP A10: "
+            f"sharded serving covers the dense family's closed-loop engine)")
 
 
 def _host(a) -> np.ndarray:

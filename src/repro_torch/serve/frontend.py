@@ -110,6 +110,11 @@ class OpenLoopFrontend:
     def __init__(self, engine, *, clock: str = "wall"):
         if clock not in CLOCKS:
             raise ValueError(f"clock {clock!r} not in {CLOCKS}")
+        if getattr(engine, "mesh", None) is not None:
+            raise NotImplementedError(
+                "the open-loop front end over a sharded engine is not "
+                "ported yet (ROADMAP A10): serve it closed-loop "
+                "(engine.run())")
         if clock == "wall" and engine.device.type != "cuda":
             raise ValueError(
                 f"clock='wall' times each step with CUDA events, and the "

@@ -15,16 +15,22 @@ bfloat16 leaves are carried bit for bit: in, from numpy's ``bfloat16``
 extension dtype or from raw 2-byte ``V2`` bits; out, as ``V2`` bits
 (``np.save`` writes them as the reference's checkpointer does), since
 numpy has no bfloat16 of its own.
+
+``params_from_numpy(..., shard=(specs, mesh, rules))`` gives a rank of a
+mesh only its blocks (``parallel.axes.local_slice`` of each leaf under
+its resolved spec): a block of a memory-mapped array is the only part
+read.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.kernels.common import resolve_device
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.parallel import axes as paxes
+from repro_torch.tree import tree_leaves
 
 
 BF16_BITS = np.dtype("V2")
@@ -39,24 +45,45 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def params_from_numpy(tree: Dict[str, Any], device=None) -> Dict[str, Any]:
+def params_from_numpy(tree: Dict[str, Any], device=None, *,
+                      shard: Optional[Tuple[Any, Any, Any]] = None
+                      ) -> Dict[str, Any]:
+    """The reference's numpy tree as the port's parameters on ``device``.
+    ``shard``: ``(specs, mesh, rules)``, the port's spec tree of these
+    parameters (``LM.layout_specs``), a ``launch.mesh.Mesh`` and the rules
+    (``None``: the defaults); each leaf is then cut to this rank's block
+    before it is copied."""
     dev = resolve_device(device)
+    specs, mesh, rules = shard if shard is not None else (None, None, None)
+
+    def put(a, spec):
+        if spec is not None:
+            a = paxes.local_slice(a, paxes.resolve_spec(
+                spec, np.shape(a), mesh, rules, record=False), mesh)
+        return tensor_from_numpy(a, dev)
+
     out = {}
     for k, v in tree.items():
+        spec = None if specs is None else specs[k]
         if k == "stack":
-            out[k] = _split_layers(v, dev)
+            n_layers = int(np.shape(tree_leaves(v)[0])[0])
+            out[k] = [_map(lambda a, sp, i=i: put(a[i], sp), v,
+                           None if spec is None else spec[i])
+                      for i in range(n_layers)]
         elif k == "encoder":
-            out[k] = params_from_numpy(v, dev)
+            out[k] = params_from_numpy(
+                v, dev, shard=None if shard is None else (spec, mesh, rules))
         else:
-            out[k] = tree_map(lambda a: tensor_from_numpy(a, dev), v)
+            out[k] = _map(put, v, spec)
     return out
 
 
-def _split_layers(stacked, dev):
-    """Leaves with a leading layer axis -> a list of per-layer dicts."""
-    n_layers = int(np.shape(tree_leaves(stacked)[0])[0])
-    return [tree_map(lambda a, i=i: tensor_from_numpy(a[i], dev), stacked)
-            for i in range(n_layers)]
+def _map(fn, tree, spec):
+    """``fn(leaf, its spec or None)`` over a dict tree."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], None if spec is None else spec[k])
+                for k in sorted(tree)}
+    return fn(tree, spec)
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:

@@ -31,10 +31,17 @@ def test_import_leaves_jax_out():
             "repro_torch.models.quant, repro_torch.launch.serve, "
             "repro_torch.serve.frontend, repro_torch.serve.arrivals, "
             "repro_torch.serve.slo, repro_torch.perf.report, "
-            "repro_torch.core.costmodel, repro_torch.configs.shapes; "
+            "repro_torch.core.costmodel, repro_torch.configs.shapes, "
+            "repro_torch.parallel, repro_torch.parallel.collectives, "
+            "repro_torch.launch.mesh, repro_torch.checkpoint.elastic; "
+            "import torch.distributed as dist; "
+            "from repro_torch.kernels.paged_attention import kernel as pk; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith('jax.') or m == 'repro' "
-            "or m.startswith('repro.')); print(bad); sys.exit(bool(bad))")
+            "or m.startswith('repro.')); "
+            "bad += ['process group'] * dist.is_initialized(); "
+            "bad += ['kernel built'] * pk.load_library.cache_info().currsize; "
+            "print(bad); sys.exit(bool(bad))")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, env=env, cwd=ROOT)
@@ -60,7 +67,10 @@ def test_no_reference_or_jax_imports():
     names = {str(f.relative_to(PORT)) for f in files[:-1]}
     assert {"kernels/ssd_scan/ops.py", "kernels/ssd_scan/kernel.py",
             "kernels/ssd_scan/ref.py", "models/mamba2.py", "models/quant.py",
-            "launch/serve.py", "configs/mamba2_780m.py"} <= names
+            "launch/serve.py", "configs/mamba2_780m.py",
+            "parallel/axes.py", "parallel/sharding.py",
+            "parallel/collectives.py", "launch/mesh.py",
+            "checkpoint/elastic.py"} <= names
 
 
 def test_import_scan_catches_a_reference_import(tmp_path):
