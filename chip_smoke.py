@@ -283,8 +283,10 @@ Phases (one line each; any failure exits nonzero and prints no result):
              8 x 512 + 32, the prefill through the SSD kernel (28
              launches) and the decode through the flash-decode kernel (4 a
              forward); (b) 8 requests drawn as phase 6's through the paged
-             kernel; one decode forward launches the int8 GEMM exactly
-             1001 times, checked; (c) 8 prompts of 64 tokens through both
+             kernel, the model cut to 2 of its 4 periods (16 layers) for
+             the script's time; one decode forward launches the int8 GEMM
+             exactly 2 x (4 + 3 + 7 x 6 + 3 x 3 + 4 x 3 x 16) + 1 = 501
+             times, checked; (c) 8 prompts of 64 tokens through both
              engines: the share of greedy tokens alike; (d) those prompts
              through one prefill-mode (SSD kernel) and one decode-mode
              (recurrence) forward, in bf16 and in fp32 (one period at
@@ -388,8 +390,26 @@ Phases (one line each; any failure exits nonzero and prints no result):
              say nothing of a deployment over cards).  (c) granite-3-2b
              cut to 5 layers in int8 with fp32 compute, mesh 1x2, 4
              requests of 8 tokens: tokens identical to the unsharded int8
-             engine's, B5 launched on both ranks.  Any rank's failure or
-             timeout fails the phase.
+             engine's, B5 launched on both ranks.  Then, in the same
+             2-rank world, the moe, ssm and hybrid families at full width
+             in fp32 compute on 1x2, each rank drawing its blocks layer
+             by layer, 4 requests of 32-128 tokens on 4 slots, 16 greedy
+             tokens, every rank's tokens identical to the unsharded
+             engine's on the card (else the first step that differs, its
+             max |dlogit| and the unsharded top-2 gap there, and the
+             phase fails): (d) phi3.5-moe-42b in int8 cut to 4 of 32
+             layers (expert-parallel: 8 of 16 experts a rank), B5
+             launched 113 times in one decode forward on each rank (209
+             unsharded), B1 on both ranks, a rank's parameter bytes at
+             most 0.55 of the whole tree's; (e) mamba2-780m cut to 8 of
+             48 layers (24 of 48 heads a rank), each rank's h and conv
+             window bytes a slot and layer as the config reckons them
+             for its heads; (f) jamba-v0.1-52b in int8, one period (8 of
+             32 layers: 1 attention, 7 mamba, MoE on 4), B5 155 a decode
+             forward on each rank (251 unsharded), B1 on both ranks, and
+             the pure-decode p50 on rank 0 with its share inside the
+             collectives beside the unsharded p50 (reported).  Any rank's
+             failure or timeout fails the phase.
 7. train   — the train path: ``repro_torch.launch.train.run`` on
              full-width qwen3-1.7b (bf16 params, fp32 AdamW moments,
              remat full) with attention_impl "pallas", at the JAX
@@ -700,6 +720,9 @@ HYBRID_INT8_MAX_GB = 53.0
 HYBRID_INIT_PEAK_MAX_GB = 70.0
 # (c)'s prompts: 8 of this length through both engines, this many new
 HYBRID_SHARE = dict(prompt_len=64, gen_len=16)
+# (b)-(d)'s model: 2 of the 4 periods, cut for the script's time ((a)
+# keeps all 32 layers)
+HYBRID_MIX_LAYERS = 16
 # the cross-attention families: llama-3.2-vision-90b at full width in
 # int8, cut to VLM_LAYERS of its 100 layers (6i; the continuous run's
 # gate_attn set to VLM_GATE), static at MOE_STATIC and 8 requests drawn as
@@ -3659,9 +3682,10 @@ def phase_serve_hybrid(card, profile=False):
     weight-only int8 drawn and quantized sub-layer by sub-layer (the 103
     GB bf16 tree is never held): (a) static 8 x 512 + 32 (the SSD kernel
     28 launches in the prefill, the flash-decode kernel 4 a decode
-    forward); (b) 8 requests drawn as phase 6's through the paged kernel;
-    one decode forward launches the int8 GEMM exactly 4 x (7 + 42 + 9 +
-    3 x 4 x 16) + 1 = 1001 times; (c) the share of greedy tokens the two
+    forward); (b) 8 requests drawn as phase 6's through the paged kernel,
+    the model cut to HYBRID_MIX_LAYERS (2 periods); one decode forward
+    launches the int8 GEMM exactly 2 x (7 + 42 + 9 + 3 x 4 x 16) + 1 =
+    501 times; (c) the share of greedy tokens the two
     engines give alike on one set of prompts (reported only: in bf16 the
     recurrence and the SSD kernel round differently); (d) the logits
     behind it, from one forward through each path, in bf16 and in fp32
@@ -3678,14 +3702,16 @@ def phase_serve_hybrid(card, profile=False):
                          f"peak after init {init_peak:.2f} GiB: over "
                          f"{HYBRID_INT8_MAX_GB} / {HYBRID_INIT_PEAK_MAX_GB} "
                          f"GB")
-    model, params, init_peak = _int8_model(HYBRID_ARCH)
-    log(phase, f"(b) int8 tree {quant_bytes(params) / 1e9:.3f} GB, peak "
-               f"after init {init_peak:.2f} GiB")
+    model, params, init_peak = _int8_model(HYBRID_ARCH, HYBRID_MIX_LAYERS)
+    log(phase, f"(b) {HYBRID_MIX_LAYERS} of 32 layers: int8 tree "
+               f"{quant_bytes(params) / 1e9:.3f} GB, peak after init "
+               f"{init_peak:.2f} GiB")
     got, eng, _ = serve_mix(phase, model, params, 8, card, int8=True)
     _add(total, got)
+    periods = model.n_periods
     _add(total, decode_forward_launches(
-        phase, model, params, 1001,
-        "4 x (4 + 3 + 7 x 6 + 3 x 3 + 4 x 3 x 16) + 1"))
+        phase, model, params, periods * 250 + 1,
+        f"{periods} x (4 + 3 + 7 x 6 + 3 x 3 + 4 x 3 x 16) + 1"))
     same, first = hybrid_token_share(model, params)
     log(phase, f"(c) 8 x {HYBRID_SHARE['prompt_len']} prompt tokens, "
                f"{HYBRID_SHARE['gen_len']} new: greedy tokens equal between "
@@ -4438,6 +4464,16 @@ MESH_TOL = 2e-3               # B1 at the shard shapes, as phase 3's TOL
 # (b): the bf16 first chunk's max |dlogit| against the unsharded forward
 # (0.0625-0.078 in sound runs); a wo product left unsummed must exceed it
 MESH_DLOGIT = 0.25
+# (d)-(f): the moe, ssm and hybrid families on 1x2 at full width, depth
+# cut for the script's time: phi3.5-moe's 4 of 32 layers (8 of its 16
+# experts a rank), mamba2-780m's 8 of 48 (24 of 48 heads a rank), one
+# period of jamba-v0.1-52b (8 of 32 layers: 1 attention, 7 mamba, MoE on
+# 4); 4 requests of 32-128 prompt tokens, 16 greedy tokens
+MESH_FAMILY_LAYERS = {MOE_ARCH: 4, SSM_ARCH: 8, HYBRID_ARCH: 8}
+MESH_FAMILY_PROMPTS = (32, 128)
+# (d): a rank's parameter bytes over the whole tree's (experts ~97% of a
+# layer, half of them a rank)
+MESH_RANK_BYTES = 0.55
 
 
 def _mesh_prompts(cfg, n, shared=0, lo=32, hi=200, seed=7):
@@ -4454,7 +4490,7 @@ def _mesh_cfg(job):
     kw = {} if job["layers"] is None else {"n_layers": job["layers"]}
     if job["dtype"] == "float32":
         kw.update(param_dtype="float32", compute_dtype="float32")
-    return get_config(MESH_ARCH, **kw)
+    return get_config(job.get("arch", MESH_ARCH), **kw)
 
 
 def _mesh_serve(eng, prompts, new, time_steps=False):
@@ -4488,8 +4524,15 @@ def _first_chunk_logits(eng, prompt):
     """Logits of the engine's first step (request 0's first prefill
     chunk, batch 1 on slot 0 through the paged kernel), on a fresh cache;
     the cache is zeroed again after."""
-    n = min(eng.sched.prefill_chunk, len(prompt))
-    toks = torch.as_tensor(prompt[:n], device=eng.device)[None].long()
+    return _forced_logits(eng, prompt[:eng.sched.prefill_chunk])
+
+
+def _forced_logits(eng, tokens):
+    """Logits of every position of ``tokens`` fed as one batch-1 chunk on
+    slot 0 (the engine reset before and after): (1, len, V)."""
+    eng.reset()
+    n = len(tokens)
+    toks = torch.as_tensor(np.asarray(tokens), device=eng.device)[None].long()
     pos = torch.arange(n, device=eng.device)[None]
     row = eng.model.cache_row(eng.cache, 0)
     with eng._ctx():
@@ -4519,10 +4562,44 @@ def _unsummed_wo_logits(eng, prompt):
 MESH_KERNELS = ("paged_partials", "wq_gemm")
 
 
+def _decode_forward_launches(eng):
+    """B1's and B5's launches in one pure decode forward over the
+    engine's (this rank's) slots, after its run: the counts set to 0 just
+    before and read just after (not the main path's)."""
+    n = eng._n_local
+    ones = torch.ones((n, 1), dtype=torch.long, device=eng.device)
+    reset_launches(MESH_KERNELS)
+    eng._forward_decode(ones, ones * 64, torch.ones(
+        (n,), dtype=torch.int32, device=eng.device))
+    torch.cuda.synchronize()
+    return {k: launches_of(k) for k in MESH_KERNELS}
+
+
+def _state_bytes(eng):
+    """Bytes a slot and layer of the engine's recurrent ``h`` and conv
+    window (this rank's)."""
+    st = blocks.ssm_state(eng.model.cfg, eng.cache)
+    return {k: st[k][0, 0].numel() * st[k].element_size()
+            for k in ("h", "conv")}
+
+
+def _first_divergence(got, want):
+    """(request, step) of the first token that differs, or None."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if not np.array_equal(a, b):
+            n = min(len(a), len(b))
+            diff = np.nonzero(a[:n] != b[:n])[0]
+            return i, int(diff[0]) if len(diff) else n
+    return None
+
+
 def _mesh_rank(rank, jobs):
     """One rank: every job in order (each a mesh, a config, requests);
     the counts of B1 (and of its kv_offset mode) and B5 set to 0 just
-    before each job serves and read just after."""
+    before each job serves and read just after.  A job that carries the
+    unsharded engine's tokens (``want``) compares its own: at the first
+    that differs it returns the logits of that step (the request's
+    prompt and the unsharded tokens before it fed as one chunk)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     out = []
     for job in jobs:
@@ -4558,6 +4635,16 @@ def _mesh_rank(rank, jobs):
                    prefix_hits=eng.stats.prefix_hit_tokens,
                    errors=[f.format() for f in eng.check_findings
                            if f.severity == "error"])
+        if job.get("family"):
+            res["forward_launches"] = _decode_forward_launches(eng)
+            if cfg.ssm is not None:
+                res["state_bytes"] = _state_bytes(eng)
+            at = _first_divergence(toks, job["want"])
+            if at is not None:
+                i, t = at
+                seq = np.concatenate([job["prompts"][i], job["want"][i][:t]])
+                res["diverged"] = dict(request=i, step=t, logits=(
+                    _forced_logits(eng, seq)[0, -1].cpu().numpy()))
         out.append(res)
         del eng
         torch.cuda.empty_cache()
@@ -4700,10 +4787,30 @@ def _mesh_jobs(cfg_a, cfg_b):
     return a, b, c
 
 
+def _mesh_family_jobs():
+    """(d), (e), (f): phi3.5-moe int8, mamba2-780m, jamba int8 on 1x2, in
+    fp32 compute, 4 requests of 32-128 tokens on 4 slots, 16 new."""
+    lo, hi = MESH_FAMILY_PROMPTS
+    out = []
+    for name, arch, int8 in (("d", MOE_ARCH, True), ("e", SSM_ARCH, False),
+                             ("f", HYBRID_ARCH, True)):
+        job = dict(name=name, arch=arch, layers=MESH_FAMILY_LAYERS[arch],
+                   dtype="float32", int8=int8, mesh="1x2", sp_kv=False,
+                   prefix=False, logits=False, time=name == "f", slots=4,
+                   new=16, family=True)
+        job["prompts"] = _mesh_prompts(_mesh_cfg(job), 4, lo=lo, hi=hi,
+                                       seed=9)
+        out.append(job)
+    return out
+
+
 def _mesh_unsharded(job):
     """The unsharded engine's run of a job on the card (same seeded
     weights): (tokens, the first chunk's logits or None, pure-decode
-    step ms, the whole tree's bytes)."""
+    step ms, the whole tree's bytes, and for (d)-(f) B1's and B5's
+    launches in one pure decode forward and the logits of every
+    generated token, each request's prompt and tokens fed as one
+    chunk)."""
     cfg = _mesh_cfg(job)
     model = LM(cfg)
     params = model.init_params(
@@ -4717,9 +4824,111 @@ def _mesh_unsharded(job):
     toks, step_ms, _ = _mesh_serve(eng, job["prompts"], job["new"],
                                    job["time"])
     nbytes = quant_bytes(params)
+    fwd, forced = None, None
+    if job.get("family"):
+        fwd = _decode_forward_launches(eng)
+        forced = [_forced_logits(eng, np.concatenate([p, t[:-1]]))[
+            0, len(p) - 1:].cpu().numpy()
+            for p, t in zip(job["prompts"], toks)]
     del eng, params
     torch.cuda.empty_cache()
-    return toks, logits, step_ms, nbytes
+    return toks, logits, step_ms, nbytes, fwd, forced
+
+
+def int8_per_rank(cfg, split: int) -> int:
+    """``int8_per_forward`` on a rank holding 1/``split`` of each MoE
+    layer's experts (expert-parallel): 3 launches an expert it holds."""
+    moe = sum(cfg.layer_uses_moe(i) for i in range(cfg.n_layers))
+    E = cfg.moe.num_experts if cfg.moe is not None else 0
+    return int8_per_forward(cfg) - 3 * moe * (E - E // split)
+
+
+def _mesh_family_checks(job, want, ranks, card, t0):
+    """(d)-(f): every rank's tokens the unsharded engine's (else the
+    step, its max |dlogit| and the top-2 gap there); (d), (f) B5's
+    launches in a decode forward, reckoned, and B1 on both ranks; (d) a
+    rank's bytes; (e) the state's bytes a slot and layer; (f)'s timing,
+    reported.  Returns the ranks' main-path launches."""
+    toks, _, step_ms, whole, fwd, forced = want
+    cfg = _mesh_cfg(job)
+    phase = f"serve-mesh ({job['name']})"
+    for rank, res in enumerate(ranks):
+        div = res.get("diverged")
+        if div is not None:
+            ref = forced[div["request"]][div["step"]]
+            top = np.sort(ref)[-2:]
+            raise SystemExit(
+                f"{phase}: rank {rank}'s request {div['request']} diverges "
+                f"from the unsharded engine's at step {div['step']}: max "
+                f"|dlogit| {float(np.abs(div['logits'] - ref).max()):.4e}, "
+                f"the unsharded top-2 gap {float(top[1] - top[0]):.4e}")
+    _same_tokens(phase, toks, ranks)
+    launches, line = {}, ""
+    for res in ranks:
+        _add(launches, res["launches"])
+    if job["int8"]:
+        per = int8_per_rank(cfg, 2)
+        got = [r["forward_launches"]["wq_gemm"] for r in ranks]
+        if got != [per, per] or fwd["wq_gemm"] != int8_per_forward(cfg):
+            raise SystemExit(f"{phase}: B5 launches in a decode forward "
+                             f"{got} a rank (unsharded {fwd['wq_gemm']}), "
+                             f"reckoned {per} ({int8_per_forward(cfg)})")
+        b1 = [r["launches"]["paged_partials"] for r in ranks]
+        if min(b1) == 0:
+            raise SystemExit(f"{phase}: B1 launches a rank {b1}")
+        line += (f" | B5 in one decode forward {got} a rank = "
+                 f"int8_per_forward {int8_per_forward(cfg)} less 3 x "
+                 f"{cfg.moe.num_experts // 2} experts x "
+                 f"{sum(cfg.layer_uses_moe(i) for i in range(cfg.n_layers))}"
+                 f" MoE layers (unsharded {fwd['wq_gemm']}); main-path "
+                 f"launches a rank B5 "
+                 f"{[r['launches']['wq_gemm'] for r in ranks]}, B1 {b1}")
+    share = [r["param_bytes"] / whole for r in ranks]
+    if job["name"] == "d" and max(share) > MESH_RANK_BYTES:
+        raise SystemExit(f"{phase}: a rank holds {max(share):.3f} of the "
+                         f"tree's bytes, over {MESH_RANK_BYTES}")
+    line += (f" | param bytes a rank {[r['param_bytes'] for r in ranks]} "
+             f"of {whole} ({max(share):.3f})")
+    if cfg.ssm is not None:
+        s = cfg.ssm
+        d_inner = s.expand * cfg.d_model
+        el = 4 if job["dtype"] == "float32" else 2
+        reckoned = {"h": d_inner // 2 // s.head_dim * s.head_dim
+                    * s.ngroups * s.d_state * 4,
+                    "conv": (d_inner // 2 + 2 * s.ngroups * s.d_state)
+                    * (s.conv_kernel - 1) * el}
+        got = [r["state_bytes"] for r in ranks]
+        if any(g != reckoned for g in got):
+            raise SystemExit(f"{phase}: state bytes a slot and layer {got},"
+                             f" reckoned {reckoned}")
+        line += (f" | h and conv window bytes a slot and layer {got[0]} "
+                 f"on each rank, as reckoned ({d_inner // 2 // s.head_dim} "
+                 f"of {d_inner // s.head_dim} heads; "
+                 f"{d_inner // 2} + {2 * s.ngroups * s.d_state} channels x "
+                 f"{s.conv_kernel - 1} taps)")
+    if job["time"]:
+        steps = ranks[0]["step_ms"]
+        if not steps:
+            raise SystemExit(f"{phase}: no pure-decode step")
+        line += (f" | pure-decode step p50 {statistics.median(steps):.3f} "
+                 f"ms on rank 0 ({len(steps)} steps), "
+                 f"{100 * sum(ranks[0]['coll_ms']) / sum(steps):.1f}% of "
+                 f"it inside the collectives; the unsharded engine's p50 "
+                 f"{statistics.median(step_ms):.3f} ms (two ranks "
+                 f"time-sharing one card through host-staged gloo: these "
+                 f"times say nothing of a deployment over cards)")
+    log("serve-mesh", f"({job['name']}) {job['arch']} "
+                      f"{'int8' if job['int8'] else 'fp32'}, fp32 compute, "
+                      f"cut to {cfg.n_layers} layers, "
+                      f"{ranks[0]['mesh'].split(';')[0]}) over 2 ranks: 4 "
+                      f"requests of {min(p.size for p in job['prompts'])}"
+                      f"...{max(p.size for p in job['prompts'])} tokens, "
+                      f"{job['new']} new: tokens identical to the unsharded "
+                      f"engine's on both ranks | rules expert "
+                      f"{ranks[0]['meta']['rules']['expert']}, heads "
+                      f"{ranks[0]['meta']['rules']['heads']}{line} | "
+                      f"{_since(t0):.1f} s into 6m | {card}")
+    return launches
 
 
 def _same_tokens(phase, want, ranks):
@@ -4731,7 +4940,7 @@ def _same_tokens(phase, want, ranks):
 
 
 def phase_serve_mesh(card, hw):
-    """6m: B1 at the shard shapes, then (a), (b), (c) (see the module
+    """6m: B1 at the shard shapes, then (a) to (f) (see the module
     docstring); returns the ranks' B1 and B5 launches."""
     t0 = datetime.datetime.now()
     kernels_spkv(card, hw)
@@ -4739,7 +4948,11 @@ def phase_serve_mesh(card, hw):
     a, b, c = _mesh_jobs(_mesh_cfg(dict(layers=None, dtype="float32")),
                          _mesh_cfg(dict(layers=MESH_LAYERS,
                                         dtype="bfloat16")))
-    want = {job["name"]: _mesh_unsharded(job) for job in (a, b, c)}
+    family = _mesh_family_jobs()
+    want = {job["name"]: _mesh_unsharded(job)
+            for job in (a, b, c, *family)}
+    for job in family:
+        job["want"] = want[job["name"]][0]
     log("serve-mesh", f"the unsharded runs done, {_since(t0):.1f} s into "
                       f"6m")
     launches = {}
@@ -4776,8 +4989,8 @@ def phase_serve_mesh(card, hw):
                       f", in the kv_offset mode "
                       f"{[r['kv_offset_launches'] for r in ranks]} | "
                       f"{_since(t0):.1f} s into 6m | {card}")
-    # (b) and (c): 2 ranks, 1x2
-    ranks = mesh_lib.spawn_ranks(_mesh_rank, 2, ([b, c],),
+    # (b) to (f): 2 ranks, 1x2
+    ranks = mesh_lib.spawn_ranks(_mesh_rank, 2, ([b, c, *family],),
                                  timeout=MESH_TIMEOUT_S,
                                  threads=MESH_THREADS)
     rb, rc = [r[0] for r in ranks], [r[1] for r in ranks]
@@ -4832,6 +5045,9 @@ def phase_serve_mesh(card, hw):
                       f"{[r['launches']['paged_partials'] for r in rc]} | "
                       f"param bytes a rank {[r['param_bytes'] for r in rc]}"
                       f" of {want['c'][3]} | {card}")
+    for i, job in enumerate(family):
+        _add(launches, _mesh_family_checks(
+            job, want[job["name"]], [r[2 + i] for r in ranks], card, t0))
     return launches
 
 

@@ -87,21 +87,29 @@ time, or under ``--clock model`` the modeled one; on the CPU it needs
 ``--min-prompt-len`` is the shortest prompt drawn (by default half of
 ``--prompt-len``, the reference's band).
 
-``--mesh N|NxM|NxMxK`` serves sharded (the dense family): the launcher
+``--mesh N|NxM|NxMxK`` serves sharded (the dense, moe, ssm and hybrid
+families; the vlm and audio raise ``NotImplementedError``): the launcher
 spawns the mesh's ranks on this host, one process a position, or joins
 ``torchrun``'s world when its environment is set; each rank draws the
-same seeded weights layer by layer and keeps its blocks, serves the
-same requests, and rank 0's results print once.  The decode slots shard
-over the ``data`` axes and heads, the MLP and the vocabulary over
-``model``; ``--sp-kv`` shards the KV cache's sequence axis over
-``model`` instead of its heads (it needs a model axis).  On the card the
-ranks use NCCL where each has a card of its own, ``gloo`` where they
-share one; on the CPU ``gloo``.
+same seeded weights layer by layer and keeps its blocks (with
+``--int8``, each layer quantized before it is cut), serves the same
+requests, and rank 0's results print once.  The decode slots shard over
+the ``data`` axes; heads, the MLP, the vocabulary, the experts (or each
+expert's d_ff where their count does not divide the axis) and the mamba
+mixer's heads over ``model``; ``--sp-kv`` shards the attention cache's
+sequence axis over ``model`` instead of its heads (it needs a model
+axis; an attention-free family serves without it, as the reference's
+rules strip it).  On the card the ranks use NCCL where each has a card
+of its own, ``gloo`` where they share one; on the CPU ``gloo``.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --reduced --device cpu --mesh 2x2 --sp-kv
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-v0.1-52b --reduced --device cpu --mesh 1x2 --int8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-3-2b \
       --mesh 2x2 --sp-kv --slots 8 --prompt-len 256
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch phi3.5-moe-42b-a6.6b --mesh 1x2 --int8 --layers 4 --slots 4
 """
 from __future__ import annotations
 
@@ -117,7 +125,7 @@ import torch.distributed as dist
 from repro_torch.configs import ARCH_IDS, get_config, reduced_config
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.decode_state import stub_context
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, MESH_FAMILIES
 from repro_torch.models.quant import param_bytes
 from repro_torch.parallel import axes as paxes
 from repro_torch.parallel.sharding import rules_for
@@ -217,10 +225,11 @@ def _check_mesh_options(kw: Dict[str, Any], dims) -> None:
     """The launcher's refusals of a sharded run, before any rank starts."""
     cfg = (reduced_config(kw["arch"]) if kw["reduced"]
            else get_config(kw["arch"]))
-    if cfg.family != "dense":
+    if cfg.family not in MESH_FAMILIES:
         raise NotImplementedError(
             f"--mesh / --sp-kv for the {cfg.family} family: not ported yet "
-            f"(ROADMAP A10: sharded serving covers the dense family)")
+            f"(ROADMAP A10, item 6 left 1: sharded serving covers the "
+            f"{', '.join(MESH_FAMILIES)} families)")
     if kw["sp_kv"] and (dims is None or "model" not in dims[1]):
         raise SystemExit("--sp-kv needs --mesh with a model axis "
                          "(e.g. --mesh 2x2)")
@@ -516,7 +525,8 @@ def main(argv: Optional[list] = None) -> Dict[str, Any]:
     ap.add_argument("--mesh", default=None,
                     help="serve sharded over a mesh of ranks: N (data), "
                          "NxM (data x model) or NxMxK (pod x data x "
-                         "model); decode slots shard over (pod, data)")
+                         "model); decode slots shard over (pod, data); "
+                         "the dense, moe, ssm and hybrid families")
     ap.add_argument("--sp-kv", action="store_true",
                     help="also shard the KV cache's sequence axis over "
                          "'model' (sequence-parallel flash decoding); "

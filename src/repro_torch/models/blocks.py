@@ -39,9 +39,13 @@ All four give the same gradients.
 
 ``*_layer_specs`` are the reference's logical-axis spec trees of each
 kind of layer (one layer's, without the stacked ``layers`` axis).  Under
-a sharding context the MLP's down projection is row-parallel: its
-product is summed over the ``mlp`` axis where a rank holds a block of
-``d_ff``.
+a sharding context every sub-layer computes on the rank's blocks: the
+MLP's down projection is row-parallel (its product summed over the
+``mlp`` axis where a rank holds a block of ``d_ff``), the MoE runs the
+experts the rank holds, or its block of each, and sums its output over
+the split axes (``moe.moe_apply``), and the mamba mixer runs the rank's
+heads (``mamba2.mamba_forward``), the hybrid's period of attention and
+mamba sub-layers included.
 """
 from __future__ import annotations
 
@@ -391,6 +395,14 @@ def kv_cache(cfg, cache):
     return cache
 
 
+def ssm_state(cfg, cache):
+    """The recurrent state within a family's cache: the hybrid's
+    ``"ssm"``, the ssm's cache itself, else ``None``."""
+    if cfg.family == "hybrid":
+        return cache["ssm"]
+    return cache if cfg.family == "ssm" else None
+
+
 def _cross_views(cache, c):
     return {"k": cache["cross_k"][c], "v": cache["cross_v"][c]}
 
@@ -422,7 +434,7 @@ def run_stack(x: torch.Tensor, layer_params: Sequence, cfg, *,
     kv = ssm = None
     if not train:
         kv = kv_cache(cfg, cache)
-        ssm = cache["ssm"] if cfg.family == "hybrid" else cache
+        ssm = ssm_state(cfg, cache)
     aux = (torch.zeros((), dtype=torch.float32, device=x.device) if train
            else None)
     remat = remat if train else "none"

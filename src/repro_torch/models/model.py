@@ -39,10 +39,14 @@ experts one call an expert and projection.
 ``param_specs`` is the reference's logical-axis spec tree, keyed as the
 port's tree (a spec dict a layer).  Under a sharding context (the
 serving engine's mesh: ``parallel.axes``) a decode-mode forward of the
-dense family runs on this rank's blocks of the parameters and the cache:
-a vocab-parallel embedding and unembedding, column- and row-parallel
-projections, and the sequence-parallel decode where the cache length is
-split (``attention._attn_decode_spkv``).  ``init_params(shard=...)``
+dense, moe, ssm and hybrid families runs on this rank's blocks of the
+parameters and the cache: a vocab-parallel embedding and unembedding,
+column- and row-parallel projections, the sequence-parallel decode where
+the cache length is split (``attention._attn_decode_spkv``), the
+experts a rank holds or its block of each (``moe.moe_apply``), and the
+Mamba-2 mixer over the rank's heads (``mamba2.mamba_forward``).  The
+vlm and audio families and every other mode raise
+``NotImplementedError`` there (ROADMAP A10).  ``init_params(shard=...)``
 cuts each layer to the rank's block as it is drawn, so a rank never
 holds more than one whole layer.
 """
@@ -59,6 +63,9 @@ from repro_torch.models.layers import dtype_of
 from repro_torch.parallel import axes as paxes
 
 Params = Dict[str, Any]
+
+# the families whose decode-mode forward runs on a rank's blocks
+MESH_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 class LM:
@@ -357,11 +364,13 @@ class LM:
                 f"mode={mode!r}: the port runs train, prefill and decode "
                 f"modes")
         cfg = self.cfg
-        if paxes.active() and (mode != "decode" or cfg.family != "dense"):
+        if paxes.active() and (mode != "decode"
+                               or cfg.family not in MESH_FAMILIES):
             raise NotImplementedError(
                 f"a {cfg.family} forward in mode {mode!r} under a mesh: the "
-                f"port shards the dense family's decode mode only (ROADMAP "
-                f"A10)")
+                f"port shards the decode mode of the {', '.join(MESH_FAMILIES)}"
+                f" families (ROADMAP A10; the vlm and audio families wait on "
+                f"its item 6, left 1)")
         x = layers.embed(tokens, params["embed"], self.compute_dtype,
                          cfg.padded_vocab)
         if cfg.family == "ssm":

@@ -14,6 +14,18 @@ run as stacked products over it, and an int8 q-pack (E, K, N) as one
 int8 GEMM (``kernels.wq_gemm``: the CUDA kernel on the card) an expert
 and projection on ``q[e]``, ``scale[e]``.  All E experts are computed,
 empty capacity slots included, as the reference's einsum does.
+
+Under a sharding context a rank reads what is split from the shapes of
+its expert blocks.  Expert-parallel (``gate`` holds fewer than E
+experts, the ``expert`` rule): the routing, the capacity and the sort
+stay those of every token, and the rank computes only its experts' rows
+of the buffer, so a choice routed to another rank's expert contributes
+an exact zero.  Tensor-parallel within an expert (``gate``'s last dim
+under ``expert_d_ff``, the ``expert_mlp`` rule): gate and up are
+column-parallel, down row-parallel.  Either way ``y`` is summed once a
+layer, after the gates are applied, over the split axes (``_combine``):
+with top-2 the expert-parallel sum adds only exact zeros to each
+token's two contributions.
 """
 from __future__ import annotations
 
@@ -26,6 +38,8 @@ import torch.nn.functional as F
 from repro_torch.kernels.wq_gemm import ops as wq_ops
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.quant import is_qpack
+from repro_torch.parallel import axes as paxes
+from repro_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -125,37 +139,66 @@ def _experts(params: Params, buf: torch.Tensor) -> torch.Tensor:
     return proj("down", h)
 
 
+def _held(params: Params, cfg) -> Tuple[int, int, Tuple[str, ...]]:
+    """(first expert, experts held, the mesh axes a partial ``y`` is
+    summed over) of this rank's expert blocks: (0, E, ()) where it holds
+    every expert whole."""
+    w = params["gate"]
+    shape = (w["q"] if is_qpack(w) else w).shape
+    m = cfg.moe
+    axes: Tuple[str, ...] = ()
+    first = 0
+    if shape[0] < m.num_experts:
+        axes += paxes.rule_axes("expert")
+        first = paxes.rule_index("expert") * shape[0]
+    if shape[-1] < m.expert_d_ff:
+        axes += paxes.rule_axes("expert_mlp")
+    return first, shape[0], axes
+
+
+def _combine(y: torch.Tensor, axes: Tuple[str, ...]) -> torch.Tensor:
+    """A rank's partial MoE output summed over ``axes``."""
+    return collectives.all_reduce_sum(y, axes)
+
+
 def moe_apply(params: Params, x: torch.Tensor, cfg, *,
               with_aux: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (G, Sg, d) grouped tokens.  Returns (y, aux_loss); without
     ``with_aux`` (serving) the aux loss is not computed and comes back
-    ``None``."""
+    ``None``.  A rank holding a block of the experts (or of each
+    expert's d_ff) computes on it and sums ``y`` over the split axes."""
     G, Sg, d = x.shape
     m = cfg.moe
     E, k = m.num_experts, m.top_k
     C = _capacity(Sg, cfg)
+    first, n_held, axes = _held(params, cfg)
 
     gates, ids, probs = route(x.float(), params["router"], k)
     aux = aux_load_balance_loss(probs, ids, E) if with_aux else None
     order, dest, token, _, keep = _dispatch_indices(ids, E, C)
 
-    # every group's buffer in one (E, G*C, d) tensor, expert-major: group
-    # g's slot e*C + p is row e*G*C + g*C + p; the row past the end takes
-    # the dropped choices
+    # every group's buffer of the held experts in one (n_held, G*C, d)
+    # tensor, expert-major: group g's slot e*C + p is row (e - first)*G*C
+    # + g*C + p; the row past the end takes the dropped choices and those
+    # of the experts another rank holds
     rows = G * C
     grp = torch.arange(G, device=x.device)[:, None]
-    slot = torch.where(keep, (dest // C) * rows + grp * C + dest % C,
-                       E * rows)                            # (G, T)
+    expert = dest // C
+    held = keep & (expert >= first) & (expert < first + n_held)
+    slot = torch.where(held, (expert - first) * rows + grp * C + dest % C,
+                       n_held * rows)                       # (G, T)
     src = (grp * Sg + token).reshape(-1)
-    buf = x.new_zeros((E * rows + 1, d))
+    buf = x.new_zeros((n_held * rows + 1, d))
     buf[slot.reshape(-1)] = x.reshape(G * Sg, d)[src]
-    out = _experts(params, buf[:-1].view(E, rows, d)).reshape(E * rows, d)
+    out = _experts(params, buf[:-1].view(n_held, rows, d)).reshape(
+        n_held * rows, d)
 
-    routed = out[torch.where(keep, slot, 0)]                # (G, T, d) sorted
-    routed = torch.where(keep[..., None], routed, 0.0)
+    routed = out[torch.where(held, slot, 0)]                # (G, T, d) sorted
+    routed = torch.where(held[..., None], routed, 0.0)
     gate_sorted = torch.gather(gates.reshape(G, Sg * k), -1, order)
     contrib = routed * gate_sorted[..., None].to(routed.dtype)
     # un-sort back to (token, choice) layout and sum the choices
     y = torch.zeros_like(contrib).scatter(
         1, order[..., None].expand(G, Sg * k, d), contrib)
-    return y.view(G, Sg, k, d).sum(dim=2), aux
+    y = y.view(G, Sg, k, d).sum(dim=2)
+    return (_combine(y, axes) if axes else y), aux

@@ -88,22 +88,31 @@ shapes.  On the CPU no sweep can be timed:
 tune, and ``paged_kernel=False`` tunes nothing (``paged_meta`` is
 ``None``).
 
-Sharded serving (``mesh``, ``rules``, ``sp_kv``; the dense family): one
-engine a rank of a ``launch.mesh.Mesh``, every rank with the same host
-scheduler and cache bookkeeping, each holding only its block of every
-parameter and of the cache (``mesh_layout``: the reference's logical-axis
-rules resolved over the mesh, ``sharding_meta`` its ``layout_report``).
-The slots split over the ``batch`` axes (``n_shards``, the cache's slot
-shards): a rank runs the decode forward over its slots and the prefill
-rows of its slots, and the sampled tokens are combined over those axes
-before the host commits them, so every rank makes the same host
-decisions (EOS, admissions, prefix donors) and returns the same results.
-The model axis splits heads, the MLP and the vocabulary; ``sp_kv=True``
-splits the cache length over it instead of the KV heads, unless the
-cache length does not divide (the reference's honesty rule: the rule is
-stripped and the decision recorded).  A mesh of one position is the
-unsharded engine.  Under a mesh, speculative decoding, the stall-free
-policy, the open-loop front end and every family but dense raise
+Sharded serving (``mesh``, ``rules``, ``sp_kv``; the dense, moe, ssm
+and hybrid families): one engine a rank of a ``launch.mesh.Mesh``, every
+rank with the same host scheduler and cache bookkeeping, each holding
+only its block of every parameter and of the cache (``mesh_layout``: the
+reference's logical-axis rules resolved over the mesh, ``sharding_meta``
+its ``layout_report``).  The slots split over the ``batch`` axes
+(``n_shards``, the cache's slot shards): a rank runs the decode forward
+over its slots and the prefill rows of its slots, and the sampled tokens
+are combined over those axes before the host commits them, so every
+rank makes the same host decisions (EOS, admissions, prefix donors) and
+returns the same results.  The model axis splits heads, the MLP, the
+vocabulary, the experts (``expert``, or each expert's d_ff where their
+count does not divide it: ``expert_mlp``) and the mamba mixer's
+``d_inner``; ``sp_kv=True`` splits the attention cache's length over it
+instead of the KV heads (the hybrid's too, while its mamba sub-layers
+split heads), unless the cache length does not divide or the family has
+no attention (the reference's honesty rule: the rule is stripped, and
+where it named axes the decision recorded).  One part of the cache is
+laid out otherwise than ``sharding_meta`` records
+(``MeshLayout.rank_state``): where the mixer's ``d_inner`` is split, a
+rank's recurrent ``h`` holds its heads and its conv window ``conv`` its
+x channels, then B and C whole, where the resolved spec would cut one
+block of the whole window.  A mesh of one position is the unsharded
+engine.  Under a mesh, speculative decoding, the stall-free policy, the
+open-loop front end and the vlm and audio families raise
 ``NotImplementedError`` (ROADMAP A10).
 
 Not ported yet (raises ``NotImplementedError`` if asked for):
@@ -128,10 +137,10 @@ from repro_torch.analysis.schedcheck import SchedChecker
 from repro_torch.configs.shapes import ShapeSpec
 from repro_torch.core import costmodel
 from repro_torch.launch.mesh import Mesh
-from repro_torch.models import decode_state
+from repro_torch.models import blocks, decode_state, mamba2
 from repro_torch.models.attention import PagedDecodeState
 from repro_torch.models.layers import dtype_of
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, MESH_FAMILIES
 from repro_torch.models.quant import has_qpack
 from repro_torch.parallel import axes as paxes
 from repro_torch.parallel import collectives
@@ -207,7 +216,17 @@ class MeshLayout:
     """What ``mesh_layout`` resolves: the rules that run (``kv_seq``
     stripped where SP-KV cannot), the slot shards and their mesh axes,
     the resolved spec of every cache leaf and parameter, and the
-    forced-replication decisions, in the reference's order."""
+    forced-replication decisions, in the reference's order.
+
+    ``rank_state``: the recurrent state's leaves (``blocks.ssm_state``)
+    that a rank lays out otherwise than their resolved spec, with their
+    shapes on this rank, where the mixer's ``d_inner`` is split.  ``h``
+    holds the rank's heads (its block of ``d_inner``; the resolved spec
+    gives the same shape unless the rules leave ``heads`` whole); the
+    conv window ``conv`` holds the rank's x channels, then B and C whole
+    (the resolved spec cuts one contiguous block of ``[x | B | C]``,
+    which is not the rank's heads).  ``sharding_meta`` records the
+    resolved layout, the reference's."""
     rules: Dict[str, Any]
     sp_kv: bool
     n_shards: int
@@ -215,6 +234,7 @@ class MeshLayout:
     cache_specs: Any
     param_specs: Any
     decisions: List[str]
+    rank_state: Dict[str, tuple] = dataclasses.field(default_factory=dict)
 
 
 def mesh_layout(model: LM, params, *, n_slots: int, max_len: int,
@@ -257,8 +277,10 @@ def mesh_layout(model: LM, params, *, n_slots: int, max_len: int,
         pspecs = paxes.tree_shardings(model.layout_specs(params), params,
                                       mesh, rules)
         decisions = extra_decisions + paxes.decisions()
+        rank_state = _rank_state(model.cfg, meta, pspecs, cache, mesh,
+                                 n_slots, max_len)
     return MeshLayout(dict(rules), sp_kv, n_shards, axs, cache, pspecs,
-                      decisions)
+                      decisions, rank_state)
 
 
 def _split(entry, mesh) -> int:
@@ -269,18 +291,111 @@ def _spec_at(spec, dim: int):
     return spec[dim] if dim < len(spec) else None
 
 
-def check_dense_layout(cfg, lay: MeshLayout, mesh) -> None:
+def _weight_spec(spec):
+    """A dense weight's resolved spec: its own, or its q-pack's ``q``."""
+    if isinstance(spec, dict):
+        return spec.get("w", spec.get("q"))
+    return spec
+
+
+def _sublayer_specs(cfg, pspecs) -> Dict[str, Any]:
+    """The resolved specs of the first stack entry's sub-layers by kind
+    (``"attn"``, ``"mamba"``)."""
+    return {kind: p for p, kind, _ in blocks.sublayers(pspecs["stack"][:1],
+                                                       cfg)}
+
+
+def _rank_state(cfg, meta: LM, pspecs, cache_specs, mesh, n_slots: int,
+                max_len: int) -> Dict[str, tuple]:
+    """``MeshLayout.rank_state``: the shapes of a rank's ``h`` and conv
+    window where the mixer's ``d_inner`` (``wx``'s columns) is split, as
+    ``mamba2.init_state(d_inner=)`` lays them out."""
+    mixer = _sublayer_specs(cfg, pspecs).get("mamba")
+    if mixer is None:
+        return {}
+    d_inner, _, _ = mamba2.dims(cfg)
+    split = _split(_spec_at(_weight_spec(mixer["mamba"]["wx"]), 1), mesh)
+    if split == 1:
+        return {}
+    whole = blocks.ssm_state(cfg, meta.init_cache(n_slots, max_len))
+    n_layers, batch = paxes.local_shape(
+        whole["h"].shape, blocks.ssm_state(cfg, cache_specs)["h"], mesh)[:2]
+    state = mamba2.init_state(cfg, n_layers, batch, whole["conv"].dtype,
+                              "meta", d_inner=d_inner // split)
+    return {k: tuple(v.shape) for k, v in state.items()}
+
+
+def check_layout(cfg, lay: MeshLayout, mesh) -> None:
     """Raise ``NotImplementedError`` where a rank's blocks are not what
-    the rank-local attention computes on: whole heads, and (without
-    SP-KV) its query heads' whole GQA groups beside them in its
-    projections and its cache."""
-    attn = lay.param_specs["stack"][0]["attn"]
+    the rank-local layers compute on (ROADMAP A10): an attention
+    sub-layer's whole heads and (without SP-KV) its query heads' whole
+    GQA groups (``_check_attention``); a mamba mixer's block of
+    ``d_inner`` whole heads, with its ``heads`` leaves whole or split as
+    that block (``_check_mixer``); an MoE's experts and each expert's
+    d_ff not both split, and neither they nor the mixer's ``d_inner``
+    split over the slot shards' axes (``_check_sums``)."""
+    sub = _sublayer_specs(cfg, lay.param_specs)
+    if "attn" in sub:
+        _check_attention(cfg, sub["attn"]["attn"],
+                         blocks.kv_cache(cfg, lay.cache_specs), lay.sp_kv,
+                         mesh)
+    if "mamba" in sub:
+        _check_mixer(cfg, sub["mamba"]["mamba"], mesh)
+    _check_sums(cfg, lay)
+
+
+def _check_sums(cfg, lay: MeshLayout) -> None:
+    """The rank-local MoE sums ``y`` over the axes that split its experts
+    (or each expert's d_ff), the mixer over those of its ``d_inner``:
+    ranks on those axes must hold the same tokens, and the MoE splits
+    one of the two."""
+    split = {}
+    for p, kind, _ in blocks.sublayers(lay.param_specs["stack"][:1], cfg):
+        if "moe" in p:
+            gate = _weight_spec(p["moe"]["gate"])
+            split["expert"] = paxes.entry_axes(_spec_at(gate, 0))
+            split["expert_mlp"] = paxes.entry_axes(_spec_at(gate, 2))
+        if kind == "mamba":
+            split["mlp"] = paxes.entry_axes(
+                _spec_at(_weight_spec(p["mamba"]["wx"]), 1))
+    if split.get("expert") and split.get("expert_mlp"):
+        raise NotImplementedError(
+            f"the experts split over {split['expert']} and each expert's "
+            f"d_ff over {split['expert_mlp']}: the rank-local MoE splits "
+            f"one of the two; serve with rules that replicate the other "
+            f"(ROADMAP A10)")
+    for name, axes in split.items():
+        shared = set(axes) & set(lay.batch_axes)
+        if shared:
+            raise NotImplementedError(
+                f"{name!r} split over {axes}, which also cut the slots "
+                f"({lay.batch_axes}): a rank's sum over them would add "
+                f"other slots' tokens; serve with rules that keep {name!r} "
+                f"off the batch axes (ROADMAP A10)")
+
+
+def _check_mixer(cfg, mixer, mesh) -> None:
+    s = cfg.ssm
+    d_inner, _, _ = mamba2.dims(cfg)
+    x_entry = _spec_at(_weight_spec(mixer["wx"]), 1)
+    dt_entry = _spec_at(_weight_spec(mixer["wdt"]), 1)
+    held = d_inner // _split(x_entry, mesh)
+    if held % s.head_dim:
+        raise NotImplementedError(
+            f"a rank's block of the mixer's d_inner ({held} of {d_inner} "
+            f"channels) is not whole heads of {s.head_dim}: serve on "
+            f"another mesh (ROADMAP A10)")
+    if paxes.entry_axes(dt_entry) not in ((), paxes.entry_axes(x_entry)):
+        raise NotImplementedError(
+            "the mixer's 'heads' leaves split apart from its 'mlp' block: "
+            "serve with rules that map both alike (ROADMAP A10)")
+
+
+def _check_attention(cfg, attn, kv_specs, sp_kv: bool, mesh) -> None:
     out_dim = 1
-    q_split = _split(_spec_at(attn["wq"].get("w", attn["wq"].get("q")),
-                              out_dim), mesh)
-    kv_spec = attn["wk"].get("w", attn["wk"].get("q"))
-    kv_split = _split(_spec_at(kv_spec, out_dim), mesh)
-    cache_heads = _split(_spec_at(lay.cache_specs["k"], 3), mesh)
+    q_split = _split(_spec_at(_weight_spec(attn["wq"]), out_dim), mesh)
+    kv_split = _split(_spec_at(_weight_spec(attn["wk"]), out_dim), mesh)
+    cache_heads = _split(_spec_at(kv_specs["k"], 3), mesh)
     if cfg.n_heads % q_split or cfg.n_kv_heads % kv_split:
         raise NotImplementedError(
             f"{cfg.n_heads} query / {cfg.n_kv_heads} KV heads of "
@@ -288,7 +403,7 @@ def check_dense_layout(cfg, lay: MeshLayout, mesh) -> None:
             f"the resolved blocks cut a head (the rules resolve on the "
             f"flattened heads x head_dim dim); serve with rules that "
             f"replicate 'heads' / 'kv_heads' or on another mesh")
-    if lay.sp_kv:
+    if sp_kv:
         return
     if not q_split == kv_split == cache_heads:
         raise NotImplementedError(
@@ -327,6 +442,21 @@ def _local_zeros(whole, specs, mesh, device):
                 for k in whole}
     return torch.zeros(paxes.local_shape(whole.shape, specs, mesh),
                        dtype=whole.dtype, device=device)
+
+
+def _rank_cache(cfg, lay: MeshLayout, mesh, n_slots: int, max_len: int,
+                device):
+    """Zeros of this rank's cache: each leaf's block under its resolved
+    spec, the recurrent state's leaves of ``lay.rank_state`` at the
+    rank's own layout."""
+    cache = _local_zeros(LM(cfg, device="meta").init_cache(n_slots,
+                                                           max_len),
+                         lay.cache_specs, mesh, device)
+    state = blocks.ssm_state(cfg, cache)
+    for name, shape in lay.rank_state.items():
+        state[name] = torch.zeros(shape, dtype=state[name].dtype,
+                                  device=device)
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -600,9 +730,8 @@ class ContinuousBatchingEngine:
         if self._layout is None:
             self.cache = self.model.init_cache(self.n_slots, self.max_len)
         else:
-            self.cache = _local_zeros(
-                LM(model.cfg, device="meta").init_cache(n_slots, max_len),
-                self._layout.cache_specs, mesh, self.device)
+            self.cache = _rank_cache(model.cfg, self._layout, mesh, n_slots,
+                                     max_len, self.device)
         # a recurrent family's verify runs twice: its state (every leaf
         # that is not a K/V entry: conv windows, SSD h, position counters)
         # is copied here before the first pass and back before the second
@@ -650,7 +779,7 @@ class ContinuousBatchingEngine:
         lay = mesh_layout(model, whole, n_slots=self.n_slots,
                           max_len=self.max_len, spec_k=0, mesh=mesh,
                           rules=self.rules, sp_kv=self.sp_kv)
-        check_dense_layout(model.cfg, lay, mesh)
+        check_layout(model.cfg, lay, mesh)
         self._layout = lay
         self.rules, self.sp_kv, self.n_shards = (lay.rules, lay.sp_kv,
                                                  lay.n_shards)
@@ -658,7 +787,8 @@ class ContinuousBatchingEngine:
         self._n_local = self.n_slots // self.n_shards
         self._slot_lo = paxes.axes_index(mesh, lay.batch_axes) * self._n_local
         if self.sp_kv:
-            kv_axes = paxes.entry_axes(_spec_at(lay.cache_specs["k"], 2))
+            kv_axes = paxes.entry_axes(_spec_at(
+                blocks.kv_cache(model.cfg, lay.cache_specs)["k"], 2))
             s_shard = self.max_len // paxes.axes_size(mesh, kv_axes)
             if prefill_chunk > s_shard:
                 raise ValueError(
@@ -667,6 +797,13 @@ class ContinuousBatchingEngine:
                     f"K/V write needs a distinct target a column")
             self._kv_offset = paxes.axes_index(mesh, kv_axes) * s_shard
         self.params = _local_tree(self.params, whole, lay.param_specs, mesh)
+        # the mixers' rank leaves (heads, conv taps), gathered once here
+        # rather than in every decode step
+        with self._ctx():
+            for p, kind, _ in blocks.sublayers(self.params["stack"],
+                                               model.cfg):
+                if kind == "mamba":
+                    p["mamba"] = mamba2.rank_mixer(p["mamba"], model.cfg)
         self.sharding_meta = layout_report(mesh, lay.rules, lay.decisions,
                                            n_shards=self.n_shards,
                                            sp_kv=self.sp_kv)
@@ -1261,8 +1398,10 @@ def _check_meshable(model: LM, mesh, spec_decode: bool,
             f"Mesh of torch.distributed ranks (launch.mesh.parse_mesh / "
             f"make_mesh), not another kind of mesh")
     what = []
-    if model.cfg.family != "dense":
-        what.append(f"the {model.cfg.family} family")
+    if model.cfg.family not in MESH_FAMILIES:
+        what.append(f"the {model.cfg.family} family (ROADMAP A10, item 6 "
+                    f"left 1: the vlm and audio families, their cross K/V "
+                    f"on the slot's shard)")
     if spec_decode:
         what.append("speculative decoding")
     if chunk_policy != "fixed":
@@ -1270,7 +1409,8 @@ def _check_meshable(model: LM, mesh, spec_decode: bool,
     if what:
         raise NotImplementedError(
             f"{', '.join(what)} under a mesh: not ported yet (ROADMAP A10: "
-            f"sharded serving covers the dense family's closed-loop engine)")
+            f"sharded serving covers the closed-loop engine of the "
+            f"{', '.join(MESH_FAMILIES)} families)")
 
 
 def _host(a) -> np.ndarray:

@@ -260,3 +260,8 @@ def test_launcher_refusals():
             launch_serve.main(argv + ["--mesh", "2"] + flag)
     with pytest.raises(ValueError, match="bad mesh spec"):
         launch_serve.main(argv + ["--mesh", "2y2"])
+    # the vlm and audio families are not served under a mesh yet
+    for arch in ("whisper-base", "llama-3.2-vision-90b"):
+        with pytest.raises(NotImplementedError, match="A10"):
+            launch_serve.main(["--arch", arch, "--reduced", "--device",
+                               "cpu", "--mesh", "2"])

@@ -337,13 +337,25 @@ def test_launch_serve_int8_flag_runs():
     ("--mesh=2", "A10"), ("--sp-kv", "A10"), ("--open-loop", "A7"),
     ("--chunk-policy=stall_free", "A7")])
 def test_launch_serve_refuses_what_is_not_ported(flag, item):
-    """The mesh options (A10) still raise.  A7's open-loop front end and
-    stall-free chunk policy are ported: on the CPU they run through the
-    front end's model clock, and every request completes."""
+    """A10's mesh options are ported for the ssm: ``--mesh 2`` serves the
+    unsharded launcher's tokens over two slot shards, and ``--sp-kv``
+    without a mesh's model axis is refused.  A7's open-loop front end
+    and stall-free chunk policy are ported: on the CPU they run through
+    the front end's model clock, and every request completes."""
     argv = ["--arch", ARCH, "--reduced", "--device", "cpu", flag]
-    if item != "A7":
-        with pytest.raises(NotImplementedError, match=item):
+    if flag == "--sp-kv":
+        with pytest.raises(SystemExit, match="model axis"):
             launch_serve.main(argv)
+        return
+    if item == "A10":
+        unsharded = argv[:-1] + ["--slots", "2", "--requests", "3",
+                                 "--prompt-len", "8", "--gen-len", "3"]
+        base = launch_serve.main(unsharded)
+        res = launch_serve.main(unsharded + [flag])
+        assert res["mesh"]["mesh"] == {"data": 2}
+        assert sorted(res["tokens"]) == sorted(base["tokens"])
+        for rid, toks in base["tokens"].items():
+            np.testing.assert_array_equal(res["tokens"][rid], toks)
         return
     argv += ["--open-loop", "--clock", "model", "--rate", "1e4",
              "--slots", "2", "--requests", "3", "--prompt-len", "8",
